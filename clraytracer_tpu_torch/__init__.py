@@ -1,0 +1,19 @@
+"""clraytracer_tpu_torch — the ray tracer in PyTorch with hand-written CUDA
+kernels for the NVIDIA H100 (sm_90a).
+
+A port of ``clraytracer_tpu`` (JAX/Pallas on a TPU), which stays beside it
+as the reference. This package imports neither JAX nor the reference
+package: it keeps its own copies of the host-side code (configuration,
+scene builder, BVH and cluster builders, procedural textures).
+
+The ported path is the default forward frame (``render.render_frame``) on
+all-procedural scenes: one launch of the fused frame kernel
+(csrc/render.cu), which shares its traversal with the hit-record kernel
+(csrc/trace.cu). Public entry points run on the CUDA card unless the
+caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
+run instead.
+"""
+
+__version__ = "0.1.0"
+
+from clraytracer_tpu_torch.config import CameraConfig, RenderConfig  # noqa: F401
