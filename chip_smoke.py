@@ -4,8 +4,9 @@
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, drives the
-main path (``render.render_frame``, the default frame) on three scenes,
-and prints one JSON line per phase:
+main paths (``render.render_frame``, the default frame, on three scenes;
+``diff.image_loss_and_grads``, the differentiable step) and prints one
+JSON line per phase:
 
 1. device: card name and power limit, torch/CUDA versions, build seconds
 2. trace: K2.1 vs ``trace_plain`` on ``two`` (320x240 camera rays + 4096
@@ -23,9 +24,20 @@ and prints one JSON line per phase:
    camera rays: one K2.1 launch per call (and no K2.2)
 5. profile: torch.profiler over 10 frames of (a), device time by kernel
    and the device's idle share against (a)'s unprofiled frame time
-6. kernels: each kernel against its plain version at (a)'s shapes, then
+6. diff: the differentiable step ``diff.image_loss_and_grads``.
+   (e) ``sphere`` 4224 tris at 1920x1080, 2 bounces, L2 against black
+   (the JAX bench's grads row): step ms (CUDA events, median of 10 after
+   2 warm-ups), fwd+bwd Mrays/s = W*H*bounces/step, launches per step
+   (K2.1, K2.3 and K2.4 twice each), peak memory, finite gradients that
+   are nonzero on albedo, v0 and the instance transforms; K2.3 (bit-exact)
+   and K2.4 (within 1e-5 * sum|g| + 1e-7) against their plain versions and
+   library calls on the step's own inputs; torch.profiler over 3 steps.
+   (f) the card's step against the CPU step (plain versions) on ``two``
+   and ``sphere`` at 160x120. (g) 5 Adam steps of ``cli.fit`` on
+   ``two``'s albedo at 1249x720: the loss falls
+7. kernels: each kernel against its plain version at (a)'s shapes, then
    the kernels line: per kernel its TPU counterpart, launches on its path,
-   error against the plain version, ms, plain ms, bound ms
+   error against the plain version, ms, plain ms, bound ms, library ms
 
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
@@ -78,6 +90,13 @@ MAIN = (
     ("c", "sphere", None, 1920, 1080),
 )
 FRAMES, WARMUP = 20, 3
+# differentiable step (phase diff): (e) the JAX bench's grads configuration
+# (bench.py:217, sphere --tris 4096 → 4224 triangles), (f) card vs CPU at
+# DIFF_CHECK_WH, (g) Adam steps of ``fit`` on ``two``'s albedo
+DIFF_E = ("e", "sphere", 4096, 1920, 1080)
+DIFF_CHECK_WH = (160, 120)
+DIFF_G = ("g", "two", 1249, 720, 5)
+STEPS, STEP_WARMUP = 10, 2
 
 
 def emit(obj) -> None:
@@ -454,18 +473,78 @@ def phase_main(dev, results, tris_large: int) -> None:
         raise SystemExit("main path d failed")
 
 
-def phase_profile(dev, results) -> None:
-    """torch.profiler over 10 frames of config (a): device time by kernel
+def device_profile(fn, reps: int, step_ms: float) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn``: device time by kernel
     (the trace's ``kernel``/``gpu_mem*`` events) and the device's idle
-    share, 1 - busy / frame, where busy is the union of the device
-    intervals per frame and frame is phase 4's CUDA-event median of (a),
-    taken without the profiler (its host-side tracing slows the launches
-    and so stretches the profiled span)."""
+    share, 1 - busy / step, where busy is the union of the device
+    intervals per call and ``step_ms`` the call's CUDA-event median taken
+    without the profiler (its host-side tracing slows the launches and so
+    stretches the profiled span)."""
     import os
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev_ev = [
+        e for e in events
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+    ]
+    if not dev_ev:
+        raise SystemExit("profile: the trace holds no device events")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev_ev)
+    busy, end = 0.0, spans[0][0]  # union of the device intervals, in us
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = spans[-1][1] - spans[0][0]
+    by_name: dict = {}
+    for e in dev_ev:
+        dt, c = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (dt + float(e["dur"]), c + 1)
+    rows = sorted(((dt, k, c) for k, (dt, c) in by_name.items()), reverse=True)
+    ops = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            ops.append((float(us), e.key, int(e.count)))
+    ops.sort(reverse=True)
+    return {
+        "device_busy_ms_per_call": busy / reps / 1e3,
+        "device_idle_share": 1.0 - busy / reps / 1e3 / step_ms,
+        "profiled_wall_ms_per_call": wall_us / reps / 1e3,
+        "profiled_device_span_ms_per_call": span / reps / 1e3,
+        "device_launches_per_call": len(dev_ev) / reps,
+        "kernels": [
+            {"name": k[:80], "ms_per_call": dt / reps / 1e3, "calls_per_call": c / reps}
+            for dt, k, c in rows[:12]
+        ],
+        "ops": [  # torch ops by the device time of their own kernels
+            {"op": k[:80], "ms_per_call": us / reps / 1e3, "calls_per_call": c / reps}
+            for us, k, c in ops[:15]
+        ],
+    }
+
+
+def phase_profile(dev, results) -> None:
+    """torch.profiler over 10 frames of config (a), against (a)'s
+    unprofiled frame time from phase 4 (``device_profile``)."""
+    import torch
 
     from clraytracer_tpu_torch.camera import Camera
     from clraytracer_tpu_torch.cli import build_scene
@@ -482,50 +561,311 @@ def phase_profile(dev, results) -> None:
         render_frame(scene, frame, cfg)
     torch.cuda.synchronize()
     reps = 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            render_frame(scene, frame, cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dev_ev = [
-        e for e in events
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-    ]
-    if not dev_ev:
-        raise SystemExit("profile phase: the trace holds no device events")
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev_ev)
-    busy, end = 0.0, spans[0][0]  # union of the device intervals, in us
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    span = spans[-1][1] - spans[0][0]
     frame_ms = results["main"][0]["frame_ms"]
-    by_name: dict = {}
-    for e in dev_ev:
-        dt, c = by_name.get(e["name"], (0.0, 0))
-        by_name[e["name"]] = (dt + float(e["dur"]), c + 1)
-    rows = sorted(((dt, k, c) for k, (dt, c) in by_name.items()), reverse=True)
+    prof = device_profile(lambda: render_frame(scene, frame, cfg), reps, frame_ms)
     results["profile"] = {
         "phase": "profile", "config": "a", "frames": reps,
-        "frame_ms_unprofiled": frame_ms,
-        "device_busy_ms_per_frame": busy / reps / 1e3,
-        "device_idle_share": 1.0 - busy / reps / 1e3 / frame_ms,
-        "profiled_wall_ms_per_frame": wall_us / reps / 1e3,
-        "profiled_device_span_ms_per_frame": span / reps / 1e3,
-        "device_launches_per_frame": len(dev_ev) / reps,
-        "kernels": [
-            {"name": k[:80], "ms_per_frame": dt / reps / 1e3, "calls_per_frame": c / reps}
-            for dt, k, c in rows[:12]
-        ],
+        "frame_ms_unprofiled": frame_ms, **prof,
     }
     emit(results["profile"])
+
+
+def cli_camera(w: int, h: int):
+    from clraytracer_tpu_torch.camera import Camera
+    from clraytracer_tpu_torch.config import CameraConfig
+
+    return Camera.create(CameraConfig(position=CAMERA), w, h)
+
+
+def diff_frame(w: int, h: int, dev):
+    """Frame inputs of the smoke camera, moved to the card once."""
+    import torch
+
+    from clraytracer_tpu_torch.render import FrameInputs, frame_inputs_from_camera
+
+    frame = frame_inputs_from_camera(cli_camera(w, h), SUN)
+    return FrameInputs(*(torch.as_tensor(x).to(dev) for x in frame))
+
+
+def grads_disagree(got: dict, ref: dict) -> list:
+    """Keys whose card gradients disagree with the CPU step's: aggregated
+    leaves (materials, instances) to rtol 1e-3, per-row leaves (tris,
+    atlas) on >= 99% of rows within 1e-3 |g| + 1e-4 max |g|; every other
+    leaf zero in both. Non-finite values disagree."""
+    import torch
+
+    bad = []
+    for key, r in ref.items():
+        a, b = r.double().cpu(), got[key].double().cpu()
+        group = key.split(".")[0]
+        scale = float(a.abs().max())
+        if not bool(torch.isfinite(b).all()):
+            bad.append(key)
+            continue
+        if group in ("tris", "atlas"):
+            close = (b - a).abs() <= 1e-3 * a.abs() + 1e-4 * scale
+            frac = float(close.reshape(close.shape[0], -1).all(dim=1).double().mean())
+            ok = frac >= 0.99
+        elif group in ("materials", "instances"):
+            ok = bool(((b - a).abs() <= 1e-3 * a.abs() + 1e-6 * scale).all())
+        else:
+            ok = not bool(a.any()) and not bool(b.any())
+        if not ok:
+            bad.append(key)
+    return bad
+
+
+def reset_counts() -> None:
+    from clraytracer_tpu_torch.ops import gather_rows as gr
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+
+    rf.render_cuda.launches = 0
+    tr.trace_cuda.launches = 0
+    gr.gather_rows_cuda.launches = 0
+    gr.scatter_rows_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    from clraytracer_tpu_torch.ops import gather_rows as gr
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+
+    return {"K2.1": tr.trace_cuda.launches, "K2.2": rf.render_cuda.launches,
+            "K2.3": gr.gather_rows_cuda.launches,
+            "K2.4": gr.scatter_rows_cuda.launches}
+
+
+def check_gather_kernels(gathers, scatters) -> dict:
+    """K2.3 and K2.4 against their plain versions and library calls on the
+    step's own inputs (bounce 0's gather and its scatter, which the
+    backward runs last), timed with CUDA events."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import gather_rows as gr
+
+    out = {"K2.3": {"cases": []}, "K2.4": {"cases": []}}
+    for b, (table, idx) in enumerate(gathers):
+        got = gr.gather_rows_cuda(table, idx)
+        ref = gr.gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        out["K2.3"]["cases"].append({
+            "bounce": b, "bit_exact": bool(torch.equal(got, ref)),
+            "max_abs_err": float((got - ref).abs().max()),
+        })
+    for b, (g, idx, t_rows) in enumerate(reversed(scatters)):
+        got = gr.scatter_rows_cuda(g, idx, t_rows)
+        ref = gr.scatter_rows_plain(g, idx, t_rows)
+        mag = gr.scatter_rows_plain(g.abs(), idx, t_rows)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        out["K2.4"]["cases"].append({
+            "bounce": b, "max_abs_err": float(err.max()),
+            "max_err_over_tol": float((err / (1e-5 * mag + 1e-7)).max()),
+            "within_tol": bool((err <= 1e-5 * mag + 1e-7).all()),
+            "nonzero_terms": int((g != 0).sum()), "terms": g.numel(),
+        })
+    out["K2.3"]["ok"] = all(c["bit_exact"] for c in out["K2.3"]["cases"])
+    out["K2.4"]["ok"] = all(c["within_tol"] for c in out["K2.4"]["cases"])
+
+    table, idx = gathers[0]
+    g, gidx, t_rows = scatters[-1]
+    n, w = idx.numel(), table.shape[1]
+    table_t = table.t().contiguous()
+    reps = 20
+    bytes_moved = n * 4 + n * w * 4 + t_rows * w * 4
+    k3 = {
+        "ms": event_ms(lambda: gr.gather_rows_cuda(table, idx), reps)[0],
+        "plain_ms": event_ms(lambda: gr.gather_rows_plain(table, idx), reps)[0],
+        "library_ms": event_ms(lambda: torch.index_select(table_t, 1, idx), reps)[0],
+        "bound_ms": bytes_moved / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "bytes": bytes_moved, "shape": f"table [{table.shape[0]}, {w}], idx [{n}]",
+    }
+    lib_scatter = lambda: torch.zeros(w, t_rows, device=g.device).index_add_(1, gidx, g)
+    adds = int((g != 0).sum())
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = adds / PEAK_F32 * 1e3
+    k4 = {
+        "ms": event_ms(lambda: gr.scatter_rows_cuda(g, gidx, t_rows), reps)[0],
+        "plain_ms": event_ms(lambda: gr.scatter_rows_plain(g, gidx, t_rows), reps)[0],
+        "library_ms": event_ms(lib_scatter, reps)[0],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": bytes_moved, "adds": adds,
+        "shape": f"g [{w}, {n}], idx [{n}] -> [{t_rows}, {w}]",
+    }
+    out["K2.3"].update(k3)
+    out["K2.4"].update(k4)
+    return out
+
+
+def phase_diff(dev, results) -> None:
+    """The differentiable step (``diff.image_loss_and_grads``) on the card:
+    (e) the bench's grads configuration, (f) card against CPU, (g) fit."""
+    import torch
+
+    from clraytracer_tpu_torch import cli
+    from clraytracer_tpu_torch.cli import build_scene
+    from clraytracer_tpu_torch.diff import (
+        grad_leaves,
+        image_loss_and_grads,
+        render_image_diff,
+    )
+    from clraytracer_tpu_torch.ops import gather_rows as gr
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera
+
+    # ---- (e) sphere 4224 tris, 1920x1080, 2 bounces, L2 against black
+    _tag, spec, tris, w, h = DIFF_E
+    scene = build_scene(spec, tris, device=dev)
+    frame = diff_frame(w, h, dev)
+    target = torch.zeros(h, w, 3, device=dev)
+    step = lambda: image_loss_and_grads(scene, frame, w, h, target=target)
+    step()  # first step: tables upload
+    torch.cuda.synchronize()
+    # ---- the main path's own run: counts from zero
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    ms, times = event_ms(step, STEPS, STEP_WARMUP)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    steps = STEPS + STEP_WARMUP
+    # ---- the step's split: the forward (render + loss, building the
+    # graph) alone, then the backward (autograd.grad) alone
+    s_leaf, params = grad_leaves(scene)
+    leaves = list(params.values())
+    fwd = lambda: torch.mean((render_image_diff(s_leaf, frame, w, h) - target) ** 2)
+    fwd_ms, _ = event_ms(fwd, 5, 1)
+    bwd_times = []
+    for i in range(6):
+        loss_t = fwd()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.autograd.grad(loss_t, leaves, allow_unused=True)
+        b.record()
+        b.synchronize()
+        if i:
+            bwd_times.append(a.elapsed_time(b))
+    bwd_times.sort()
+    del loss_t, s_leaf, params, leaves
+    loss, grads = step()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    nonzero = {k: float(grads[k].float().abs().max()) > 0.0
+               for k in ("materials.albedo", "tris.v0", "instances.inverse_transform")}
+    # ---- capture bounce inputs of one step for the kernel checks
+    gathers, scatters = [], []
+    real_gather, real_scatter = gr.gather_rows, gr.scatter_rows
+
+    def rec_gather(table, idx):
+        gathers.append((table.detach(), idx))
+        return real_gather(table, idx)
+
+    def rec_scatter(g, idx, t_rows):
+        scatters.append((g, idx, t_rows))
+        return real_scatter(g, idx, t_rows)
+
+    gr.gather_rows, gr.scatter_rows = rec_gather, rec_scatter
+    try:
+        step()
+    finally:
+        gr.gather_rows, gr.scatter_rows = real_gather, real_scatter
+    kern = check_gather_kernels(gathers, scatters)
+    n_rays = gathers[0][1].numel()
+    hits0 = int((gathers[0][1] != 0).sum())
+    del gathers, scatters
+    prof = device_profile(step, 3, ms)
+    line = {
+        "phase": "diff", "config": "e", "scene": spec,
+        "triangles": int(scene.tris.count), "width": w, "height": h,
+        "bounces": 2, "loss": float(loss),
+        "step_ms": ms, "step_ms_min": times[0], "step_ms_max": times[-1],
+        "mrays_per_s": w * h * 2 / (ms * 1e-3) / 1e6,
+        "forward_ms": fwd_ms, "backward_ms": bwd_times[len(bwd_times) // 2],
+        "steps": steps, "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "peak_mem_bytes": peak, "mem_before_bytes": base_mem,
+        "rays_per_bounce": n_rays, "bounce0_rays_off_row0": hits0,
+        "grads_finite": finite, "grads_nonzero": nonzero,
+        "grad_norms": {k: float(torch.linalg.vector_norm(grads[k].float()))
+                       for k in ("materials.albedo", "tris.v0",
+                                 "instances.inverse_transform")},
+        "kernels_check": {k: {"ok": v["ok"], "cases": v["cases"]}
+                          for k, v in kern.items()},
+        "profile": prof,
+    }
+    line["ok"] = (
+        finite and all(nonzero.values()) and kern["K2.3"]["ok"] and kern["K2.4"]["ok"]
+        and counts == {"K2.1": 2 * steps, "K2.2": 0, "K2.3": 2 * steps,
+                       "K2.4": 2 * steps}
+    )
+    results["diff"] = {"e": line, "kernels": kern}
+    emit(line)
+    if not line["ok"]:
+        raise SystemExit("diff (e) failed")
+    del grads
+
+    # ---- (f) the card's step against the CPU step (plain versions)
+    fw, fh = DIFF_CHECK_WH
+    for spec_f in ("two", "sphere"):
+        cpu = build_scene(spec_f, 4096, device="cpu")
+        gpu = build_scene(spec_f, 4096, device=dev)
+        fr_c = frame_inputs_from_camera(cli_camera(fw, fh), SUN)
+        fr_g = diff_frame(fw, fh, dev)
+        img_c = render_image_diff(cpu, fr_c, fw, fh, device="cpu")
+        img_g = render_image_diff(gpu, fr_g, fw, fh).cpu()
+        px_bad = float(((img_g - img_c).abs() > 1e-5).any(dim=-1).double().mean())
+        tgt = torch.zeros(fh, fw, 3)
+        loss_c, g_c = image_loss_and_grads(cpu, fr_c, fw, fh, target=tgt, device="cpu")
+        reset_counts()
+        loss_g, g_g = image_loss_and_grads(gpu, fr_g, fw, fh, target=tgt.to(dev))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        bad = grads_disagree(g_g, g_c)
+        rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        line = {
+            "phase": "diff", "config": "f", "scene": spec_f, "width": fw,
+            "height": fh, "pixels_over_1e-5": px_bad, "loss_cpu": float(loss_c),
+            "loss_card": float(loss_g), "loss_rel_err": rel,
+            "grads_disagree": bad, "launches": counts,
+            "max_rel_err": {
+                k: float((g_g[k].double().cpu() - g_c[k].double()).abs().max()
+                         / max(float(g_c[k].double().abs().max()), 1e-30))
+                for k in ("materials.albedo", "tris.v0", "instances.inverse_transform")
+            },
+        }
+        line["ok"] = (px_bad <= 0.01 and rel <= 1e-5 and not bad
+                      and counts == {"K2.1": 2, "K2.2": 0, "K2.3": 2, "K2.4": 2})
+        emit(line)
+        if not line["ok"]:
+            raise SystemExit(f"diff (f) {spec_f} failed")
+
+    # ---- (g) Adam inverse rendering of ``two``'s albedo at 1249x720
+    _tag, spec_g, gw, gh, n_steps = DIFF_G
+    scene = build_scene(spec_g, 4096, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, _fitted = cli.fit(
+        scene, frame_inputs_from_camera(cli_camera(gw, gh), SUN), gw, gh,
+        steps=n_steps, lr=0.05, seed=0,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    # the target render and every step trace and gather twice; no K2.4: the
+    # triangle table needs no gradient when only the albedo is fitted
+    want = {"K2.1": 2 * (n_steps + 1), "K2.2": 0, "K2.3": 2 * (n_steps + 1),
+            "K2.4": 0}
+    line = {
+        "phase": "diff", "config": "g", "scene": spec_g, "width": gw,
+        "height": gh, "param": "albedo", "lr": 0.05, **report,
+        "fit_wall_s": wall, "launches": counts,
+        "ok": report["loss_last"] < report["loss_first"] and counts == want,
+    }
+    emit(line)
+    if not line["ok"]:
+        raise SystemExit("diff (g) failed")
 
 
 def phase_kernels(dev, results) -> None:
@@ -604,7 +944,35 @@ def phase_kernels(dev, results) -> None:
             "library_ms": None,
             "shape": f"{w}x{h}x2 bounces, {spec} {scene.tris.count} tris",
         },
+        *diff_kernel_entries(results),
     ]})
+
+
+def diff_kernel_entries(results) -> list:
+    """K2.3 and K2.4 entries of the kernels line, from phase diff (e)."""
+    e, kern = results["diff"]["e"], results["diff"]["kernels"]
+    out = []
+    for key, name, src, fn in (
+        ("K2.3", "K2.3 gather rows (diff forward)", "clrt_gather_rows",
+         "clraytracer_tpu/ops/gather_pallas.py:77"),
+        ("K2.4", "K2.4 scatter rows (diff backward)", "clrt_scatter_rows",
+         "clraytracer_tpu/ops/gather_pallas.py:110"),
+    ):
+        k = kern[key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/gather.cu",
+            "entry": src, "replaces": fn,
+            "launches": e["launches"][key],
+            "path": f"(e) diff.image_loss_and_grads, {e['width']}x{e['height']}x2",
+            "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
+            "tolerance": ("bit-exact" if key == "K2.3"
+                          else "1e-5 * sum|g| (plain scatter of |g|) + 1e-7"),
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "shape": k["shape"],
+        })
+    return out
 
 
 def main() -> int:
@@ -641,6 +1009,7 @@ def main() -> int:
     phase_fused(dev, results)
     phase_main(dev, results, TRIS_LARGE)
     phase_profile(dev, results)
+    phase_diff(dev, results)
     phase_kernels(dev, results)
     if args.out:
         with open(args.out, "w") as f:

@@ -6,12 +6,14 @@ as the reference. This package imports neither JAX nor the reference
 package: it keeps its own copies of the host-side code (configuration,
 scene builder, BVH and cluster builders, procedural textures).
 
-The ported path is the default forward frame (``render.render_frame``) on
-all-procedural scenes: one launch of the fused frame kernel
+Two paths are ported. The default forward frame (``render.render_frame``)
+on all-procedural scenes is one launch of the fused frame kernel
 (csrc/render.cu), which shares its traversal with the hit-record kernel
-(csrc/trace.cu). Public entry points run on the CUDA card unless the
-caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
-run instead.
+(csrc/trace.cu). The differentiable step (``diff.image_loss_and_grads``)
+traces with the hit-record kernel and gathers each hit's triangle row with
+csrc/gather.cu, whose scatter-add is its backward. Public entry points run
+on the CUDA card unless the caller passes ``device="cpu"``, where the
+kernels' plain PyTorch versions run instead.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,8 @@
 Math/Camera.hpp). ``ray_directions_tiled`` is the RayGen unprojection
 (kernel_main.cl:277-287) in the render loop's screen-tile order; the fused
 frame kernel computes the same expressions per ray itself, and the plain
-frame uses this function.
+frame uses this function. ``ray_directions_planar`` gives the same rays as
+an ``[3, H, W]`` image grid for the differentiable path.
 """
 
 from __future__ import annotations
@@ -96,6 +97,18 @@ def unproject(
     ``camera._unproject_grid`` and the fused kernel's in-kernel raygen."""
     cx = (px / const(width, px)) * 2.0 - 1.0
     cy = (py / const(height, py)) * 2.0 - 1.0
+    return _unproject_grid(inverse_view, inverse_projection, cx, cy)
+
+
+def _unproject_grid(
+    inverse_view: torch.Tensor,
+    inverse_projection: torch.Tensor,
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+) -> torch.Tensor:
+    """NDC grids → normalized world directions ``[3, *cx.shape]`` (the
+    RayGen unprojection, kernel_main.cl:277-287, as explicit sums of
+    products; the JAX package's camera.py:162)."""
     ip = inverse_projection
     tx = cx * ip[0, 0] + cy * ip[1, 0] + ip[2, 0] + ip[3, 0]
     ty = cx * ip[0, 1] + cy * ip[1, 1] + ip[2, 1] + ip[3, 1]
@@ -109,6 +122,25 @@ def unproject(
     wz = tx * iv[0, 2] + ty * iv[1, 2] + tz * iv[2, 2] + iv[3, 2]
     rn = 1.0 / torch.sqrt(wx * wx + wy * wy + wz * wz)
     return torch.stack([wx * rn, wy * rn, wz * rn])
+
+
+def ray_directions_planar(
+    inverse_view: torch.Tensor,
+    inverse_projection: torch.Tensor,
+    width: int,
+    height: int,
+) -> torch.Tensor:
+    """Planar ``[3, H, W]`` normalized primary-ray directions on the
+    matrices' device (the JAX package's ``camera.ray_directions_planar``,
+    camera.py:132): ray ``j * W + i`` is pixel (i, j),
+    ``coord = (i/W, j/H) * 2 - 1``."""
+    dev = inverse_view.device
+    xs = torch.arange(width, dtype=torch.float32, device=dev)
+    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    xs = (xs / const(width, xs)) * 2.0 - 1.0
+    ys = (ys / const(height, ys)) * 2.0 - 1.0
+    cx, cy = torch.meshgrid(xs, ys, indexing="xy")  # [H, W]
+    return _unproject_grid(inverse_view, inverse_projection, cx, cy)
 
 
 def tile_pixels(

@@ -1,8 +1,11 @@
-"""Command line: render a named procedural scene to PNG.
+"""Command line: render a named procedural scene to PNG, report its
+gradients, or fit its parameters to a target image.
 
 Usage:
   python -m clraytracer_tpu_torch render --scene two --width 1024 --height 768 -o out.png
   python -m clraytracer_tpu_torch render --scene sphere --tris 1000000 --device cuda
+  python -m clraytracer_tpu_torch grads  --scene sphere --width 1920 --height 1080
+  python -m clraytracer_tpu_torch fit    --scene two --steps 100 --lr 0.05
 
 Scenes: ``sphere`` (``--tris`` sets the triangle count), ``two`` and
 ``field`` — the JAX package's named scenes (cli.py:28-74), whose textures
@@ -13,6 +16,7 @@ come with later parts of the port.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 import time
@@ -98,25 +102,168 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_grads(args) -> int:
+    """Gradient report (cli.py:201 of the JAX package): L2 loss of the
+    differentiable render against a black image, and the norms of four
+    gradient groups."""
+    import torch
+
+    from clraytracer_tpu_torch.diff import image_loss_and_grads
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera
+
+    scene = build_scene(args.scene, args.tris, device=args.device)
+    frame = frame_inputs_from_camera(_camera(args), args.sun_angle)
+    target = torch.zeros((args.height, args.width, 3), device=scene.device)
+    loss, grads = image_loss_and_grads(
+        scene, frame, args.width, args.height, target=target,
+        device=args.device, bounces=args.bounces,
+    )
+    keys = ("materials.albedo", "atlas.texels", "tris.v0",
+            "instances.inverse_transform")
+    out = {
+        "loss": float(loss),
+        "grad_norms": {
+            k: float(torch.linalg.vector_norm(grads[k].float())) for k in keys
+        },
+    }
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def fit(scene_true, frame, width, height, bounces=2, param="albedo",
+        steps=100, lr=5e-2, seed=0, device=None):
+    """Inverse rendering (cli.py:232 of the JAX package): render a target
+    with the true scene, start the parameter group from
+    ``clip(0.5 + 0.1 * normal, 0, 1)`` drawn with numpy's generator from
+    ``seed``, and descend the image L2 with Adam. Returns (report, the
+    fitted scene)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from clraytracer_tpu_torch.diff import render_image_diff
+    from clraytracer_tpu_torch.ops.shade import _all_procedural
+
+    log = logging.getLogger("clraytracer_tpu_torch")
+    if param == "texels" and _all_procedural(scene_true):
+        raise ValueError(
+            "--fit-param texels: every texture of this scene is procedural, "
+            "so its texel gradients are zero by design"
+        )
+    group, field = {"albedo": ("materials", "albedo"),
+                    "texels": ("atlas", "texels")}[param]
+
+    def with_param(p):
+        g = dataclasses.replace(getattr(scene_true, group), **{field: p})
+        return dataclasses.replace(scene_true, **{group: g})
+
+    def render(s):
+        return render_image_diff(s, frame, width, height, bounces=bounces,
+                                 device=device)
+
+    # the frame moves to the device once, not in every step
+    dev = scene_true.device
+    frame = type(frame)(*(torch.as_tensor(x, dtype=torch.float32, device=dev)
+                          for x in frame))
+    with torch.no_grad():
+        target = render(scene_true)
+    leaf = getattr(getattr(scene_true, group), field)
+    rng = np.random.default_rng(seed)
+    init = np.clip(
+        np.float32(0.5)
+        + np.float32(0.1) * rng.standard_normal(leaf.shape).astype(np.float32),
+        0.0, 1.0,
+    )
+    p = torch.tensor(init, dtype=leaf.dtype, device=leaf.device, requires_grad=True)
+    opt = torch.optim.Adam([p], lr=lr)
+    losses = []
+    for i in range(steps):
+        opt.zero_grad()
+        loss = torch.mean((render(with_param(p)) - target) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        if i % max(1, steps // 10) == 0:
+            log.info("fit step %d: loss %.6g", i, float(losses[-1]))
+    losses = [float(x) for x in losses]
+    init_t = torch.as_tensor(init, device=leaf.device)
+    report = {
+        "param": param,
+        "steps": steps,
+        "loss_first": losses[0],
+        "loss_last": losses[-1],
+        "losses": losses,
+        "param_mae_init": float((init_t - leaf).abs().mean()),
+        "param_mae_final": float((p.detach() - leaf).abs().mean()),
+    }
+    return report, with_param(p.detach())
+
+
+def cmd_fit(args) -> int:
+    from clraytracer_tpu_torch.diff import render_image_diff
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera, save_png
+
+    scene_true = build_scene(args.scene, args.tris, device=args.device)
+    frame = frame_inputs_from_camera(_camera(args), args.sun_angle)
+    report, fitted = fit(
+        scene_true, frame, args.width, args.height, args.bounces,
+        args.fit_param, args.steps, args.lr, args.seed, args.device,
+    )
+    report.pop("losses")
+    print(json.dumps(report, indent=2))
+    if args.output:
+        img = render_image_diff(fitted, frame, args.width, args.height,
+                                bounces=args.bounces, device=args.device)
+        save_png(args.output, img.detach().cpu().numpy())
+        logging.getLogger("clraytracer_tpu_torch").info("wrote %s", args.output)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     ap = argparse.ArgumentParser(prog="clraytracer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def common(p):
+        p.add_argument("--scene", default="sphere", help="sphere | two | field")
+        p.add_argument("--width", type=int, default=1024)
+        p.add_argument("--height", type=int, default=768)
+        p.add_argument("--tris", type=int, default=4096)
+        p.add_argument("--bounces", type=int, default=2)
+        p.add_argument("--sun-angle", type=float, default=-1.96)
+        p.add_argument("--camera-pos", type=float, nargs=3,
+                       default=[0.13, 0.21, 10.0])
+        p.add_argument("--yaw", type=float, default=-90.0)
+        p.add_argument("--pitch", type=float, default=0.0)
+        p.add_argument("--device", default=None,
+                       help="cuda (default) | cpu (the kernels' plain versions)")
+
     p = sub.add_parser("render", help="render a frame to PNG")
-    p.add_argument("--scene", default="sphere", help="sphere | two | field")
-    p.add_argument("--width", type=int, default=1024)
-    p.add_argument("--height", type=int, default=768)
-    p.add_argument("--tris", type=int, default=4096)
-    p.add_argument("--bounces", type=int, default=2)
-    p.add_argument("--sun-angle", type=float, default=-1.96)
-    p.add_argument("--camera-pos", type=float, nargs=3, default=[0.13, 0.21, 10.0])
-    p.add_argument("--yaw", type=float, default=-90.0)
-    p.add_argument("--pitch", type=float, default=0.0)
-    p.add_argument("--device", default=None,
-                   help="cuda (default) | cpu (the kernels' plain versions)")
+    common(p)
     p.add_argument("-o", "--output", default="render.png")
     p.add_argument("--no-post", action="store_true")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("grads", help="gradient report (L2 against black)")
+    common(p)
+    p.set_defaults(fn=cmd_grads)
+
+    p = sub.add_parser(
+        "fit", help="inverse rendering: recover parameters from a target"
+    )
+    common(p)
+    p.add_argument("--fit-param", choices=("albedo", "texels"), default="albedo",
+                   help="texels needs a scene with imported textures")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=5e-2)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of numpy's generator for the initial guess "
+                   "(not the JAX package's jax.random draw, so the two CLIs "
+                   "start from different guesses)")
+    p.add_argument("-o", "--output", default=None,
+                   help="write the render of the fitted scene here")
+    p.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -25,5 +25,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 def const(value: float, like: torch.Tensor) -> torch.Tensor:
     """A 0-dim f32 tensor on ``like``'s device. Dividing by it is an IEEE
     division on every device; dividing a CUDA tensor by a Python float is
-    computed as a product with the reciprocal, which can differ by one ulp."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    computed as a product with the reciprocal, which can differ by one ulp.
+    Made by a fill on the device: a copy from host memory would wait for
+    the stream to drain."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)

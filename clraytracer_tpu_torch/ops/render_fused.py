@@ -64,7 +64,9 @@ class FrameTables:
 
 
 def frame_tables(scene: Scene) -> FrameTables:
-    cached = scene.__dict__.get("_frame_tables")
+    """Built on first use and kept with the scene's ``packed`` object, so
+    scenes that share it share the tables."""
+    cached = scene.packed.__dict__.get("_frame_tables")
     if cached is not None:
         return cached
     descs = tuple(
@@ -79,7 +81,7 @@ def frame_tables(scene: Scene) -> FrameTables:
     ft = FrameTables(
         mat_rows=scene.packed.mat_rows.float().contiguous(), tex=tex, descs=descs
     )
-    scene.__dict__["_frame_tables"] = ft
+    scene.packed.__dict__["_frame_tables"] = ft
     return ft
 
 

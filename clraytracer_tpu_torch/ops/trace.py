@@ -12,7 +12,7 @@ version.
   planar ``[3, ...]`` rays in, a ``SceneHit`` out.
 
 Both versions read ``KernelTables``: the scene's cluster tables re-laid
-once per scene and device into per-slot rows ([S, 12] planes, [S, 16]
+once per cluster and packed tables into per-slot rows ([S, 12] planes, [S, 16]
 attributes) and one AABB per row ([N, 8]).
 """
 
@@ -84,20 +84,23 @@ def _per_slot(*tables: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_tables(scene: Scene) -> KernelTables:
-    """The scene's traversal tables, built on first use and kept with the
-    scene object (a scene's tensors never change after build)."""
-    cached = scene.__dict__.get("_kernel_tables")
-    if cached is not None:
-        return cached
-    cl = scene.clusters
-    if cl is None or scene.packed is None or cl.hyper_aabb is None:
+    """The scene's traversal tables, built on first use and kept with its
+    ``clusters`` object, keyed by its ``packed`` object and instance meshes
+    (a scene's tensors never change after build): scenes that share them,
+    as a ``dataclasses.replace`` of the materials does, share the tables."""
+    cl, pk = scene.clusters, scene.packed
+    if cl is None or pk is None or cl.hyper_aabb is None:
         raise NotImplementedError(
             "scene built without cluster, hypercluster or packed tables"
         )
-    ranges = tuple(cl.mesh_ranges[m] for m in scene.instances.mesh_index)
+    mesh_index = scene.instances.mesh_index
+    cached = cl.__dict__.get("_kernel_tables")
+    if cached is not None and cached[0] is pk and cached[1] == mesh_index:
+        return cached[2]
+    ranges = tuple(cl.mesh_ranges[m] for m in mesh_index)
     dev = cl.tri_a.device
     kt = KernelTables(
-        inst=scene.packed.inst_rows.float().contiguous(),
+        inst=pk.inst_rows.float().contiguous(),
         ranges=torch.tensor(ranges, dtype=torch.int32, device=dev).reshape(-1, 4),
         hyper_box=cl.hyper_aabb.reshape(-1, 8).contiguous(),
         super_box=cl.super_aabb.reshape(-1, 8).contiguous(),
@@ -107,7 +110,7 @@ def kernel_tables(scene: Scene) -> KernelTables:
         tri_gid=cl.tri_gid.long(),
         ranges_host=ranges,
     )
-    scene.__dict__["_kernel_tables"] = kt
+    cl.__dict__["_kernel_tables"] = (pk, mesh_index, kt)
     return kt
 
 

@@ -1,4 +1,5 @@
-"""The frame pipeline: fused trace (K2.2) → deferred sky → post chain.
+"""The frame pipeline: fused trace (K2.2) → deferred sky → post chain, and
+the two-phase bounce loop of the differentiable path.
 
 ``render_frame`` runs the default frame of the JAX package's
 ``render.render_frame`` (render.py:503): 2 bounces of reference-parity
@@ -6,13 +7,19 @@ integer-colour Phong over an all-procedural scene, post on, FXAA off, one
 sample. On a CUDA scene the frame is one launch of the fused kernel; on a
 CPU scene it is the kernel's plain version. Every other option raises
 ``NotImplementedError`` rather than taking another computation.
+
+``trace_planar``/``bounce_loop`` (render.py:102-326 of the JAX package)
+trace and shade bounce by bounce on the float colour path with
+reference-parity shading, with a pluggable tracer:
+``diff.render_image_diff`` passes its differentiable one. The integer-
+colour two-phase path is not ported yet.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -20,10 +27,25 @@ import torch
 from clraytracer_tpu_torch.camera import Camera
 from clraytracer_tpu_torch.config import RenderConfig
 from clraytracer_tpu_torch.device import resolve_device
+from clraytracer_tpu_torch.ops import gather
 from clraytracer_tpu_torch.ops import render_fused as rf
 from clraytracer_tpu_torch.ops.post import post_process_tiled
-from clraytracer_tpu_torch.ops.shade import _all_procedural
+from clraytracer_tpu_torch.ops.shade import (
+    _all_procedural,
+    initial_bounce_state,
+    shade_hits,
+)
+from clraytracer_tpu_torch.ops.trace import SceneHit
 from clraytracer_tpu_torch.scene.types import Scene
+
+#: A tracer maps (scene, origins [3, ...], directions [3, ...], live=None)
+#: → SceneHit with [...]-shaped fields; ``live`` is a [...] bool mask of the
+#: rays still bouncing, or None on bounce 0.
+Tracer = Callable[..., SceneHit]
+
+#: test hook: False makes imported-texture scenes gather their texels in
+#: every bounce instead of once after the loop
+_DEFER_TEXELS = True
 
 
 class FrameInputs(NamedTuple):
@@ -109,6 +131,77 @@ def render_frame(
         result = post_process_tiled(result, config.width, config.height, layout)
     img = _untile(result, layout, config.height, config.width)
     return img.permute(1, 2, 0)
+
+
+def trace_planar(
+    scene: Scene,
+    origin: torch.Tensor,  # [3, *spatial]
+    direction: torch.Tensor,  # [3, *spatial]
+    sun_angle: torch.Tensor,  # [] f32
+    bounces: int,
+    tracer: Tracer,
+) -> torch.Tensor:
+    """N-bounce trace + shade over planar rays → [3, *spatial] radiance.
+    The loop runs on ``[3, rows, 128]`` rays padded to a whole strip of
+    ``render_fused.tile_rows`` rows, pad rays with origin 0 and direction
+    1 (render.py:102 of the JAX package)."""
+    spatial = tuple(direction.shape[1:])
+    n = 1
+    for s in spatial:
+        n *= s
+    tile = rf.tile_rows(n) * 128
+    n_pad = -(-n // tile) * tile
+    rows = n_pad // 128
+
+    def to_linear(x: torch.Tensor, pad_value: float) -> torch.Tensor:
+        flat = x.reshape(3, -1)
+        if n_pad != n:
+            pad = torch.full((3, n_pad - n), pad_value, dtype=flat.dtype,
+                             device=flat.device)
+            flat = torch.cat([flat, pad], dim=1)
+        return flat.reshape(3, rows, 128)
+
+    result = bounce_loop(
+        scene, to_linear(origin, 0.0), to_linear(direction, 1.0), sun_angle,
+        bounces, tracer,
+    )
+    return result.reshape(3, -1)[:, :n].reshape((3,) + spatial)
+
+
+def bounce_loop(
+    scene: Scene,
+    origin: torch.Tensor,  # [3, rows, 128]
+    direction: torch.Tensor,  # [3, rows, 128]
+    sun_angle: torch.Tensor,
+    bounces: int,
+    tracer: Tracer,
+) -> torch.Tensor:
+    """The two-phase bounce loop (render.py:155 of the JAX package): trace,
+    then shade, per bounce. Bounce 0 traces every ray; later bounces pass
+    the alive mask, so dead lanes cost no traversal. Imported-texture
+    scenes gather every bounce's texels in one combined gather after the
+    loop (render.py:306-325)."""
+    state = initial_bounce_state(origin, direction, sun_angle)
+    defer_list: list | None = [] if _DEFER_TEXELS else None
+    for b in range(bounces):
+        if b == 0:
+            hit = tracer(scene, state.origin, state.direction)
+        else:
+            hit = tracer(scene, state.origin, state.direction, live=state.alive)
+        state = shade_hits(
+            scene, state, t=hit.t, hit=hit.hit, instance_idx=hit.instance,
+            attrs=(hit.attr_normal, hit.attr_uu, hit.attr_vv, hit.attr_mat),
+            deferred=defer_list,
+        )
+    if not defer_list:
+        return state.result
+    idx_all = torch.stack([d[0] for d in defer_list])  # [B, rows, 128]
+    tex_all = gather.take_rgb(scene.atlas.texels, idx_all)  # [3, B, rows, 128]
+    res = state.result
+    for b, (_idx, f1, f2) in enumerate(defer_list):
+        tx = tex_all[:, b]
+        res = res + tx * f1 + tx * f2
+    return res
 
 
 def render(

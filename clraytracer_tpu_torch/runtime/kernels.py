@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("trace.cu", "render.cu")
+SOURCES = ("trace.cu", "render.cu", "gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -136,6 +136,12 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     fn.argtypes = [
         ctypes.POINTER(SceneTablesC), ctypes.POINTER(RenderParamsC), vp, vp, vp,
     ]
+    fn = libs["gather.cu"].clrt_gather_rows
+    fn.restype = ci
+    fn.argtypes = [vp, ci, ci, vp, ci, vp, vp]
+    fn = libs["gather.cu"].clrt_scatter_rows
+    fn.restype = ci
+    fn.argtypes = [vp, vp, ci, ci, ci, vp, vp]
 
 
 def check(code: int, what: str) -> None:

@@ -17,6 +17,7 @@ from clraytracer_tpu_torch import render as trender
 from clraytracer_tpu_torch.camera import Camera
 from clraytracer_tpu_torch.cli import build_scene
 from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
+from clraytracer_tpu_torch.ops import gather_rows as gr
 from clraytracer_tpu_torch.ops import render_fused as rf
 from clraytracer_tpu_torch.ops import trace as tr
 
@@ -148,3 +149,82 @@ def test_render_frame_launches_one_kernel_on_card():
     assert (rf.render_cuda.launches, tr.trace_cuda.launches) == (
         before[0] + 1, before[1],
     )
+
+
+def test_gather_wrappers_refuse_cpu_tensors():
+    table = torch.zeros(8, 25)
+    idx = torch.zeros(16, dtype=torch.int32)
+    before = (gr.gather_rows_cuda.launches, gr.scatter_rows_cuda.launches)
+    with pytest.raises(ValueError):
+        gr.gather_rows_cuda(table, idx)
+    with pytest.raises(ValueError):
+        gr.scatter_rows_cuda(torch.zeros(25, 16), idx, 8)
+    assert (gr.gather_rows_cuda.launches, gr.scatter_rows_cuda.launches) == before
+
+
+def _gather_case(dev, t_rows, n, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = torch.randn(t_rows, 25, generator=g) * 100.0
+    idx = torch.randint(-3, t_rows + 3, (n,), generator=g, dtype=torch.int32)
+    # coherent runs and a hot row 0, as the tracer's misses give
+    idx[: n // 2] = 0
+    cot = torch.randn(25, n, generator=g)
+    cot[:, : n // 2] = 0.0
+    cot[:, n // 2 : n // 2 + 50] = -0.0
+    return table.to(dev), idx.to(dev), cot.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_rows", [1, 4224, 20000])
+def test_gather_kernel_bit_exact_on_card(t_rows):
+    """K2.3 against index_select at clamped indices: bit for bit, any T
+    (the TPU kernel stopped at 16384 rows)."""
+    dev = _card()
+    table, idx, _ = _gather_case(dev, t_rows, 300_001)
+    got = gr.gather_rows_cuda(table, idx)
+    ref = gr.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_rows", [1, 4224, 20000])
+def test_scatter_kernel_matches_plain_on_card(t_rows):
+    """K2.4 against index_add_: per element within 1e-5 * sum |g| + 1e-7
+    (atomics add in a varying order); rows nothing lands on are +0."""
+    dev = _card()
+    _, idx, cot = _gather_case(dev, t_rows, 300_001, seed=1)
+    got = gr.scatter_rows_cuda(cot, idx, t_rows)
+    ref = gr.scatter_rows_plain(cot, idx, t_rows)
+    mag = gr.scatter_rows_plain(cot.abs(), idx, t_rows)
+    torch.cuda.synchronize()
+    assert ((got - ref).abs() <= 1e-5 * mag + 1e-7).all()
+    assert not torch.signbit(got[mag == 0]).any()
+
+
+@pytest.mark.cuda
+def test_diff_step_on_card_matches_cpu():
+    """image_loss_and_grads on the card (K2.1, K2.3, K2.4, two launches
+    each) against the CPU step (plain versions) on ``two`` at 160x120."""
+    from chip_smoke import grads_disagree
+    from clraytracer_tpu_torch.diff import image_loss_and_grads, render_image_diff
+
+    dev = _card()
+    frame = trender.frame_inputs_from_camera(Camera.create(CAMERA, W, H), -1.96)
+    cpu, gpu = build_scene("two", device="cpu"), build_scene("two", device=dev)
+    img_c = render_image_diff(cpu, frame, W, H, device="cpu")
+    img_g = render_image_diff(gpu, frame, W, H).cpu()
+    bad = ((img_g - img_c).abs() > 1e-5).any(dim=-1).double().mean()
+    assert bad <= 0.01
+    target = torch.zeros(H, W, 3)
+    loss_c, g_c = image_loss_and_grads(cpu, frame, W, H, target=target, device="cpu")
+    before = (tr.trace_cuda.launches, gr.gather_rows_cuda.launches,
+              gr.scatter_rows_cuda.launches)
+    loss_g, g_g = image_loss_and_grads(gpu, frame, W, H, target=target.to(dev))
+    torch.cuda.synchronize()
+    after = (tr.trace_cuda.launches, gr.gather_rows_cuda.launches,
+             gr.scatter_rows_cuda.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    assert set(g_g) == set(g_c)
+    assert grads_disagree(g_g, g_c) == []

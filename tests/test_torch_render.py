@@ -138,6 +138,12 @@ def test_port_imports_no_jax():
         "cam = Camera.create(CameraConfig(position=(0.13, 0.21, 10.0)), 32, 24)\n"
         "img = render(s, cam, RenderConfig(width=32, height=24), device='cpu')\n"
         "assert img.shape == (24, 32, 3), img.shape\n"
+        "from clraytracer_tpu_torch.diff import image_loss_and_grads\n"
+        "from clraytracer_tpu_torch.render import frame_inputs_from_camera\n"
+        "from clraytracer_tpu_torch import cli\n"
+        "loss, g = image_loss_and_grads(s, frame_inputs_from_camera(cam, -1.96),\n"
+        "                               32, 24, device='cpu')\n"
+        "assert g['materials.albedo'].abs().max() > 0, g\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'clraytracer_tpu' or m.startswith('clraytracer_tpu.')]\n"
         "assert not bad, bad\n"

@@ -169,3 +169,24 @@ def test_trace_matches_brute_multi_hyper(multi_hyper):
     ht = ttrace.trace(port, torch.from_numpy(o), torch.from_numpy(d))
     assert np.asarray(hb.hit).sum() > 20
     assert_hits_match(hb, ht)
+
+
+def test_tables_shared_by_scenes_sharing_clusters_and_packed(port_scenes):
+    """A ``dataclasses.replace`` of the materials (one fit step) keeps the
+    traversal and frame tables: they are keyed on the scene's ``clusters``
+    and ``packed`` objects, not on the Scene."""
+    import dataclasses
+
+    from clraytracer_tpu_torch.ops import render_fused
+
+    scene = port_scenes["two_instance_scene"]
+    mats = dataclasses.replace(
+        scene.materials, albedo=scene.materials.albedo.clone()
+    )
+    other = dataclasses.replace(scene, materials=mats)
+    assert ttrace.kernel_tables(other) is ttrace.kernel_tables(scene)
+    assert render_fused.frame_tables(other) is render_fused.frame_tables(scene)
+    rebuilt = dataclasses.replace(
+        scene, packed=dataclasses.replace(scene.packed)
+    )
+    assert ttrace.kernel_tables(rebuilt) is not ttrace.kernel_tables(scene)
