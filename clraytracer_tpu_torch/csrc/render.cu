@@ -1,6 +1,6 @@
 // K2.2 — fused forward frame: raygen, then per bounce traverse, shade
 // (reference-parity integer-colour Phong with in-register procedural
-// texels) and reflect, all per ray in registers.
+// texels) and reflect, per ray in registers.
 //
 // Replaces clraytracer_tpu/ops/render_pallas.py:_make_render_kernel
 // (launched by _render_tiles, entry render_fused_camera) in its camera
@@ -15,12 +15,20 @@
 // ray i = row i / 128, lane i % 128 of the screen-tile order (a trows x 128
 // pixel strip per trows rows).
 //
-// Bound on the H100: the traversal (traverse.cuh) dominates and is
-// latency/issue-bound; shading is a few hundred FP32 operations per ray.
-// The only DRAM traffic the frame needs is the 36 B/ray output plus the
-// scene tables. Design: one thread per ray, 128 threads per block (one
-// 128-pixel row of a strip), the material row and texture descriptor read
-// directly by index instead of the TPU kernel's static select loops.
+// Bound on the H100: its least time is the 36 B/ray output in a small
+// scene and the walk's operations in a large one (the 1M-triangle
+// sphere); shading is a few hundred FP32 operations per hit ray. What
+// holds it above both is the traversal's latency; what held the old
+// per-ray walk back, and the warp-cooperative walk that replaces it, are
+// in traverse.cuh.
+// Design here: a block of 128 threads is four warps; each warp takes an
+// 8 x 4 pixel tile (4 consecutive strip rows, 32 columns per block), so
+// the warp's bounce-0 rays are coherent in both screen directions, and
+// writes its outputs at their strip-order index i. Rays that missed stay
+// in the warp's walk as dead lanes; a bounce ends the loop only when every
+// lane of the warp has missed. The material row and texture descriptor
+// are read directly by index instead of the TPU kernel's static select
+// loops; everything is inlined, so the per-ray arrays live in registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false.
 // No --use_fast_math: divisions and sqrtf stay IEEE, and 1.0f / sqrtf(x)
@@ -45,17 +53,21 @@ enum {
 };
 enum { KIND_CONSTANT = 0, KIND_CHECKER = 1, KIND_SKY = 2 };
 
+struct Rgb {
+  float c[3];
+};
+
 // procedural_tex._eval at integer texel coords (i, j): byte values
-__device__ __forceinline__ void eval_texel(const float* d, float i, float j,
-                                           float rgb[3]) {
+__device__ __forceinline__ Rgb eval_texel(const float* d, float i, float j) {
+  Rgb rgb;
   const int kind = (int)d[TEX_KIND];
   if (kind == KIND_CONSTANT) {
-    for (int c = 0; c < 3; ++c) rgb[c] = d[TEX_RGB0 + c];
+    for (int c = 0; c < 3; ++c) rgb.c[c] = d[TEX_RGB0 + c];
   } else if (kind == KIND_CHECKER) {
     const float ci = floorf(i * d[TEX_RATIO]);
     const float cj = floorf(j * d[TEX_RATIO]);
     const bool odd = floorf((ci + cj) * 0.5f) * 2.0f != (ci + cj);
-    for (int c = 0; c < 3; ++c) rgb[c] = odd ? d[TEX_RGB1 + c] : d[TEX_RGB0 + c];
+    for (int c = 0; c < 3; ++c) rgb.c[c] = odd ? d[TEX_RGB1 + c] : d[TEX_RGB0 + c];
   } else {
     const float half = d[TEX_HALF];
     const bool upper = j < half;
@@ -63,69 +75,82 @@ __device__ __forceinline__ void eval_texel(const float* d, float i, float j,
     for (int c = 0; c < 3; ++c) {
       const float z = d[TEX_RGB0 + c], hz = d[TEX_RGB1 + c];
       const float grad = floorf((z * (half - jj) + hz * jj) * d[TEX_INV_HALF]);
-      rgb[c] = upper ? grad : d[TEX_GROUND + c];
+      rgb.c[c] = upper ? grad : d[TEX_GROUND + c];
     }
     const float dx = i - d[TEX_SUN_I];
     const float dy = j - d[TEX_SUN_J];
     if (dx * dx + dy * dy < d[TEX_SUN_R2]) {
-      for (int c = 0; c < 3; ++c) rgb[c] = 255.0f;
+      for (int c = 0; c < 3; ++c) rgb.c[c] = 255.0f;
     }
   }
+  return rgb;
 }
 
 __global__ void __launch_bounds__(128)
 render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
               unsigned long long* counters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  TestCount cnt = {0ull, 0ull, 0ull, 0ull};
-  if (i < p.n_rays) {
-    // ---- raygen: strip tile -> pixel -> unproject (camera._unproject_grid)
-    const int r = i / 128, lane = i % 128;
-    const int tile = r / p.trows;
-    const float px = (float)((tile % p.tiles_x) * 128 + lane);
-    const float py = (float)((tile / p.tiles_x) * p.trows + r % p.trows) + p.cam[35];
-    const float cx = (px / (float)p.width) * 2.0f - 1.0f;
-    const float cy = (py / (float)p.height) * 2.0f - 1.0f;
-    const float* ip = p.cam;
-    const float* iv = p.cam + 16;
-    float tx = cx * ip[0] + cy * ip[4] + ip[8] + ip[12];
-    float ty = cx * ip[1] + cy * ip[5] + ip[9] + ip[13];
-    float tz = cx * ip[2] + cy * ip[6] + ip[10] + ip[14];
-    const float tw = cx * ip[3] + cy * ip[7] + ip[11] + ip[15];
-    const float inv_w = 1.0f / tw;
-    tx = tx * inv_w;
-    ty = ty * inv_w;
-    tz = tz * inv_w;
-    const float wx = tx * iv[0] + ty * iv[4] + tz * iv[8] + iv[12];
-    const float wy = tx * iv[1] + ty * iv[5] + tz * iv[9] + iv[13];
-    const float wz = tx * iv[2] + ty * iv[6] + tz * iv[10] + iv[14];
-    const float rn = 1.0f / sqrtf(wx * wx + wy * wy + wz * wz);
-    float d[3] = {wx * rn, wy * rn, wz * rn};
-    float o[3] = {p.cam[32], p.cam[33], p.cam[34]};
+  __shared__ WarpStage stage[4];
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  // block b: strip rows 4 (b / 4) .. + 3, columns 32 (b % 4) .. + 31; its
+  // warp w takes columns + 8 w .. + 8 w + 7 of those rows
+  const int r = (blockIdx.x >> 2) * 4 + (wl >> 3);
+  const int lane = (blockIdx.x & 3) * 32 + warp * 8 + (wl & 7);
+  const int i = r * 128 + lane;
+  const bool valid = i < p.n_rays;
+  TestCount cnt = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
 
-    // initial light = sun direction (shade.initial_bounce_state)
-    float light[3] = {0.0f, p.sun_sin, p.sun_cos};
-    float result[3] = {0.0f, 0.0f, 0.0f};
-    float energy[3] = {1.0f, 1.0f, 1.0f};
-    float men[3] = {0.0f, 0.0f, 0.0f};
-    float mdir[3] = {0.0f, 0.0f, 0.0f};
-    const float U8 = (float)(1.0 / 255.0);
+  // ---- raygen: strip tile -> pixel -> unproject (camera._unproject_grid)
+  const int tile = r / p.trows;
+  const float px = (float)((tile % p.tiles_x) * 128 + lane);
+  const float py = (float)((tile / p.tiles_x) * p.trows + r % p.trows) + p.cam[35];
+  const float cx = (px / (float)p.width) * 2.0f - 1.0f;
+  const float cy = (py / (float)p.height) * 2.0f - 1.0f;
+  const float* ip = p.cam;
+  const float* iv = p.cam + 16;
+  float tx = cx * ip[0] + cy * ip[4] + ip[8] + ip[12];
+  float ty = cx * ip[1] + cy * ip[5] + ip[9] + ip[13];
+  float tz = cx * ip[2] + cy * ip[6] + ip[10] + ip[14];
+  const float tw = cx * ip[3] + cy * ip[7] + ip[11] + ip[15];
+  const float inv_w = 1.0f / tw;
+  tx = tx * inv_w;
+  ty = ty * inv_w;
+  tz = tz * inv_w;
+  const float wx = tx * iv[0] + ty * iv[4] + tz * iv[8] + iv[12];
+  const float wy = tx * iv[1] + ty * iv[5] + tz * iv[9] + iv[13];
+  const float wz = tx * iv[2] + ty * iv[6] + tz * iv[10] + iv[14];
+  const float rn = 1.0f / sqrtf(wx * wx + wy * wy + wz * wz);
+  float d[3] = {wx * rn, wy * rn, wz * rn};
+  float o[3] = {p.cam[32], p.cam[33], p.cam[34]};
 
-    for (int b = 0; b < p.bounces; ++b) {
-      Hit h;
-      h.t = CLRT_BIG;
-      h.u = 0.0f;
-      h.v = 0.0f;
-      h.slot = 0;
-      h.inst = 0;
-      traverse(s, o[0], o[1], o[2], d[0], d[1], d[2], h, cnt);
-      if (!(h.t < CLRT_BIG)) {  // first miss: the sky is added outside
-        for (int c = 0; c < 3; ++c) {
-          men[c] = energy[c];
-          mdir[c] = d[c];
-        }
-        break;
+  float result[3] = {0.0f, 0.0f, 0.0f};
+  float energy[3] = {1.0f, 1.0f, 1.0f};
+  const float U8 = (float)(1.0 / 255.0);
+  const size_t N = (size_t)p.n_rays;
+
+  // Only the state that later bounces read stays in registers across the
+  // walk: the miss planes are written at the first miss, and the light
+  // direction is the sun's at bounce 0 (shade.initial_bounce_state) and the
+  // ray's own direction after every reflection.
+  bool alive = valid;  // no miss yet
+  bool missed = false;
+  for (int b = 0; b < p.bounces; ++b) {
+    if (!__any_sync(CLRT_FULL, alive)) break;
+    Hit h;
+    h.t = alive ? CLRT_BIG : -CLRT_BIG;
+    h.u = 0.0f;
+    h.v = 0.0f;
+    h.slot = 0;
+    h.inst = 0;
+    traverse(s, stage[warp], alive, o[0], o[1], o[2], d[0], d[1], d[2], h, cnt);
+    if (alive && !(h.t < CLRT_BIG)) {  // first miss: the sky is added outside
+      for (int c = 0; c < 3; ++c) {
+        out[(3 + c) * N + i] = energy[c];
+        out[(6 + c) * N + i] = d[c];
       }
+      alive = false;
+      missed = true;
+    }
+    if (alive) {
       const HitAttrs a = interpolate(s, h, cnt);
       const float t = h.t;
 
@@ -167,7 +192,8 @@ render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
         const float ui = floorf(uw * td[TEX_W]);
         const float vw = a.vv - floorf(a.vv);
         const float vi = floorf(vw * td[TEX_H]);
-        eval_texel(td, ui, vi, texel);
+        const Rgb rgb = eval_texel(td, ui, vi);
+        for (int c = 0; c < 3; ++c) texel[c] = rgb.c[c];
       }
 
       // ---- integer colour modulate (shade._modulate_bytes)
@@ -178,6 +204,8 @@ render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
       }
 
       // ---- Phong, reference-parity overrides (kernel_main.cl:248-271)
+      const float light[3] = {b == 0 ? 0.0f : d[0], b == 0 ? p.sun_sin : d[1],
+                              b == 0 ? p.sun_cos : d[2]};
       const float ndl_raw =
           n[0] * (-light[0]) + n[1] * (-light[1]) + n[2] * (-light[2]);
       const float amb_m = nan_max(-ndl_raw, (float)0.1);
@@ -201,14 +229,16 @@ render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
         const float new_d = d[c] - n[c] * (2.0f * ndd);
         o[c] = new_o;
         d[c] = new_d;
-        light[c] = new_d;
       }
     }
-    const size_t N = (size_t)p.n_rays;
+  }
+  if (valid) {
     for (int c = 0; c < 3; ++c) {
       out[c * N + i] = result[c];
-      out[(3 + c) * N + i] = men[c];
-      out[(6 + c) * N + i] = mdir[c];
+      if (!missed) {
+        out[(3 + c) * N + i] = 0.0f;
+        out[(6 + c) * N + i] = 0.0f;
+      }
     }
   }
   if (counters != nullptr) add_counts(counters, cnt);
@@ -219,7 +249,8 @@ extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
                            void* stream) {
   if (p->n_rays <= 0) return 0;
   const int threads = 128;
-  const int blocks = (p->n_rays + threads - 1) / threads;
+  const int rows = (p->n_rays + 127) / 128;
+  const int blocks = (rows + 3) / 4 * 4;  // four blocks per 4 strip rows
   render_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, *p, out,
                                                               counters);
   return (int)cudaGetLastError();

@@ -7,36 +7,51 @@
 // vv | mat_local. Dead lanes (live[i] == 0) report t = -BIG and zeros, as
 // the TPU kernel does.
 //
-// Bound on the H100: see traverse.cuh (latency/issue-bound traversal).
-// Design: one thread per ray, 128 threads per block; rays arrive as six
-// [n] planes so neighbouring threads read neighbouring addresses.
+// Bound on the H100: its least time is the 68 B/ray of rays in and planes
+// out where most rays miss, the walk's operations in a large scene; what
+// holds it above both is latency (traverse.cuh): a warp's ray loads, its
+// instance row, its boxes and its stores form one dependent chain, hidden
+// only by the 24 warps an SM keeps resident. Design: one thread per ray,
+// 128 threads per block, each warp walking its 32 rays together (rays
+// i .. i + 31 are neighbours in screen order when the caller gives camera
+// rays); rays arrive as six [n] planes so neighbouring threads read
+// neighbouring addresses. Out-of-range and dead lanes stay in the warp's
+// walk and pass no box.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (no FMA contraction: parity with the JAX reference's expression order).
 #include "traverse.cuh"
 
-__global__ void __launch_bounds__(128)
+// Six blocks of 128 threads resident per SM: registers capped at 80 (a few
+// bytes spill), 24 warps to hide the walk's latency, measured faster than
+// 16 warps without spills at the main path's shapes
+// (tools/torch_walk_bench.py). render.cu, which holds shading state across
+// the walk, measured the other way and keeps its registers.
+__global__ void __launch_bounds__(128, 6)
 trace_kernel(SceneTables s, const float* __restrict__ rays,
              const float* __restrict__ live, int n, float* __restrict__ out,
              unsigned long long* counters) {
+  __shared__ WarpStage stage[4];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  TestCount cnt = {0ull, 0ull, 0ull, 0ull};
-  if (i < n) {
-    const bool alive = live == nullptr || live[i] != 0.0f;
-    Hit h;
-    h.t = alive ? CLRT_BIG : -CLRT_BIG;
-    h.u = 0.0f;
-    h.v = 0.0f;
-    h.slot = 0;
-    h.inst = 0;
-    if (alive) {
-      traverse(s, rays[i], rays[(size_t)n + i], rays[2 * (size_t)n + i],
-               rays[3 * (size_t)n + i], rays[4 * (size_t)n + i],
-               rays[5 * (size_t)n + i], h, cnt);
-    }
+  const bool valid = i < n;
+  const bool alive = valid && (live == nullptr || live[i] != 0.0f);
+  TestCount cnt = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
+  const size_t N = (size_t)n;
+  float ray[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (valid) {
+    for (int c = 0; c < 6; ++c) ray[c] = rays[c * N + i];
+  }
+  Hit h;
+  h.t = alive ? CLRT_BIG : -CLRT_BIG;
+  h.u = 0.0f;
+  h.v = 0.0f;
+  h.slot = 0;
+  h.inst = 0;
+  traverse(s, stage[threadIdx.x >> 5], alive, ray[0], ray[1], ray[2], ray[3],
+           ray[4], ray[5], h, cnt);
+  if (valid) {
     HitAttrs a = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     if (fabsf(h.t) < CLRT_BIG) a = interpolate(s, h, cnt);
-    const size_t N = (size_t)n;
     out[i] = h.t;
     out[N + i] = h.u;
     out[2 * N + i] = h.v;

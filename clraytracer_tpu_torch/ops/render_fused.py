@@ -27,7 +27,13 @@ from clraytracer_tpu_torch.ops.shade import (
     _eval_skybox_inline,
     _skybox_index,
 )
-from clraytracer_tpu_torch.ops.trace import BIG, KernelTables, kernel_tables, trace_plain
+from clraytracer_tpu_torch.ops.trace import (
+    BIG,
+    KernelTables,
+    check_counters,
+    kernel_tables,
+    trace_plain,
+)
 from clraytracer_tpu_torch.scene import procedural_tex as ptex
 from clraytracer_tpu_torch.scene.types import Scene
 
@@ -249,9 +255,9 @@ def render_cuda(
     counters: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K2.2 (csrc/render.cu) → [9, rows_total*128] f32 on the
-    tables' CUDA device. ``counters``: optional int64 [4] device tensor
-    that receives the box tests, triangle tests, per-instance ray transforms
-    and interpolated (shaded) hits the launch ran."""
+    tables' CUDA device. ``counters``: optional int64 [6] device tensor
+    the launch adds its work to, in ``ops.trace.COUNTER_NAMES`` order (its
+    hits are the shaded hits)."""
     from clraytracer_tpu_torch.runtime import kernels
 
     dev = kt.planes.device
@@ -259,6 +265,7 @@ def render_cuda(
         raise ValueError("render_cuda needs the scene on a CUDA device")
     if len(cr.cam) != 36:
         raise ValueError("camera row must hold 36 floats")
+    check_counters(counters, dev)
     lib = kernels.build_all()["render.cu"]
     n = rows_total * 128
     out = torch.empty((9, n), dtype=torch.float32, device=dev)

@@ -28,6 +28,13 @@ from clraytracer_tpu_torch.ops.clusters import CLUSTER_SIZE
 from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
 
 BIG = 1e30  # rounds to the f32 miss sentinel of the kernels
+#: the kernels' optional int64 counters (csrc/traverse.cuh TestCount): work
+#: the rays' own walks needed (box tests, triangle tests, per-instance ray
+#: transforms, interpolated hits), then the warps' steps (32-child node
+#: tests, clusters staged into shared memory)
+COUNTER_NAMES = (
+    "boxes", "triangles", "ray_transforms", "hits", "node_steps", "staged_clusters",
+)
 
 
 class SceneHit(NamedTuple):
@@ -69,6 +76,9 @@ class KernelTables:
     def as_c(self):
         from clraytracer_tpu_torch.runtime.kernels import SceneTablesC
 
+        for t in (self.hyper_box, self.super_box, self.cluster_box, self.planes):
+            if t.data_ptr() % 16:
+                raise ValueError("box and plane tables must be 16-byte aligned")
         return SceneTablesC(
             self.inst.data_ptr(), self.ranges.data_ptr(),
             self.hyper_box.data_ptr(), self.super_box.data_ptr(),
@@ -81,6 +91,13 @@ def _per_slot(*tables: torch.Tensor) -> torch.Tensor:
     """[C, 128] tables of 4 components x 32 slots → [C*32, 4 * len]."""
     cols = [t.reshape(-1, 4, CLUSTER_SIZE).transpose(1, 2) for t in tables]
     return torch.cat(cols, dim=2).reshape(-1, 4 * len(tables)).contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address: the kernels read box
+    and plane rows as float4."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def kernel_tables(scene: Scene) -> KernelTables:
@@ -102,10 +119,10 @@ def kernel_tables(scene: Scene) -> KernelTables:
     kt = KernelTables(
         inst=pk.inst_rows.float().contiguous(),
         ranges=torch.tensor(ranges, dtype=torch.int32, device=dev).reshape(-1, 4),
-        hyper_box=cl.hyper_aabb.reshape(-1, 8).contiguous(),
-        super_box=cl.super_aabb.reshape(-1, 8).contiguous(),
-        cluster_box=cl.cluster_aabb.reshape(-1, 8).contiguous(),
-        planes=_per_slot(cl.tri_a, cl.tri_b, cl.tri_c),
+        hyper_box=_aligned(cl.hyper_aabb.reshape(-1, 8)),
+        super_box=_aligned(cl.super_aabb.reshape(-1, 8)),
+        cluster_box=_aligned(cl.cluster_aabb.reshape(-1, 8)),
+        planes=_aligned(_per_slot(cl.tri_a, cl.tri_b, cl.tri_c)),
         attrs=_per_slot(cl.at_a, cl.at_b, cl.at_c, cl.at_d),
         tri_gid=cl.tri_gid.long(),
         ranges_host=ranges,
@@ -204,9 +221,8 @@ def trace_cuda(
     counters: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K2.1 (csrc/trace.cu) on CUDA tensors → [11, n] f32.
-    ``counters``: optional int64 [4] device tensor that receives the box
-    tests, triangle tests, per-instance ray transforms and interpolated hits
-    the launch ran."""
+    ``counters``: optional int64 [6] device tensor the launch adds its work
+    to, in ``COUNTER_NAMES`` order."""
     from clraytracer_tpu_torch.runtime import kernels
 
     dev = rays.device
@@ -218,6 +234,7 @@ def trace_cuda(
     if live is not None and (live.shape != (n,) or live.dtype != torch.float32):
         raise ValueError("live must be an [n] f32 tensor")
     live = None if live is None else live.contiguous()
+    check_counters(counters, dev)
     lib = kernels.build_all()["trace.cu"]
     out = torch.empty((11, n), dtype=torch.float32, device=dev)
     tables = kt.as_c()
@@ -231,6 +248,18 @@ def trace_cuda(
 
 
 trace_cuda.launches = 0
+
+
+def check_counters(counters: torch.Tensor | None, dev: torch.device) -> None:
+    """The kernels add ``len(COUNTER_NAMES)`` int64 counts: refuse any
+    other tensor rather than write past it."""
+    if counters is not None and (
+        counters.shape != (len(COUNTER_NAMES),) or counters.dtype != torch.int64
+        or counters.device != dev or not counters.is_contiguous()
+    ):
+        raise ValueError(
+            f"counters must be a contiguous int64 [{len(COUNTER_NAMES)}] tensor on {dev}"
+        )
 
 
 def trace(

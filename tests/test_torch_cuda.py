@@ -23,10 +23,14 @@ from clraytracer_tpu_torch.ops import trace as tr
 
 CAMERA = CameraConfig(position=(0.13, 0.21, 10.0))
 W, H = 160, 120
-# ``sphere`` at 70k triangles: three hyper groups of superclusters
+# ``sphere`` at 70k triangles: 69 superclusters in three hyper groups
 SCENES = [("two", 4096), ("sphere", 4096), ("sphere", 70000)]
-#: K2.2 and render_fused_plain agree exactly by construction (same slot
-#: order, strict t < best); at most this many rays may differ
+#: K2.1/K2.2 and their plain versions pick the same winner by construction:
+#: the least (t, instance, slot) over the candidates, a rule that does not
+#: depend on the order the warp visits clusters in, and the kernels cull
+#: only boxes with tnear > best t. A box's float slab test can still cull a
+#: grazing hit that the plain version's brute force keeps; at most this
+#: many rays of a frame may differ
 FRAME_MISMATCH_MAX = 16
 
 
@@ -70,12 +74,26 @@ def test_wrappers_refuse_cpu_tensors():
     assert (tr.trace_cuda.launches, rf.render_cuda.launches) == before
 
 
+def _assert_trace_exact(got, ref, live=None, min_hits=100):
+    """K2.1 against trace_plain: the same hit, t, slot and instance on
+    every ray (the tie rule makes the winner independent of visit order),
+    the attributes within rtol 1e-5 / atol 1e-6; dead lanes -BIG."""
+    hit_g, hit_r = got[0].abs() < tr.BIG, ref[0].abs() < tr.BIG
+    assert torch.equal(hit_g, hit_r), int((hit_g != hit_r).sum())
+    assert hit_r.sum().item() > min_hits
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[3].view(torch.int32), ref[3].view(torch.int32))
+    assert torch.equal(got[4].view(torch.int32), ref[4].view(torch.int32))
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    if live is not None:
+        assert (got[0][live == 0] == -tr.BIG).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("spec,tris", SCENES)
 def test_trace_kernel_matches_plain_on_card(spec, tris):
-    """K2.1 against trace_plain on the same card: the hit rule of
-    tests/test_trace.py, then the attributes wherever both pick the same
-    slot (rtol 1e-5, atol 1e-6)."""
+    """K2.1 against trace_plain on the same card, with and without a live
+    mask: exact in hit, t, slot and instance (``_assert_trace_exact``)."""
     dev = _card()
     kt = tr.kernel_tables(build_scene(spec, tris, device=dev))
     rays = _camera_rays(dev)
@@ -84,15 +102,70 @@ def test_trace_kernel_matches_plain_on_card(spec, tris):
         got = tr.trace_cuda(kt, rays, lv)
         ref = tr.trace_plain(kt, rays, lv)
         torch.cuda.synchronize()
-        hit_g, hit_r = got[0].abs() < tr.BIG, ref[0].abs() < tr.BIG
-        assert (hit_g != hit_r).sum().item() <= max(1, 0.01 * rays.shape[1])
-        both = hit_g & hit_r
-        assert both.sum().item() > 100
-        same = both & (got[3].view(torch.int32) == ref[3].view(torch.int32))
-        assert same.sum().item() > 0.98 * both.sum().item()
-        torch.testing.assert_close(got[:, same], ref[:, same], rtol=1e-5, atol=1e-6)
-        if lv is not None:
-            assert (got[0][lv == 0] == -tr.BIG).all()
+        _assert_trace_exact(got, ref, lv)
+
+
+@pytest.mark.cuda
+def test_trace_kernel_tie_rule_on_card():
+    """Equal-t hits (tests/_torch_ties.py: one cube instanced twice under
+    one transform, a duplicated floor triangle): K2.1 picks the least
+    (instance, slot), as trace_plain and the brute-force rule do."""
+    from _torch_ties import lex_nearest, package, tie_recipe, tie_rays
+
+    dev = _card()
+    kt = tr.kernel_tables(tie_recipe(package("clraytracer_tpu_torch")).build(device=dev))
+    rays = torch.from_numpy(tie_rays(4096)).to(dev)
+    got = tr.trace_cuda(kt, rays)
+    ref = tr.trace_plain(kt, rays)
+    torch.cuda.synchronize()
+    _assert_trace_exact(got, ref, min_hits=1000)
+    t_ref, inst_ref, slot_ref, at_best = lex_nearest(kt, rays)
+    hit = torch.isfinite(t_ref)
+    assert torch.equal(got[4].view(torch.int32)[hit].long(), inst_ref[hit])
+    assert torch.equal(got[3].view(torch.int32)[hit].long(), slot_ref[hit])
+    assert int((at_best > 1).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_trace_kernel_ragged_and_dead_warps_on_card():
+    """4097 rays (the last warp holds one ray) and a live mask that kills
+    whole warps and every other lane of others: every lane stays in the
+    warp's collectives; no hang, no launch error, exact against
+    trace_plain."""
+    dev = _card()
+    kt = tr.kernel_tables(build_scene("two", device=dev))
+    rays = _camera_rays(dev)
+    rays = torch.cat([rays[:, ::8], rays[:, :1]], dim=1).contiguous()  # 4097
+    i = torch.arange(4097, device=dev)
+    warp = i // 32
+    live = (((warp % 4 != 1) & (i % 2 == 0)) | (warp % 4 == 3)).float()
+    assert not live[32:64].any() and live[96:128].all()
+    for lv in (None, live):
+        got = tr.trace_cuda(kt, rays, lv)
+        ref = tr.trace_plain(kt, rays, lv)
+        torch.cuda.synchronize()
+        _assert_trace_exact(got, ref, lv, min_hits=20)
+
+
+@pytest.mark.cuda
+def test_kernels_more_than_64_hyper_groups_on_card():
+    """A 2M-triangle sphere: more hyper groups in one instance than the
+    walk holds at once (traverse.cuh CLRT_HQ * 32 = 64), so its hyper
+    level runs in two batches. Both kernels against their plain versions."""
+    dev = _card()
+    scene = build_scene("sphere", 2_000_000, device=dev)
+    kt = tr.kernel_tables(scene)
+    assert -(-kt.ranges_host[0][1] // 32) > 64
+    rays = _camera_rays(dev)
+    pick = torch.randperm(rays.shape[1], generator=torch.Generator().manual_seed(0))
+    rays = rays[:, pick[:4096].to(dev)].contiguous()
+    got = tr.trace_cuda(kt, rays)
+    ref = tr.trace_plain(kt, rays)
+    torch.cuda.synchronize()
+    _assert_trace_exact(got, ref, min_hits=100)
+    args = _frame_args(scene)
+    bad = (rf.render_cuda(*args) - rf.render_fused_plain(*args, dev)).abs().amax(dim=0) > 1e-5
+    assert int(bad.sum()) <= FRAME_MISMATCH_MAX, int(bad.sum())
 
 
 @pytest.mark.cuda
@@ -112,26 +185,59 @@ def test_render_kernel_matches_plain_on_card(spec, tris):
 
 @pytest.mark.cuda
 def test_kernel_counters_on_card():
-    """The optional int64[4] counters: boxes, triangles (32 per accepted
-    cluster), ray transforms (one per instance per traversal) and hits;
-    a launch without them counts nothing."""
+    """The optional int64[6] counters (``ops.trace.COUNTER_NAMES``): boxes,
+    triangles (32 per cluster a ray reached), ray transforms (one per live
+    ray per instance per traversal), hits, the warps' 32-child node tests
+    and staged clusters; a launch without them counts nothing, and a
+    counters tensor of another shape is refused."""
     dev = _card()
     scene = build_scene("two", device=dev)
     kt = tr.kernel_tables(scene)
     rays = _camera_rays(dev)
     n = rays.shape[1]
-    cnt = torch.zeros(4, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(6, dtype=torch.int64, device=dev)
     out = tr.trace_cuda(kt, rays, None, cnt)
-    boxes, tris, xforms, hits = cnt.tolist()
+    boxes, tris, xforms, hits, steps, staged = cnt.tolist()
     assert xforms == n * kt.n_inst
     assert hits == int((out[0].abs() < tr.BIG).sum())
     assert tris % 32 == 0 and boxes >= xforms and tris > 0
-    cnt2 = torch.zeros(4, dtype=torch.int64, device=dev)
+    # a staged cluster's test serves at most the warp's 32 rays
+    assert 0 < staged and tris <= 32 * 32 * staged
+    assert steps >= -(-n // 32) * kt.n_inst
+    cnt2 = torch.zeros(6, dtype=torch.int64, device=dev)
     args = _frame_args(scene)
     rf.render_cuda(*args, cnt2)
     rows = args[6] * 128
     assert rows * kt.n_inst <= cnt2[2].item() <= 2 * rows * kt.n_inst
     assert cnt2[3].item() <= 2 * rows
+    with pytest.raises(ValueError):
+        tr.trace_cuda(kt, rays, None, torch.zeros(4, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.cuda
+def test_render_kernel_bounce1_mostly_missed_warps_on_card():
+    """A frame whose bounce-1 warps hold few live lanes: the sphere's
+    silhouette cuts the 8 x 4 pixel tiles of render.cu, so most lanes of
+    those warps missed at bounce 0 and walk bounce 1 as dead lanes. K2.2
+    against render_fused_plain by the frame rule."""
+    from clraytracer_tpu_torch.ops.render_fused import tile_rows
+
+    dev = _card()
+    scene = build_scene("sphere", device=dev)
+    args = _frame_args(scene)
+    kt, trows, rows_total = args[0], args[5], args[6]
+    # which rays hit at bounce 0, in render.cu's warp tiles (4 strip rows x
+    # 8 columns per warp)
+    hit0 = (tr.trace_plain(kt, _camera_rays(dev))[0] < tr.BIG).reshape(rows_total, 128)
+    assert trows == tile_rows(W * H)
+    per_warp = hit0.reshape(rows_total // 4, 4, 16, 8).sum(dim=(1, 3))
+    assert int(((per_warp > 0) & (per_warp <= 8)).sum()) >= 4
+    got = rf.render_cuda(*args)
+    ref = rf.render_fused_plain(*args, dev)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    bad = (got - ref).abs().amax(dim=0) > 1e-5
+    assert int(bad.sum()) <= FRAME_MISMATCH_MAX, int(bad.sum())
 
 
 @pytest.mark.cuda

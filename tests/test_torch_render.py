@@ -156,3 +156,43 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_bound_is_the_smaller_of_two():
+    """chip_smoke.py states a K2.1/K2.2 bound as the smaller of the bounds
+    from the per-ray walk's counts and from the run's own, and reads
+    nvcc's register and spill report per kernel (runs without a card)."""
+    import chip_smoke as cs
+
+    key = ("K2.2", "a", 4224)
+    many = [10**10, 0, 0, 0, 5, 6]  # far more box tests than the per-ray walk
+    b = cs.walk_bound(key, 1e6, many, 1000, shade=True)
+    assert b["bound_ms"] == b["bound_ms_per_ray_walk_counts"] < b["bound_ms_new_counts"]
+    few = [1, 0, 0, 0, 5, 6]
+    b = cs.walk_bound(key, 1e6, few, 1000, shade=True)
+    assert b["bound_ms"] == b["bound_ms_new_counts"] <= b["bound_ms_per_ray_walk_counts"]
+    assert "bound_ms_per_ray_walk_counts" not in cs.walk_bound(("K2.2", "x", 1), 1e6, few)
+    log = (
+        "ptxas info    : Compiling entry function '_Z12trace_kernelv' for 'sm_90a'\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 85 registers, used 1 barriers, 18480 bytes smem\n"
+    )
+    assert cs.ptxas_summary(log) == [{
+        "kernel": "_Z12trace_kernelv", "spill_stores": 12, "spill_loads": 8,
+        "registers": 85, "smem_bytes": 18480,
+    }]
+
+
+def test_walk_bench_needs_a_card(monkeypatch):
+    """tools/torch_walk_bench.py measures only on a card: without one it
+    exits 2 before building anything."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).parents[1] / "tools" / "torch_walk_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_walk_bench", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["torch_walk_bench.py"])
+    assert bench.main() == 2

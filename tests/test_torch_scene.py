@@ -16,6 +16,7 @@ from clraytracer_tpu.config import CameraConfig as JCameraConfig
 from clraytracer_tpu_torch import camera as tcam
 from clraytracer_tpu_torch.config import CameraConfig as TCameraConfig
 from clraytracer_tpu_torch.scene.bridge import scene_from_numpy
+from _torch_ties import package
 
 
 def flatten(scene):
@@ -109,23 +110,9 @@ def _procedural_recipe(pkg):
     return b
 
 
-def _package(name):
-    import importlib
-    import types
-
-    mod = lambda sub: importlib.import_module(f"{name}.{sub}")
-    return types.SimpleNamespace(
-        SceneBuilder=mod("scene").SceneBuilder,
-        ptex=mod("scene.procedural_tex"),
-        uv_sphere=mod("scene.procedural").uv_sphere,
-        cube=mod("scene.procedural").cube,
-        math3d=mod("math3d"),
-    )
-
-
 def test_builder_matches_jax_builder_procedural_recipe():
-    jax_scene = _procedural_recipe(_package("clraytracer_tpu")).build()
-    port = _procedural_recipe(_package("clraytracer_tpu_torch")).build(device="cpu")
+    jax_scene = _procedural_recipe(package("clraytracer_tpu")).build()
+    port = _procedural_recipe(package("clraytracer_tpu_torch")).build(device="cpu")
     assert_leaves_equal(*flatten(jax_scene), port)
 
 
@@ -150,8 +137,8 @@ def test_builder_numpy_fallback_matches_jax_builder(monkeypatch):
 
     monkeypatch.setattr(jax_fastobj, "build_bvh_native", no_native)
     monkeypatch.setattr(port_fastobj, "build_bvh_native", no_native)
-    jax_scene = _procedural_recipe(_package("clraytracer_tpu")).build()
-    port = _procedural_recipe(_package("clraytracer_tpu_torch")).build(device="cpu")
+    jax_scene = _procedural_recipe(package("clraytracer_tpu")).build()
+    port = _procedural_recipe(package("clraytracer_tpu_torch")).build(device="cpu")
     assert len(calls) == 2
     assert_leaves_equal(*flatten(jax_scene), port)
 

@@ -190,3 +190,78 @@ def test_tables_shared_by_scenes_sharing_clusters_and_packed(port_scenes):
         scene, packed=dataclasses.replace(scene.packed)
     )
     assert ttrace.kernel_tables(rebuilt) is not ttrace.kernel_tables(scene)
+
+
+@pytest.fixture(scope="module")
+def tie_scenes():
+    from _torch_ties import package, tie_recipe
+
+    return (
+        tie_recipe(package("clraytracer_tpu")).build(),
+        tie_recipe(package("clraytracer_tpu_torch")).build(device="cpu"),
+    )
+
+
+def test_trace_plain_tie_rule(tie_scenes):
+    """Equal-t hits resolve to the least (instance, slot): two instances
+    of one cube under one transform tie on every cube hit, a duplicated
+    floor triangle ties across two slots. This is the rule K2.1 keeps on
+    the card whatever order its warps visit the clusters in."""
+    from _torch_ties import lex_nearest, tie_rays
+
+    jscene, port = tie_scenes
+    kt = ttrace.kernel_tables(port)
+    rays = torch.from_numpy(tie_rays())
+    out = ttrace.trace_plain(kt, rays)
+    t_ref, inst_ref, slot_ref, at_best = lex_nearest(kt, rays)
+    hit = torch.isfinite(t_ref)
+    assert torch.equal(out[0].abs() < ttrace.BIG, hit)
+    assert torch.equal(out[0][hit], t_ref[hit])
+    assert torch.equal(out[4].view(torch.int32)[hit].long(), inst_ref[hit])
+    assert torch.equal(out[3].view(torch.int32)[hit].long(), slot_ref[hit])
+    tied = at_best > 1
+    assert int((tied & (inst_ref == 0)).sum()) > 100  # cube: instance 0 over 2
+    assert int((tied & (inst_ref == 1)).sum()) > 100  # floor: the lower slot
+
+    # t and hit against the JAX package's golden brute force
+    o, d = rays[0:3].numpy(), rays[3:6].numpy()
+    hb = trace_brute(jscene, jnp.asarray(o), jnp.asarray(d))
+    hit_b = np.asarray(hb.hit)
+    np.testing.assert_array_equal(hit.numpy(), hit_b)
+    np.testing.assert_allclose(
+        out[0].numpy()[hit_b], np.asarray(hb.t)[hit_b], rtol=1e-5, atol=1e-6
+    )
+    np.testing.assert_array_equal(
+        out[4].view(torch.int32).numpy()[hit_b], np.asarray(hb.instance)[hit_b]
+    )
+
+
+def test_counter_names_match_kernel_header():
+    """``ops.trace.COUNTER_NAMES`` is the kernels' TestCount, field for
+    field (csrc/traverse.cuh), so a counters tensor is never too short."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ttrace.__file__).parents[1] / "csrc" / "traverse.cuh").read_text()
+    n = int(re.search(r"#define CLRT_COUNTERS (\d+)", src).group(1))
+    fields = re.search(r"struct TestCount \{\s*unsigned long long ([^;]+);", src).group(1)
+    assert n == len(ttrace.COUNTER_NAMES) == len(fields.split(","))
+
+
+@pytest.mark.parametrize(
+    "shape,dtype", [((4,), torch.int64), ((6,), torch.int32), ((2, 3), torch.int64)]
+)
+def test_counters_of_another_shape_refused(shape, dtype):
+    with pytest.raises(ValueError):
+        ttrace.check_counters(torch.zeros(shape, dtype=dtype), torch.device("cpu"))
+    ttrace.check_counters(None, torch.device("cpu"))
+    ttrace.check_counters(torch.zeros(6, dtype=torch.int64), torch.device("cpu"))
+
+
+def test_kernel_tables_are_16_byte_aligned(multi_hyper):
+    """The kernels read box and plane rows as float4 (and copy planes with
+    16-byte cp.async): ``kernel_tables`` hands them aligned tables."""
+    kt = ttrace.kernel_tables(multi_hyper[1])
+    for t in (kt.hyper_box, kt.super_box, kt.cluster_box, kt.planes):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+    assert ttrace._aligned(torch.zeros(9)[1:].reshape(-1, 8)).data_ptr() % 16 == 0
