@@ -16,12 +16,15 @@ JSON line per phase:
 4. main path: ``render.render_frame`` on (a) ``sphere`` 4224 tris at
    1920x1080, (b) ``two`` at 1249x720, (c) ``sphere --tris 1000000`` at
    1920x1080; frame ms (CUDA events, median of 20 after 3 warm-ups),
-   Mrays/s = W*H*bounces/dt (no clamp), K2.2 launches per frame (must be
-   1), work counts per frame, finite image and its mean, and both kernels
-   against their plain versions on that configuration's scene (K2.1 on
-   4096 seeded camera rays, K2.2 on a 128x64 strip). Then (d)
-   the hit-query entry ``ops.trace.trace`` on (a)'s scene and 1920x1080
-   camera rays: one K2.1 launch per call (and no K2.2)
+   Mrays/s = W*H*bounces/dt (no clamp), the host's time to issue a frame,
+   K2.2 launches per frame (must be 1), work counts per frame, K2.2 and
+   the frame's torch tail piece by piece, K2.2's bounce 0 alone, K2.1 on
+   the frame's camera rays and on its hits and its misses alone, finite
+   image and its mean, and both kernels against their plain versions on
+   that configuration's scene (K2.1 on 4096 seeded camera rays, K2.2 on a
+   128x64 strip). Then (d) the hit-query entry ``ops.trace.trace`` on
+   (a)'s scene and 1920x1080 camera rays: one K2.1 launch per call (and
+   no K2.2)
 5. profile: torch.profiler over 10 frames of (a), device time by kernel
    and the device's idle share against (a)'s unprofiled frame time
 6. diff: the differentiable step ``diff.image_loss_and_grads``.
@@ -39,9 +42,10 @@ JSON line per phase:
    six work counters of K2.1/K2.2 on every main-path configuration and
    their registers and spill bytes (``-Xptxas -v``), then the kernels
    line: per kernel its TPU counterpart, launches on its path, error
-   against the plain version, ms, plain ms, bound ms (for K2.1/K2.2 the
-   smaller of the bounds from the per-ray walk's counts and from this
-   run's, both printed), library ms
+   against the plain version, ms, plain ms, bound ms (K2.1/K2.2: the
+   bytes the scene's data needs, ``walk_bytes``, and this run's counts;
+   the phase lines print beside it the bound from the per-ray walk's
+   counts), library ms
 
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
@@ -78,9 +82,9 @@ RAYGEN_OPS = 59  # render.cu per camera ray: NDC 7, invProj 24, invView 18, norm
 # Those four counts as the per-ray walk (one thread per ray, the hierarchy
 # in index order) that csrc/traverse.cuh's warp walk replaced ran them at
 # the main path's shapes (this script, NVIDIA H100 80GB HBM3, 700 W), keyed
-# by (kernel, configuration, triangles). A K2.1/K2.2 bound is the smaller
-# of the bounds from these counts and from this run's, so a walk that does
-# more work than needed cannot raise its own bound.
+# by (kernel, configuration, triangles). The phase lines print the bound
+# they give beside this run's, so a walk that needs more tests than the one
+# it replaced shows there; the kernels line holds only this run's numbers.
 PER_RAY_WALK_COUNTS = {
     ("K2.2", "a", 4224): (22337367, 14502656, 2179137, 90177),
     ("K2.2", "b", 2220): (5273356, 3669472, 2042510, 48010),
@@ -172,24 +176,58 @@ def hits_match(ref_hit, got_hit, ref_t, got_t, ref_tri, got_tri) -> dict:
 
 
 def walk_bound(key, bytes_moved, counts, camera_rays=0, shade=False) -> dict:
-    """A K2.1/K2.2 bound: the smaller of the bounds from this run's counts
-    and from the per-ray walk's at the same shapes
-    (``PER_RAY_WALK_COUNTS[key]``), both kept."""
+    """A K2.1/K2.2 bound from this run's bytes and counts, with the bound
+    the per-ray walk's counts give at the same shapes
+    (``PER_RAY_WALK_COUNTS[key]``) printed beside it."""
     from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
 
-    new_ms, new_by = bound(bytes_moved, counts, camera_rays, shade)
-    out = {"counts": dict(zip(COUNTER_NAMES, counts)),
-           "bound_ms_new_counts": new_ms, "bound_by_new_counts": new_by,
-           "bound_ms": new_ms, "bound_by": new_by}
+    ms, by = bound(bytes_moved, counts, camera_rays, shade)
+    out = {"counts": dict(zip(COUNTER_NAMES, counts)), "bytes": bytes_moved,
+           "bound_ms": ms, "bound_by": by}
     old = PER_RAY_WALK_COUNTS.get(key)
     if old is not None:
-        old_ms, old_by = bound(bytes_moved, old, camera_rays, shade)
-        out.update({"per_ray_walk_counts": dict(zip(COUNTER_NAMES, old)),
-                    "bound_ms_per_ray_walk_counts": old_ms,
-                    "bound_by_per_ray_walk_counts": old_by})
-        if old_ms < new_ms:
-            out["bound_ms"], out["bound_by"] = old_ms, old_by
+        out["bound_ms_per_ray_walk_counts"] = bound(bytes_moved, old, camera_rays, shade)[0]
     return out
+
+
+def walk_bytes(kt, clusters: int, slots: int, ft=None) -> int:
+    """Scene bytes a K2.1/K2.2 launch must read: the instance rows and box
+    tables once, the plane rows of each of ``clusters`` clusters (those
+    that hold a winning triangle: a walk opens at least those, and tests a
+    cluster's 32 triangles together, as the hierarchy has no finer box),
+    the attribute rows of the ``slots`` winning triangles, and K2.2's
+    material and texture rows once."""
+    ts = [kt.inst, kt.ranges, kt.hyper_box, kt.super_box, kt.cluster_box]
+    if ft is not None:
+        ts += [ft.mat_rows, ft.tex]
+    row = lambda t: t.shape[1] * t.element_size()
+    return (sum(t.numel() * t.element_size() for t in ts)
+            + clusters * 32 * row(kt.planes) + slots * row(kt.attrs))
+
+
+def winners(out) -> tuple[int, int]:
+    """(distinct clusters, distinct slots) that hold a winning triangle in
+    a K2.1 output [11, n]."""
+    import torch
+
+    slots = torch.unique(out[3].view(torch.int32)[out[0].abs() < 1e30])
+    return int(torch.unique(slots // 32).numel()), int(slots.numel())
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host time of one call of ``fn``: its launches issued, the
+    device drained before each call."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
 
 
 def ptxas_summary(log: str) -> list:
@@ -454,6 +492,7 @@ def phase_main(dev, results, tris_large: int) -> None:
         ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
         frames = FRAMES + WARMUP
         launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches}
+        frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
         # ---- test counts of one frame (a separate launch with counters)
         kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
         cr = rf.camera_row(frame)
@@ -466,9 +505,24 @@ def phase_main(dev, results, tris_large: int) -> None:
             10, 2,
         )
         cnt = counters.cpu().tolist()
+        # ---- the walk split: K2.2's bounce 0 alone, and K2.1 on the frame's
+        # camera rays, on the rays that hit alone and on those that miss
+        # alone (each set compacted, so that a warp holds all hits or all
+        # misses); the triangles these rays hit (bounce 0) enter K2.2's bound
+        rays, _cam = camera_rays(w, h, dev)
+        rec = tr.trace_cuda(kt, rays)
+        hit = rec[0] < tr.BIG
+        clusters, slots = winners(rec)
+        split = {"k22_bounce0_ms": event_ms(
+            lambda: rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, 1), 10, 2)[0]}
+        for name, rs in (("all", rays), ("hit", rays[:, hit].contiguous()),
+                         ("miss", rays[:, ~hit].contiguous())):
+            split[f"k21_{name}_rays"] = rs.shape[1]
+            split[f"k21_{name}_ms"] = event_ms(lambda: tr.trace_cuda(kt, rs), 10, 2)[0]
+        del rec, rays, rs
         kb = walk_bound(("K2.2", tag, int(scene.tris.count)),
-                        table_bytes(kt, ft) + 9 * rows_total * 128 * 4, cnt,
-                        rows_total * 128, shade=True)
+                        walk_bytes(kt, clusters, slots, ft) + 9 * rows_total * 128 * 4,
+                        cnt, rows_total * 128, shade=True)
         # ---- the frame's torch tail after the kernel, piece by piece
         out9 = out.reshape(9, rows_total, 128)
         layout = ("strip", trows, -(-w // 128), -(-h // trows))
@@ -493,9 +547,11 @@ def phase_main(dev, results, tris_large: int) -> None:
             "triangles": int(scene.tris.count), "width": w, "height": h,
             "bounces": cfg.bounces, "host_build_s": build_s,
             "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
+            "frame_host_ms": frame_host_ms,
             "mrays_per_s": w * h * cfg.bounces / (ms * 1e-3) / 1e6,
             "kernel_ms": kms, "kernel_bound_ms": kb["bound_ms"],
             "kernel_bound_by": kb["bound_by"], "kernel_bound": kb,
+            "winning_clusters": clusters, "winning_slots": slots, "split": split,
             "tail": tail,
             "k22_launches": launches["K2.2"], "frames": frames,
             "k22_launches_per_frame": launches["K2.2"] / frames,
@@ -966,11 +1022,13 @@ def phase_kernels(dev, results) -> None:
     ref = tr.trace_plain(kt, rays)
     torch.cuda.synchronize()
     check1 = compare_trace(got, ref)
+    clusters, slots = winners(got)
     del got, ref
     t_ms, _ = event_ms(lambda: tr.trace_cuda(kt, rays), 10, 2)
     tp_ms, _ = event_ms(lambda: tr.trace_plain(kt, rays), 1, 0)
     kb1 = walk_bound(("K2.1", "a", int(scene.tris.count)),
-                     6 * n * 4 + table_bytes(kt) + 11 * n * 4, cnt1.cpu().tolist())
+                     6 * n * 4 + walk_bytes(kt, clusters, slots) + 11 * n * 4,
+                     cnt1.cpu().tolist())
 
     cr = rf.camera_row(frame_inputs_from_camera(cam, SUN))
     trows = rf.tile_rows(w * h)
@@ -988,9 +1046,10 @@ def phase_kernels(dev, results) -> None:
         lambda: rf.render_fused_plain(kt, ft, cr, w, h, trows, rows_total, 2, dev),
         1, 0,
     )
+    cnt2 = cnt2.cpu().tolist()
     kb2 = walk_bound(("K2.2", "a", int(scene.tris.count)),
-                     table_bytes(kt, ft) + 9 * rows_total * 128 * 4,
-                     cnt2.cpu().tolist(), rows_total * 128, shade=True)
+                     walk_bytes(kt, clusters, slots, ft) + 9 * rows_total * 128 * 4,
+                     cnt2, rows_total * 128, shade=True)
     emit({"phase": "kernels_at_main_shapes", "scene": spec, "width": w, "height": h,
           "K2.1": check1, "K2.2": check2, "K2.1_bound": kb1, "K2.2_bound": kb2,
           "main_path_counts": {m["config"]: m["kernel_bound"]["counts"]
@@ -1009,10 +1068,7 @@ def phase_kernels(dev, results) -> None:
             "tolerance": (f"hit rule of tests/test_trace.py; <= {FRAME_MISMATCH_MAX} "
                           "rays not exact in (t, slot, instance); attrs rtol 1e-5 atol 1e-6"),
             "ms": t_ms, "plain_ms": tp_ms, "bound_ms": kb1["bound_ms"],
-            "bound_by": kb1["bound_by"],
-            "bound_ms_new_counts": kb1["bound_ms_new_counts"],
-            "bound_ms_per_ray_walk_counts": kb1.get("bound_ms_per_ray_walk_counts"),
-            "library_ms": None,
+            "bound_by": kb1["bound_by"], "library_ms": None,
             "shape": f"{n} camera rays, {spec} {scene.tris.count} tris",
         },
         {
@@ -1024,10 +1080,7 @@ def phase_kernels(dev, results) -> None:
             "max_abs_err": max(results["fused_err"], check2["max_abs_err_all"]),
             "tolerance": f"<= {FRAME_MISMATCH_MAX} rays over 1e-5 on any of nine planes",
             "ms": r_ms, "plain_ms": rp_ms, "bound_ms": kb2["bound_ms"],
-            "bound_by": kb2["bound_by"],
-            "bound_ms_new_counts": kb2["bound_ms_new_counts"],
-            "bound_ms_per_ray_walk_counts": kb2.get("bound_ms_per_ray_walk_counts"),
-            "library_ms": None,
+            "bound_by": kb2["bound_by"], "library_ms": None,
             "shape": f"{w}x{h}x2 bounces, {spec} {scene.tris.count} tris",
         },
         *diff_kernel_entries(results),

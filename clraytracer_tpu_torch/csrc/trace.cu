@@ -24,9 +24,9 @@
 
 // Six blocks of 128 threads resident per SM: registers capped at 80 (a few
 // bytes spill), 24 warps to hide the walk's latency, measured faster than
-// 16 warps without spills at the main path's shapes
-// (tools/torch_walk_bench.py). render.cu, which holds shading state across
-// the walk, measured the other way and keeps its registers.
+// 16 warps without spills at the main path's shapes (PERF.md). render.cu,
+// which holds shading state across the walk, measured the other way and
+// keeps its registers.
 __global__ void __launch_bounds__(128, 6)
 trace_kernel(SceneTables s, const float* __restrict__ rays,
              const float* __restrict__ live, int n, float* __restrict__ out,

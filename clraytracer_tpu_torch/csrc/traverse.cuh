@@ -43,7 +43,7 @@
 // Every lane stays in the walk, dead, finished and out-of-range rays
 // included (as rays that pass nothing), so the warp collectives always run
 // with the full mask. Measured choices (thresholds, registers, what was
-// tried and dropped) are in PERF.md and tools/torch_walk_bench.py.
+// tried and dropped) are in PERF.md.
 //
 // Semantics, kept exactly:
 //  * per instance, the ray moves to object space by the row-vector inverse

@@ -158,20 +158,19 @@ def test_port_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_chip_smoke_bound_is_the_smaller_of_two():
-    """chip_smoke.py states a K2.1/K2.2 bound as the smaller of the bounds
-    from the per-ray walk's counts and from the run's own, and reads
+def test_chip_smoke_bound_is_this_runs_with_the_per_ray_walks_beside():
+    """chip_smoke.py bounds K2.1/K2.2 by this run's counts, prints beside it
+    the bound the per-ray walk's counts give at the same shapes, and reads
     nvcc's register and spill report per kernel (runs without a card)."""
     import chip_smoke as cs
 
     key = ("K2.2", "a", 4224)
-    many = [10**10, 0, 0, 0, 5, 6]  # far more box tests than the per-ray walk
-    b = cs.walk_bound(key, 1e6, many, 1000, shade=True)
-    assert b["bound_ms"] == b["bound_ms_per_ray_walk_counts"] < b["bound_ms_new_counts"]
-    few = [1, 0, 0, 0, 5, 6]
-    b = cs.walk_bound(key, 1e6, few, 1000, shade=True)
-    assert b["bound_ms"] == b["bound_ms_new_counts"] <= b["bound_ms_per_ray_walk_counts"]
-    assert "bound_ms_per_ray_walk_counts" not in cs.walk_bound(("K2.2", "x", 1), 1e6, few)
+    for counts in ([10**10, 0, 0, 0, 5, 6], [1, 0, 0, 0, 5, 6]):
+        b = cs.walk_bound(key, 1e6, counts, 1000, shade=True)
+        assert (b["bound_ms"], b["bound_by"]) == cs.bound(1e6, counts, 1000, True)
+        assert b["bound_ms_per_ray_walk_counts"] == cs.bound(
+            1e6, cs.PER_RAY_WALK_COUNTS[key], 1000, True)[0]
+    assert "bound_ms_per_ray_walk_counts" not in cs.walk_bound(("K2.2", "x", 1), 1e6, counts)
     log = (
         "ptxas info    : Compiling entry function '_Z12trace_kernelv' for 'sm_90a'\n"
         "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
@@ -183,16 +182,28 @@ def test_chip_smoke_bound_is_the_smaller_of_two():
     }]
 
 
-def test_walk_bench_needs_a_card(monkeypatch):
-    """tools/torch_walk_bench.py measures only on a card: without one it
-    exits 2 before building anything."""
-    import importlib.util
-    from pathlib import Path
+def test_chip_smoke_walk_bytes_count_what_the_rays_need():
+    """The bytes of a K2.1/K2.2 bound: box tables whole, plane rows only of
+    the clusters that hold a winning triangle, attribute rows only of the
+    winning triangles; all clusters and all slots give back the whole
+    tables."""
+    import chip_smoke as cs
+    from clraytracer_tpu_torch.cli import build_scene
 
-    path = Path(__file__).parents[1] / "tools" / "torch_walk_bench.py"
-    spec = importlib.util.spec_from_file_location("torch_walk_bench", path)
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr("sys.argv", ["torch_walk_bench.py"])
-    assert bench.main() == 2
+    scene = build_scene("two", device="cpu")
+    kt, ft = trace.kernel_tables(scene), render_fused.frame_tables(scene)
+    n_clusters = kt.planes.shape[0] // 32
+    assert cs.walk_bytes(kt, n_clusters, 32 * n_clusters) == cs.table_bytes(kt)
+    assert cs.walk_bytes(kt, n_clusters, 32 * n_clusters, ft) == cs.table_bytes(kt, ft)
+    base = cs.walk_bytes(kt, 0, 0)
+    assert cs.walk_bytes(kt, 1, 0) - base == 32 * 12 * 4
+    assert cs.walk_bytes(kt, 0, 1) - base == 16 * 4
+    g = torch.Generator().manual_seed(0)
+    o = torch.rand(3, 512, generator=g) * 2.0 - 1.0 + torch.tensor([0.0, 0.5, 6.0])[:, None]
+    d = torch.tensor([0.0, -0.05, -1.0])[:, None] + 0.3 * torch.randn(3, 512, generator=g)
+    d = d / torch.linalg.vector_norm(d, dim=0, keepdim=True)
+    out = trace.trace_plain(kt, torch.cat([o, d]).contiguous())
+    clusters, slots = cs.winners(out)
+    won = set(out[3].view(torch.int32)[out[0].abs() < 1e30].tolist())
+    assert slots == len(won) > 0
+    assert clusters == len({s // 32 for s in won}) <= n_clusters
