@@ -4,15 +4,19 @@
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, drives the
-main paths (``render.render_frame``, the default frame, on three scenes;
-``diff.image_loss_and_grads``, the differentiable step) and prints one
-JSON line per phase:
+main paths (``render.render_frame``: the default frame on three scenes and
+the frame's options on four more; ``diff.image_loss_and_grads``, the
+differentiable step) and prints one JSON line per phase:
 
 1. device: card name and power limit, torch/CUDA versions, build seconds
 2. trace: K2.1 vs ``trace_plain`` on ``two`` (320x240 camera rays + 4096
    seeded random rays), with and without a live mask, and ``return_slots``
 3. fused: K2.2 vs ``render_fused_plain`` on ``two`` and ``sphere`` at
-   320x240 (at most FRAME_MISMATCH_MAX rays over 1e-5 on the nine planes)
+   320x240 (at most FRAME_MISMATCH_MAX rays over 1e-5 on the nine planes);
+   options: every option instantiation of K2.2 (atlas modes 0/1/2 x
+   shadows x GI, the shadowed ground, the four jittered samples of a
+   ``samples=4`` frame) vs its plain version at 320x240 (pool indices
+   exact, at most FRAME_MISMATCH_MAX rays over 1e-5, GI included)
 4. main path: ``render.render_frame`` on (a) ``sphere`` 4224 tris at
    1920x1080, (b) ``two`` at 1249x720, (c) ``sphere --tris 1000000`` at
    1920x1080; frame ms (CUDA events, median of 20 after 3 warm-ups),
@@ -24,7 +28,15 @@ JSON line per phase:
    that configuration's scene (K2.1 on 4096 seeded camera rays, K2.2 on a
    128x64 strip). Then (d) the hit-query entry ``ops.trace.trace`` on
    (a)'s scene and 1920x1080 camera rays: one K2.1 launch per call (and
-   no K2.2)
+   no K2.2). Then the option cells, each through ``render.render_frame``
+   at 1920x1080: (h) ``atlas`` (bench.py's sphere with imported textures,
+   atlas mode 1), (i) ``atlas65`` (mode 2), (j) ``sphere`` with GI
+   (bench.py's gi row), (k) the shadowed ground (the bounce-0 hits in
+   shadow must be > 0); frame ms, K2.2 ms, the tail piece by piece, the
+   host's time to issue a frame, K2.2's six counters and bound, the
+   device's idle share and time by kernel, one launch of the cell's
+   instantiation per frame, K2.2 vs its plain version at 1920x1080 and on
+   a strip
 5. profile: torch.profiler over 10 frames of (a), device time by kernel
    and the device's idle share against (a)'s unprofiled frame time
 6. diff: the differentiable step ``diff.image_loss_and_grads``.
@@ -45,7 +57,8 @@ JSON line per phase:
    against the plain version, ms, plain ms, bound ms (K2.1/K2.2: the
    bytes the scene's data needs, ``walk_bytes``, and this run's counts;
    the phase lines print beside it the bound from the per-ray walk's
-   counts), library ms
+   counts), library ms; one entry per K2.2 instantiation of the option
+   cells, its bound counting its deferred planes and its shading
 
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
@@ -78,6 +91,17 @@ INTERP_OPS = 27  # w0 2 + five 3-term interpolations of 5
 # reflection 86
 SHADE_OPS = 188
 RAYGEN_OPS = 59  # render.cu per camera ray: NDC 7, invProj 24, invView 18, norm 10
+# per shaded hit by atlas mode: mode 0 is SHADE_OPS; the atlas modes skip
+# the texel and colour (41) and the colour terms of the Phong sum (15), and
+# add the deferred planes: mode 1 the pool index 6, colour bytes 12 and
+# coefficients 9 (159); mode 2 reads no material row (-4) and emits only
+# the coefficients 9 (137)
+SHADE_OPS_BY_MODE = {0: SHADE_OPS, 1: 159, 2: 137}
+# render.cu gi_sample per shaded hit: two uniforms 4, sin 4, phi 1, cos and
+# sin 2, their products 2, helper test 2, tangent 6 + normalise 10,
+# binormal 9 + normalise 10, direction 15, side test 5 + flip 3, weight 2;
+# the throughput product 3 (6 in mode 0)
+GI_OPS = 86
 
 # Those four counts as the per-ray walk (one thread per ray, the hierarchy
 # in index order) that csrc/traverse.cuh's warp walk replaced ran them at
@@ -117,6 +141,15 @@ MAIN = (
     ("c", "sphere", None, 1920, 1080),
 )
 FRAMES, WARMUP = 20, 3
+# K2.2's option cells (phase option_cells), each through render_frame:
+# (tag, scene of ``option_scene``, --tris, width, height, RenderConfig keys)
+OPTION_CELLS = (
+    ("h", "atlas", 4096, 1920, 1080, {}),
+    ("i", "atlas65", 4096, 1920, 1080, {}),
+    ("j", "sphere", 4096, 1920, 1080, {"enable_gi": True}),
+    ("k", "ground", 4096, 1920, 1080, {"enable_shadows": True}),
+)
+GI_SEED = 7  # the seed of the GI checks (phase options)
 # differentiable step (phase diff): (e) the JAX bench's grads configuration
 # (bench.py:217, sphere --tris 4096 → 4224 triangles), (f) card vs CPU at
 # DIFF_CHECK_WH, (g) Adam steps of ``fit`` on ``two``'s albedo
@@ -277,8 +310,9 @@ def bound(
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def camera_rays(width, height, device):
-    """Screen-tile-ordered camera rays [6, n] and the frame inputs."""
+def camera_rays(width, height, device, frame=None):
+    """Screen-tile-ordered camera rays [6, n] of ``frame`` (default: the
+    smoke camera) and the smoke camera."""
     import torch
 
     from clraytracer_tpu_torch.camera import Camera, ray_directions_tiled
@@ -286,12 +320,14 @@ def camera_rays(width, height, device):
     from clraytracer_tpu_torch.ops.render_fused import tile_rows
 
     cam = Camera.create(CameraConfig(position=CAMERA), width, height)
+    src = cam if frame is None else frame
+    pos = cam.position if frame is None else frame.camera_position
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(device)
     d = ray_directions_tiled(
-        torch.from_numpy(cam.inverse_view).to(device),
-        torch.from_numpy(cam.inverse_projection).to(device),
+        f32(src.inverse_view), f32(src.inverse_projection),
         width, height, tile_rows(width * height),
     ).reshape(3, -1)
-    o = torch.tensor(cam.position, device=device)[:, None].expand_as(d)
+    o = f32(pos)[:, None].expand_as(d)
     return torch.cat([o, d]).contiguous(), cam
 
 
@@ -325,25 +361,6 @@ def compare_trace(got, ref, live=None) -> dict:
     case["ok"] = (case["ok"] and case["attrs_ok"] and case.get("dead_lanes_miss", True)
                   and case["rays_not_exact"] <= FRAME_MISMATCH_MAX)
     return case
-
-
-def compare_frame(got, ref) -> dict:
-    """K2.2's [9, n] output against render_fused_plain's: at most
-    FRAME_MISMATCH_MAX rays off by more than 1e-5 on any of the nine
-    planes."""
-    import torch
-
-    diff = (got - ref).abs().amax(dim=0)
-    bad = int((diff > 1e-5).sum())
-    n = diff.numel()
-    good = diff[diff <= 1e-5]
-    finite = bool(torch.isfinite(got).all())
-    return {
-        "rays": n, "rays_over_1e-5": bad,
-        "max_abs_err_within": float(good.max()) if good.numel() else 0.0,
-        "max_abs_err_all": float(diff.max()), "finite": finite,
-        "ok": bad <= FRAME_MISMATCH_MAX and finite,
-    }
 
 
 def phase_trace(dev, results) -> None:
@@ -415,12 +432,313 @@ def phase_fused(dev, results) -> None:
         got = rf.render_cuda(*args)
         ref = rf.render_fused_plain(*args, dev)
         torch.cuda.synchronize()
-        line = {"phase": "fused", "scene": spec, **compare_frame(got, ref)}
+        line = {"phase": "fused", "scene": spec, **compare_options(got, ref, 0, False)}
         worst = max(worst, line["max_abs_err_all"])
         emit(line)
         if not line["ok"]:
             raise SystemExit("fused phase failed")
     results["fused_err"] = worst
+
+
+# ---------------------------------------------------------------------------
+# K2.2's options: imported textures (atlas modes 1 and 2), sun shadows, GI
+# ---------------------------------------------------------------------------
+
+
+def option_scene(spec: str, tris: int = 4096, device=None):
+    """Scenes of the option cells. ``atlas``: bench.py:78-92's sphere with
+    its textures imported as images (the bakes of a 512x256 sky and a
+    128/8 checker); ``atlas65``: the same with unused materials up to 65,
+    past the 64 of atlas mode 1; ``ground``: test_shadows.py:88-98's
+    checkered ground quad under a red sphere. Others: ``cli.build_scene``."""
+    from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.cli import build_scene
+    from clraytracer_tpu_torch.scene import SceneBuilder
+    from clraytracer_tpu_torch.scene import procedural_tex as ptex
+    from clraytracer_tpu_torch.scene.procedural import quad, uv_sphere
+    from clraytracer_tpu_torch.scene.textures import checkerboard, gradient_sky
+
+    b = SceneBuilder()
+    if spec in ("atlas", "atlas65"):
+        n_lat = max(4, int((tris / 4) ** 0.5) + 1)
+        b.import_texture(gradient_sky(512, 256))
+        checker = b.import_texture(checkerboard(128, 8))
+        mat = b.create_material(
+            albedo=(0.9, 0.6, 0.3), albedo_tex=checker, shininess=1.0, roughness=0.4
+        )
+        b.add_instance(b.add_mesh(uv_sphere(2.0, n_lat=n_lat, n_lon=2 * n_lat),
+                                  materials_start=mat))
+        if spec == "atlas65":
+            while len(b._materials) < 65:
+                b.create_material(albedo=(0.5, 0.5, 0.5))
+    elif spec == "ground":
+        b.import_procedural(ptex.sky_gradient(32, 16))
+        checker = b.import_procedural(ptex.checker(16, 4))
+        ground = b.create_material(albedo=(0.85, 0.85, 0.85), albedo_tex=checker)
+        red = b.create_material(albedo=(0.9, 0.2, 0.2))
+        b.add_instance(b.add_mesh(quad(8.0, y=0.0), materials_start=ground))
+        b.add_instance(b.add_mesh(uv_sphere(1.0, n_lat=8, n_lon=14), materials_start=red),
+                       math3d.translation(0.0, 1.6, 0.0))
+    else:
+        return build_scene(spec, tris, device=device)
+    return b.build(device=device)
+
+
+def option_frame(spec: str, w: int, h: int):
+    """The camera and sun of a cell: test_shadows.py:38-44's view of the
+    ground (sun overhead), else the smoke camera."""
+    import math
+
+    from clraytracer_tpu_torch.camera import Camera
+    from clraytracer_tpu_torch.config import CameraConfig
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera
+
+    if spec == "ground":
+        cam = Camera.create(CameraConfig(position=(0.3, 4.0, 7.0), pitch_deg=-28.0), w, h)
+        return frame_inputs_from_camera(cam, -math.pi / 2)
+    return frame_inputs_from_camera(Camera.create(CameraConfig(position=CAMERA), w, h), SUN)
+
+
+def option_args(scene, frame, w, h, bounces=2):
+    """K2.2's positional arguments for a w x h frame of ``frame``'s camera."""
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops.trace import kernel_tables
+
+    trows = rf.tile_rows(w * h)
+    rows_total = -(-h // trows) * -(-w // 128) * trows
+    return (kernel_tables(scene), rf.frame_tables(scene), rf.camera_row(frame), w, h,
+            trows, rows_total, bounces)
+
+
+def compare_options(got, ref, mode: int, gi: bool) -> dict:
+    """K2.2's [9 + K*B, n] output against render_fused_plain's (atlas mode
+    ``mode``, GI on or off): mode 1's pool-index planes exactly (as i32),
+    every other plane within 1e-5 on all but FRAME_MISMATCH_MAX rays, with
+    GI as without."""
+    import torch
+
+    from clraytracer_tpu_torch.ops.render_fused import deferred_planes
+
+    k = deferred_planes(mode, gi)
+    idx_rows = [9 + k * b for b in range((got.shape[0] - 9) // k)] if mode == 1 else []
+    other = [r for r in range(got.shape[0]) if r not in idx_rows]
+    diff = (got[other] - ref[other]).abs().amax(dim=0)
+    bad = diff > 1e-5
+    for r in idx_rows:
+        bad |= got[r].view(torch.int32) != ref[r].view(torch.int32)
+    n = diff.numel()
+    allowed = FRAME_MISMATCH_MAX
+    finite = bool(torch.isfinite(got[other]).all())
+    good = diff[~bad]
+    return {
+        "rays": n, "rays_differing": int(bad.sum()), "allowed": allowed,
+        "max_abs_err_within": float(good.max()) if good.numel() else 0.0,
+        "max_abs_err_all": float(diff.max()), "finite": finite,
+        "ok": int(bad.sum()) <= allowed and finite,
+    }
+
+
+def phase_options(dev, results) -> None:
+    """Every option combination of K2.2 against render_fused_plain at
+    CHECK_WH: atlas modes 0 (``sphere``), 1 (``atlas``) and 2
+    (``atlas65``), each without and with shadows and GI, the shadowed
+    ground, and the four jittered samples of a ``samples=4`` atlas GI
+    frame (each with its own seed, as ``render_frame`` launches them)."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.render import _sample_offsets, jitter_projection
+
+    w, h = CHECK_WH
+    cases = []
+    for spec in ("sphere", "atlas", "atlas65", "ground"):
+        scene = option_scene(spec, device=dev)
+        frame = option_frame(spec, w, h)
+        mode = rf.atlas_mode_of(scene)
+        combos = [(sh, gi) for sh in (False, True) for gi in (None, GI_SEED)]
+        if spec == "ground":
+            combos = [(True, None), (True, GI_SEED)]
+        frames = [(frame, None, sh, gi) for sh, gi in combos]
+        if spec == "atlas":
+            for si, (jx, jy) in enumerate(_sample_offsets(4)):
+                fj = frame._replace(inverse_projection=jitter_projection(
+                    frame.inverse_projection, jx * 2.0 / w, jy * 2.0 / h))
+                frames.append((fj, si, True, GI_SEED + si))
+        for fr, si, sh, gi in frames:
+            args = option_args(scene, fr, w, h)
+            opts = dict(atlas_mode=mode, shadows=sh, gi_seed=gi)
+            got = rf.render_cuda(*args, **opts)
+            ref = rf.render_fused_plain(*args, dev, **opts)
+            torch.cuda.synchronize()
+            case = {"scene": spec, "atlas_mode": mode, "shadows": sh, "gi_seed": gi,
+                    "sample": si, "variant": rf.variant(mode, sh, gi is not None),
+                    **compare_options(got, ref, mode, gi is not None)}
+            cases.append(case)
+            emit({"phase": "options", **case})
+            if not case["ok"]:
+                raise SystemExit("options phase failed")
+    results["options"] = cases
+
+
+def shadowed_hits(kt, rays, sun) -> tuple[int, int]:
+    """(bounce-0 hits whose shadow ray toward the sun is occluded, hits) of
+    camera rays [6, n], by K2.1 launches and render.cu's shadow-ray origin
+    ``(mo + md t) + n 0.01``."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import trace as tr
+
+    rec = tr.trace_cuda(kt, rays)
+    t = rec[0]
+    hit = t < tr.BIG
+    m = kt.inst[rec[4].view(torch.int32).long()].T
+    o, d = rays[0:3], rays[3:6]
+    nw = [rec[5] * m[c] + rec[6] * m[4 + c] + rec[7] * m[8 + c] for c in range(3)]
+    sn = torch.sqrt(nw[0] * nw[0] + nw[1] * nw[1] + nw[2] * nw[2])
+    so = [((o[0] * m[c] + o[1] * m[4 + c] + o[2] * m[8 + c] + m[12 + c])
+           + (d[0] * m[c] + d[1] * m[4 + c] + d[2] * m[8 + c]) * t) + (nw[c] / sn) * 0.01
+          for c in range(3)]
+    zero = torch.zeros_like(t)
+    srays = torch.stack(so + [zero, zero - sun[0], zero - sun[1]]).contiguous()
+    occ = tr.trace_cuda(kt, srays, hit.float())[0] < tr.BIG
+    return int((hit & occ).sum()), int(hit.sum())
+
+
+def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi) -> dict:
+    """A K2.2 instantiation's bound: the bytes the scene's data needs
+    (``walk_bytes``) plus its 9 + K*B output planes, and the operations of
+    this run's counts (the shadow walk's included) with the shading of its
+    atlas mode and GI per shaded hit and the raygen per ray."""
+    from clraytracer_tpu_torch.ops.render_fused import deferred_planes
+    from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
+
+    planes = 9 + deferred_planes(mode, gi) * bounces
+    bytes_moved = walk_bytes(kt, clusters, slots, ft) + planes * n * 4
+    boxes, tris, xforms, hits = (float(c) for c in counts[:4])
+    ops = (boxes * BOX_OPS + tris * TRI_OPS + xforms * XFORM_OPS
+           + hits * (INTERP_OPS + SHADE_OPS_BY_MODE[mode] + (GI_OPS if gi else 0))
+           + n * RAYGEN_OPS)
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return {"counts": dict(zip(COUNTER_NAMES, counts)), "bytes": bytes_moved,
+            "operations": ops, "output_planes": planes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_option_cells(dev, results) -> None:
+    """The option cells on the main path, each through render.render_frame
+    at full width with the counts from zero: (h) ``atlas`` (mode 1), (i)
+    ``atlas65`` (mode 2), (j) ``sphere`` with GI (bench.py's gi row), (k)
+    the shadowed ground, sun overhead. Per cell: frame ms, K2.2 ms, the
+    tail after it (texel gather / sky, post, untile), the host's time to
+    issue a frame, K2.2's six counters, its bound, torch.profiler over 5
+    frames (device time by kernel, idle share), K2.2 against its plain
+    version at the cell's own shapes (the plain run also gives plain_ms)
+    and on a CHECK_STRIP_WH strip, and in (k) the bounce-0 hits in
+    shadow."""
+    import torch
+
+    from clraytracer_tpu_torch.config import RenderConfig
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+    from clraytracer_tpu_torch.ops.post import post_process_tiled
+    from clraytracer_tpu_torch.render import _untile, render_frame
+
+    results["option_cells"] = []
+    for tag, spec, tris, w, h, cfg_kw in OPTION_CELLS:
+        t0 = time.perf_counter()
+        scene = option_scene(spec, tris, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cfg = RenderConfig(width=w, height=h, **cfg_kw)
+        frame = option_frame(spec, w, h)
+        mode = rf.atlas_mode_of(scene)
+        gi = cfg.enable_gi
+        opts = dict(atlas_mode=mode, shadows=cfg.enable_shadows,
+                    gi_seed=cfg.gi_seed if gi else None)
+        name = rf.variant(mode, cfg.enable_shadows, gi)
+        img = render_frame(scene, frame, cfg)  # first frame: tables upload
+        torch.cuda.synchronize()
+        # ---- the main path's own run: counts from zero
+        reset_counts()
+        ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
+        frames = FRAMES + WARMUP
+        launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
+                    "K2.2_variants": dict(rf.render_cuda.variant_launches)}
+        frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
+        args = option_args(scene, frame, w, h, cfg.bounces)
+        kt, ft, rows_total = args[0], args[1], args[6]
+        n = rows_total * 128
+        counters = torch.zeros(6, dtype=torch.int64, device=dev)
+        out = rf.render_cuda(*args, counters, **opts)
+        kms, _ = event_ms(lambda: rf.render_cuda(*args, **opts), 10, 2)
+        # the plain version on the same inputs: timed once, and held against
+        # the kernel's output at the cell's own shapes
+        keep = []
+        plain_ms, _ = event_ms(
+            lambda: keep.append(rf.render_fused_plain(*args, dev, **opts)), 1, 0)
+        full = compare_options(out, keep.pop(), mode, gi)
+        cnt = counters.cpu().tolist()
+        rays, _cam = camera_rays(w, h, dev, frame)
+        clusters, slots = winners(tr.trace_cuda(kt, rays))
+        kb = variant_bound(kt, ft, cnt, clusters, slots, n, cfg.bounces, mode, gi)
+        shadow = None
+        if cfg.enable_shadows:
+            in_shadow, hits0 = shadowed_hits(kt, rays, args[2].sun)
+            shadow = {"bounce0_hits": hits0, "bounce0_hits_in_shadow": in_shadow}
+        del rays
+        out3 = out.reshape(-1, rows_total, 128)
+        trows = args[5]
+        layout = ("strip", trows, -(-w // 128), -(-h // trows))
+        fin = lambda: rf._finish_frame(scene, out3, mode, gi)
+        res = fin()
+        post = lambda: post_process_tiled(res, w, h, layout)
+        pp = post()
+        tail = {
+            "finish_ms": event_ms(fin, 10, 2)[0],
+            "post_ms": event_ms(post, 10, 2)[0],
+            "untile_ms": event_ms(
+                lambda: _untile(pp, layout, h, w).permute(1, 2, 0).contiguous(), 10, 2
+            )[0],
+        }
+        del out, out3, res, pp
+        prof = device_profile(lambda: render_frame(scene, frame, cfg), 5, ms)
+        img = render_frame(scene, frame, cfg)
+        finite = bool(torch.isfinite(img).all())
+        sargs = option_args(scene, frame, *CHECK_STRIP_WH, cfg.bounces)
+        check = compare_options(rf.render_cuda(*sargs, **opts),
+                                rf.render_fused_plain(*sargs, dev, **opts), mode, gi)
+        torch.cuda.synchronize()
+        line = {
+            "phase": "option_cells", "config": tag, "scene": spec, "variant": name,
+            "atlas_mode": mode, "options": cfg_kw, "materials": int(scene.materials.count),
+            "triangles": int(scene.tris.count), "width": w, "height": h,
+            "bounces": cfg.bounces, "host_build_s": build_s,
+            "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
+            "frame_host_ms": frame_host_ms,
+            "mrays_per_s": w * h * cfg.bounces / (ms * 1e-3) / 1e6,
+            "kernel_ms": kms, "plain_ms": plain_ms, "kernel_bound_ms": kb["bound_ms"],
+            "kernel_bound_by": kb["bound_by"], "kernel_bound": kb,
+            "winning_clusters": clusters, "winning_slots": slots, "tail": tail,
+            "launches": launches, "frames": frames,
+            "box_tests": cnt[0], "tri_tests": cnt[1], "ray_transforms": cnt[2],
+            "shaded_hits": cnt[3], "node_steps": cnt[4], "staged_clusters": cnt[5],
+            "rays_traced": n, "shadow": shadow, "finite": finite,
+            "mean": float(img.mean()), "check": {"frame": list(CHECK_STRIP_WH), **check},
+            "check_full": {"frame": [w, h], **full},
+            "profile": prof,
+        }
+        line["ok"] = (
+            finite and check["ok"] and full["ok"] and launches["K2.2"] == frames
+            and launches["K2.2_variants"] == {name: frames} and launches["K2.1"] == 0
+            and (shadow is None or shadow["bounce0_hits_in_shadow"] > 0)
+        )
+        results["option_cells"].append(line)
+        results["fused_err"] = max(results["fused_err"], check["max_abs_err_within"],
+                                   full["max_abs_err_within"])
+        emit(line)
+        if not line["ok"]:
+            raise SystemExit(f"option cell {tag} failed")
 
 
 def check_config(scene, w, h, dev) -> dict:
@@ -440,7 +758,7 @@ def check_config(scene, w, h, dev) -> dict:
     sub = rays[:, pick].contiguous()
     k21 = compare_trace(tr.trace_cuda(kt, sub), tr.trace_plain(kt, sub))
     args = frame_args(scene, CHECK_STRIP_WH)
-    k22 = compare_frame(rf.render_cuda(*args), rf.render_fused_plain(*args, dev))
+    k22 = compare_options(rf.render_cuda(*args), rf.render_fused_plain(*args, dev), 0, False)
     torch.cuda.synchronize()
     return {
         "hyper_groups": sum(-(-r[1] // 32) for r in kt.ranges_host),
@@ -487,11 +805,11 @@ def phase_main(dev, results, tris_large: int) -> None:
         img = render_frame(scene, frame, cfg)  # first frame: tables upload
         torch.cuda.synchronize()
         # ---- the main path's own run: counts from zero
-        rf.render_cuda.launches = 0
-        tr.trace_cuda.launches = 0
+        reset_counts()
         ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
         frames = FRAMES + WARMUP
-        launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches}
+        launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
+                    "K2.2_variants": dict(rf.render_cuda.variant_launches)}
         frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
         # ---- test counts of one frame (a separate launch with counters)
         kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
@@ -526,7 +844,7 @@ def phase_main(dev, results, tris_large: int) -> None:
         # ---- the frame's torch tail after the kernel, piece by piece
         out9 = out.reshape(9, rows_total, 128)
         layout = ("strip", trows, -(-w // 128), -(-h // trows))
-        fin = lambda: rf._finish_frame(scene, out9[0:3], out9[3:6], out9[6:9])
+        fin = lambda: rf._finish_frame(scene, out9)
         res = fin()
         post = lambda: post_process_tiled(res, w, h, layout)
         pp = post()
@@ -563,7 +881,9 @@ def phase_main(dev, results, tris_large: int) -> None:
             "finite": finite, "mean": float(img.mean()),
             "table_bytes": table_bytes(kt, ft),
             "check": check,
-            "ok": finite and launches["K2.2"] == frames and check["ok"],
+            "k22_variant_launches": launches["K2.2_variants"],
+            "ok": finite and launches["K2.2"] == frames and check["ok"]
+            and launches["K2.2_variants"] == {"default": frames},
         }
         if note:
             line["note"] = note
@@ -581,8 +901,7 @@ def phase_main(dev, results, tris_large: int) -> None:
     o3, d3 = rays[0:3], rays[3:6]
     hit = tr.trace(scene, o3, d3)  # first call: tables upload
     torch.cuda.synchronize()
-    rf.render_cuda.launches = 0
-    tr.trace_cuda.launches = 0
+    reset_counts()
     ms, times = event_ms(lambda: tr.trace(scene, o3, d3), FRAMES, WARMUP)
     calls = FRAMES + WARMUP
     launches = {"K2.1": tr.trace_cuda.launches, "K2.2": rf.render_cuda.launches}
@@ -753,6 +1072,7 @@ def reset_counts() -> None:
     from clraytracer_tpu_torch.ops import trace as tr
 
     rf.render_cuda.launches = 0
+    rf.render_cuda.variant_launches = {}
     tr.trace_cuda.launches = 0
     gr.gather_rows_cuda.launches = 0
     gr.scatter_rows_cuda.launches = 0
@@ -1037,7 +1357,7 @@ def phase_kernels(dev, results) -> None:
     got = rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, 2, cnt2)
     ref = rf.render_fused_plain(kt, ft, cr, w, h, trows, rows_total, 2, dev)
     torch.cuda.synchronize()
-    check2 = compare_frame(got, ref)
+    check2 = compare_options(got, ref, 0, False)
     del got, ref
     r_ms, _ = event_ms(
         lambda: rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, 2), 10, 2
@@ -1083,8 +1403,37 @@ def phase_kernels(dev, results) -> None:
             "bound_by": kb2["bound_by"], "library_ms": None,
             "shape": f"{w}x{h}x2 bounces, {spec} {scene.tris.count} tris",
         },
+        *option_kernel_entries(results),
         *diff_kernel_entries(results),
     ]})
+
+
+def option_kernel_entries(results) -> list:
+    """One kernels-line entry per K2.2 instantiation that an option cell
+    drives ((h)-(k)): its launches in that cell's main-path run, its error
+    against the plain version (at the cell's shapes, on its strip and in
+    phase options), its ms at the cell's shapes beside the plain version's
+    and its bound."""
+    out = []
+    for line, (tag, spec, _tris, w, h, cfg_kw) in zip(results["option_cells"], OPTION_CELLS):
+        errs = [c["max_abs_err_within"] for c in results["options"]
+                if c["variant"] == line["variant"]]
+        errs += [line["check"]["max_abs_err_within"], line["check_full"]["max_abs_err_within"]]
+        out.append({
+            "name": f"K2.2 fused frame, {line['variant']}", "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/render.cu",
+            "replaces": "clraytracer_tpu/ops/render_pallas.py:109",
+            "launches": line["launches"]["K2.2_variants"].get(line["variant"], 0),
+            "path": f"({tag}) render.render_frame, {spec}, {cfg_kw or 'defaults'}",
+            "max_abs_err": max(errs),
+            "tolerance": (f"pool indices exact; other planes within 1e-5 on all but "
+                          f"{FRAME_MISMATCH_MAX} rays"),
+            "ms": line["kernel_ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["kernel_bound_ms"], "bound_by": line["kernel_bound_by"],
+            "library_ms": None,
+            "shape": f"{w}x{h}x{line['bounces']} bounces, {spec} {line['triangles']} tris",
+        })
+    return out
 
 
 def diff_kernel_entries(results) -> list:
@@ -1136,15 +1485,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     regs = {src: ptxas_summary(log) for src, log in kernels.build_log.items()}
     results["ptxas"] = regs
+    # K2.2's default instantiation (atlas mode 0, no shadows, no GI)
+    k22_default = [e for e in regs.get("render.cu", []) if "ILi0ELb0ELb0E" in e["kernel"]]
     emit({
         "phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "python": sys.version.split()[0],
-        "kernel_build_s": build_s, "ptxas": regs,
+        "kernel_build_s": build_s, "ptxas": regs, "k22_default": k22_default,
     })
     phase_trace(dev, results)
     phase_fused(dev, results)
+    phase_options(dev, results)
     phase_main(dev, results, TRIS_LARGE)
+    phase_option_cells(dev, results)
     phase_profile(dev, results)
     phase_diff(dev, results)
     phase_kernels(dev, results)

@@ -4,6 +4,7 @@ gradients, or fit its parameters to a target image.
 Usage:
   python -m clraytracer_tpu_torch render --scene two --width 1024 --height 768 -o out.png
   python -m clraytracer_tpu_torch render --scene sphere --tris 1000000 --device cuda
+  python -m clraytracer_tpu_torch render --scene two --shadows --gi --spp 4 --fxaa
   python -m clraytracer_tpu_torch grads  --scene sphere --width 1920 --height 1080
   python -m clraytracer_tpu_torch fit    --scene two --steps 100 --lr 0.05
 
@@ -90,6 +91,11 @@ def cmd_render(args) -> int:
         bounces=args.bounces,
         sun_angle=args.sun_angle,
         enable_post=not args.no_post,
+        enable_fxaa=args.fxaa,
+        enable_shadows=args.shadows,
+        samples=args.spp,
+        enable_gi=args.gi,
+        gi_seed=args.gi_seed,
     )
     t0 = time.perf_counter()
     img = render(scene, _camera(args), cfg, device=args.device)
@@ -242,7 +248,18 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("render", help="render a frame to PNG")
     common(p)
     p.add_argument("-o", "--output", default="render.png")
+    p.add_argument("--fxaa", action="store_true")
     p.add_argument("--no-post", action="store_true")
+    p.add_argument("--shadows", action="store_true",
+                   help="sun shadow rays (beyond the reference: its TODO)")
+    p.add_argument("--spp", type=int, default=1,
+                   help="sub-pixel samples per pixel (supersampling AA)")
+    p.add_argument("--gi", action="store_true",
+                   help="Monte-Carlo diffuse GI: uniform-hemisphere bounce "
+                   "continuations, albedo * 2*cosTheta throughput; combine "
+                   "with --spp N to integrate")
+    p.add_argument("--gi-seed", type=int, default=0,
+                   help="base RNG seed for --gi sample streams")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("grads", help="gradient report (L2 against black)")

@@ -1,9 +1,11 @@
-"""Post chain on the render loop's tile layout: saturation → Reinhard
-tone map → merged gamma pow → vignette (MathAndSTL.cl:143-169).
+"""Post chain: saturation → Reinhard tone map → merged gamma pow →
+vignette (MathAndSTL.cl:143-169), on the render loop's tile layout
+(``post_process_tiled``) or on an [H, W, 3] image (``post_process``), and
+FXAA (kernel_main.cl:294-340), which the untiled chain runs first when
+asked.
 
-Plain torch: in the JAX package this chain is XLA elementwise code, not a
-kernel. FXAA and the untiled ``post_process`` come with a later part of
-the port.
+Plain torch: in the JAX package this chain is XLA code, not a kernel. Its
+array shifts (``jnp.roll``) are ``torch.roll``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,11 @@ import torch
 from clraytracer_tpu_torch.device import const
 
 _MAX_WHITE = 0.8
+#: the f32 luma weights
+_FXAA_LUMA = tuple(torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32).tolist())
+_FXAA_SPAN_MAX = 8.0
+_FXAA_REDUCE_MUL = 1.0 / 8.0
+_FXAA_REDUCE_MIN = 1.0 / 128.0
 
 
 def _post_core(p: torch.Tensor, vig: torch.Tensor) -> torch.Tensor:
@@ -62,3 +69,91 @@ def post_process_tiled(
     """Post chain directly on the render loop's [3, rows, 128] tile layout."""
     vig = vignette_mask_tiled(width, height, layout, p.shape[1], p.device)
     return _post_core(p, vig)
+
+
+def _vignette_factors(n: int, size: int, device=None) -> torch.Tensor:
+    """Per-coordinate separable vignette factor
+    ``(x*(1-x)*sqrt(15))^0.15`` for ``x = arange(n)/size``."""
+    x = torch.arange(n, dtype=torch.float32, device=device)
+    x = x / const(size, x)
+    s15 = torch.sqrt(torch.tensor(15.0, dtype=torch.float32)).item()
+    return torch.pow(torch.clamp(x * (1.0 - x) * s15, min=0.0), 0.15)
+
+
+def fxaa(img: torch.Tensor) -> torch.Tensor:
+    """FXAA over an [H, W, 3] image (kernel_main.cl:294-340; post.py:67 of
+    the JAX package): neighbour fetches are array shifts, the sub-texel
+    taps along ``dir`` at +-1/6 and +-1/2 texels are bilinear."""
+    h, w = img.shape[:2]
+
+    def shift2(a, dy, dx):
+        return torch.roll(a, shifts=(-dy, -dx), dims=(0, 1))
+
+    def luma(a):
+        # as XLA evaluates the JAX package's einsum: fused multiply-adds in
+        # channel order, each product and sum rounded once (f64 holds the
+        # f32 product exactly)
+        acc = a[..., 0] * _FXAA_LUMA[0]
+        for c in (1, 2):
+            acc = (a[..., c].double() * _FXAA_LUMA[c] + acc.double()).float()
+        return acc
+
+    l_nw, l_ne, l_sw, l_se, l_m = (
+        luma(a) for a in (shift2(img, -1, -1), shift2(img, -1, 1),
+                          shift2(img, 1, -1), shift2(img, 1, 1), img)
+    )
+    dir_x = -((l_nw + l_ne) - (l_sw + l_se))
+    dir_y = (l_nw + l_sw) - (l_ne + l_se)
+    luma_sum = l_nw + l_ne + l_sw + l_se
+    dir_reduce = torch.clamp(luma_sum * 0.25 * _FXAA_REDUCE_MUL, min=_FXAA_REDUCE_MIN)
+    rcp_dir_min = 1.0 / (torch.minimum(dir_x.abs(), dir_y.abs()) + dir_reduce)
+    dx = torch.clamp(dir_x * rcp_dir_min, -_FXAA_SPAN_MAX, _FXAA_SPAN_MAX)
+    dy = torch.clamp(dir_y * rcp_dir_min, -_FXAA_SPAN_MAX, _FXAA_SPAN_MAX)
+
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=img.device),
+        torch.arange(w, dtype=torch.float32, device=img.device),
+        indexing="ij",
+    )
+
+    def bilinear(oy, ox):
+        fy = torch.clamp(ys + oy, 0.0, h - 1.0)
+        fx = torch.clamp(xs + ox, 0.0, w - 1.0)
+        y0 = torch.floor(fy).to(torch.int64)
+        x0 = torch.floor(fx).to(torch.int64)
+        y1 = torch.clamp(y0 + 1, max=h - 1)
+        x1 = torch.clamp(x0 + 1, max=w - 1)
+        wy = (fy - y0)[..., None]
+        wx = (fx - x0)[..., None]
+        return (
+            img[y0, x0] * (1 - wy) * (1 - wx)
+            + img[y0, x1] * (1 - wy) * wx
+            + img[y1, x0] * wy * (1 - wx)
+            + img[y1, x1] * wy * wx
+        )
+
+    rgb_a = 0.5 * (
+        bilinear(dy * -0.166667, dx * -0.166667) + bilinear(dy * 0.166667, dx * 0.166667)
+    )
+    rgb_b = rgb_a * 0.5 + 0.25 * (
+        bilinear(dy * -0.5, dx * -0.5) + bilinear(dy * 0.5, dx * 0.5)
+    )
+    l_b = luma(rgb_b)
+    l_min = torch.minimum(l_m, torch.minimum(torch.minimum(l_nw, l_ne), torch.minimum(l_sw, l_se)))
+    l_max = torch.maximum(l_m, torch.maximum(torch.maximum(l_nw, l_ne), torch.maximum(l_sw, l_se)))
+    use_a = (l_b < l_min) | (l_b > l_max)
+    return torch.where(use_a[..., None], rgb_a, rgb_b)
+
+
+def post_process(img: torch.Tensor, enable_fxaa: bool = False) -> torch.Tensor:
+    """The chain over an [H, W, 3] linear image (kernel_main.cl:342-359;
+    post.py:211 of the JAX package): optional FXAA, then the planar core
+    with the separable vignette of one row and one column."""
+    h, w = img.shape[:2]
+    if enable_fxaa:
+        img = fxaa(img)
+    p = img.reshape(-1, 3).T
+    fu = _vignette_factors(w, w, img.device)
+    fv = _vignette_factors(h, h, img.device)
+    vig = (fv[:, None] * fu[None, :]).reshape(-1)
+    return _post_core(p, vig).T.reshape(h, w, 3)

@@ -1,12 +1,15 @@
-"""The frame pipeline: fused trace (K2.2) → deferred sky → post chain, and
-the two-phase bounce loop of the differentiable path.
+"""The frame pipeline: fused trace (K2.2) → deferred texels and sky → post
+chain, and the two-phase bounce loop of the differentiable path.
 
-``render_frame`` runs the default frame of the JAX package's
-``render.render_frame`` (render.py:503): 2 bounces of reference-parity
-integer-colour Phong over an all-procedural scene, post on, FXAA off, one
-sample. On a CUDA scene the frame is one launch of the fused kernel; on a
-CPU scene it is the kernel's plain version. Every other option raises
-``NotImplementedError`` rather than taking another computation.
+``render_frame`` runs every frame the JAX package's ``render.render_frame``
+(render.py:503) renders through its fused kernel: reference-parity
+integer-colour Phong over procedural or imported textures, with any of sun
+shadows, Monte-Carlo GI, supersampling (``samples`` jittered frames
+averaged), the post chain and FXAA. On a CUDA scene each frame (each
+sample) is one launch of the fused kernel; on a CPU scene it is the
+kernel's plain version. Refraction, non-parity shading and float colours
+(the JAX package's two-phase shading path) raise ``NotImplementedError``
+rather than taking another computation.
 
 ``trace_planar``/``bounce_loop`` (render.py:102-326 of the JAX package)
 trace and shade bounce by bounce on the float colour path with
@@ -29,7 +32,7 @@ from clraytracer_tpu_torch.config import RenderConfig
 from clraytracer_tpu_torch.device import resolve_device
 from clraytracer_tpu_torch.ops import gather
 from clraytracer_tpu_torch.ops import render_fused as rf
-from clraytracer_tpu_torch.ops.post import post_process_tiled
+from clraytracer_tpu_torch.ops.post import post_process, post_process_tiled
 from clraytracer_tpu_torch.ops.shade import (
     _all_procedural,
     initial_bounce_state,
@@ -69,35 +72,56 @@ def frame_inputs_from_camera(camera: Camera, sun_angle: float) -> FrameInputs:
 
 
 def _unsupported(scene: Scene, config: RenderConfig) -> str | None:
-    """Why this slice cannot render the frame, or None."""
-    if config.samples > 1:
-        return "samples > 1"
-    for name in ("enable_fxaa", "enable_shadows", "enable_gi", "enable_refraction"):
-        if getattr(config, name):
-            return name
+    """Why the port cannot render the frame yet, or None."""
+    if config.enable_refraction:
+        return "enable_refraction"
     if not config.reference_parity_shading:
         return "reference_parity_shading=False"
     if not config.integer_colors:
         return "integer_colors=False"
-    if not _all_procedural(scene):
-        return "imported (non-procedural) textures"
-    if scene.materials.count > rf.MAX_FUSED_MATERIALS:
-        return f"more than {rf.MAX_FUSED_MATERIALS} materials"
+    if _all_procedural(scene) and scene.materials.count > rf.MAX_FUSED_MATERIALS:
+        return f"an all-procedural scene with more than {rf.MAX_FUSED_MATERIALS} materials"
     if not rf.fused_path_available(scene):
         return "scene without cluster or packed tables"
     return None
 
 
 def _trace_tiled(
-    scene: Scene, frame: FrameInputs, width: int, height: int, bounces: int
+    scene: Scene,
+    frame: FrameInputs,
+    width: int,
+    height: int,
+    bounces: int,
+    enable_shadows: bool = False,
+    enable_gi: bool = False,
+    gi_seed: int = 0,
 ) -> tuple[torch.Tensor, tuple]:
     """The fused branch of the JAX ``_trace_tiled`` (render.py:409): raw
     ``[3, rows, 128]`` radiance plus its ``("strip", trows, tiles_x,
     tiles_y)`` layout."""
     result, (trows, tiles_x, tiles_y) = rf.render_fused_camera(
-        scene, frame, width, height, bounces
+        scene, frame, width, height, bounces,
+        enable_shadows=enable_shadows, gi_seed=gi_seed if enable_gi else None,
     )
     return result, ("strip", trows, tiles_x, tiles_y)
+
+
+def trace_image(
+    scene: Scene,
+    frame: FrameInputs,
+    width: int,
+    height: int,
+    bounces: int = 2,
+    enable_shadows: bool = False,
+    enable_gi: bool = False,
+    gi_seed: int = 0,
+) -> torch.Tensor:
+    """Linear [H, W, 3] radiance before post-processing (render.py:373 of
+    the JAX package, its fused branch)."""
+    result, layout = _trace_tiled(
+        scene, frame, width, height, bounces, enable_shadows, enable_gi, gi_seed
+    )
+    return _untile(result, layout, height, width).permute(1, 2, 0)
 
 
 def _untile(result: torch.Tensor, layout: tuple, height: int, width: int) -> torch.Tensor:
@@ -110,27 +134,80 @@ def _untile(result: torch.Tensor, layout: tuple, height: int, width: int) -> tor
     )
 
 
+def _sample_offsets(n: int) -> list[tuple[float, float]]:
+    """Sub-pixel sample offsets in [-0.5, 0.5) (render.py:472 of the JAX
+    package): a rotated grid for 4 samples, centred Halton(2, 3) else."""
+    if n == 4:
+        return [(-0.125, -0.375), (0.375, -0.125), (-0.375, 0.125), (0.125, 0.375)]
+
+    def halton(i: int, b: int) -> float:
+        f, r = 1.0, 0.0
+        while i > 0:
+            f /= b
+            r += f * (i % b)
+            i //= b
+        return r
+
+    return [(halton(i + 1, 2) - 0.5, halton(i + 1, 3) - 0.5) for i in range(n)]
+
+
+def jitter_projection(
+    inverse_projection: torch.Tensor, dx: float, dy: float
+) -> torch.Tensor:
+    """The unprojection shifted by an NDC offset (dx, dy): raygen evaluates
+    ``(cx, cy, 1, 1) @ invProj``, so adding ``dx*invProj[0] +
+    dy*invProj[1]`` to row 3 shifts cx and cy, in the kernel's raygen too
+    (render.py:491 of the JAX package)."""
+    ip = torch.as_tensor(inverse_projection, dtype=torch.float32)
+    out = ip.clone()
+    out[3] = ip[3] + (dx * ip[0] + dy * ip[1])
+    return out
+
+
 def render_frame(
     scene: Scene,
     frame: FrameInputs,
     config: RenderConfig,
     device: str | torch.device | None = None,
 ) -> torch.Tensor:
-    """Full frame: trace + post chain → [H, W, 3] on the scene's device.
-    ``device`` (None = the CUDA card) must be where the scene lies."""
+    """Full frame: trace + post chain → [H, W, 3] on the scene's device
+    (render.py:503 of the JAX package, its three branches). ``device``
+    (None = the CUDA card) must be where the scene lies."""
     dev = resolve_device(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene is on {scene.device}, frame asked for {dev}")
     why = _unsupported(scene, config)
     if why is not None:
         raise NotImplementedError(f"render_frame: {why} is not ported yet")
-    result, layout = _trace_tiled(
-        scene, frame, config.width, config.height, config.bounces
+    opts = dict(
+        bounces=config.bounces, enable_shadows=config.enable_shadows,
+        enable_gi=config.enable_gi,
     )
+    w, h = config.width, config.height
+    if config.samples > 1:
+        # N sub-pixel-jittered frames averaged before post, each with its
+        # own GI stream
+        acc = None
+        for si, (jx, jy) in enumerate(_sample_offsets(config.samples)):
+            fj = frame._replace(inverse_projection=jitter_projection(
+                frame.inverse_projection, jx * 2.0 / w, jy * 2.0 / h))
+            img = trace_image(scene, fj, w, h, gi_seed=config.gi_seed + si, **opts)
+            acc = img if acc is None else acc + img
+        img = acc * (1.0 / config.samples)
+        if config.enable_post:
+            img = post_process(img, enable_fxaa=config.enable_fxaa)
+        return img
+    if config.enable_post and not config.enable_fxaa:
+        # the post chain on the kernel's tile layout: one relayout a frame
+        result, layout = _trace_tiled(
+            scene, frame, w, h, gi_seed=config.gi_seed, **opts
+        )
+        result = post_process_tiled(result, w, h, layout)
+        return _untile(result, layout, h, w).permute(1, 2, 0)
+    img = trace_image(scene, frame, w, h, gi_seed=config.gi_seed, **opts)
     if config.enable_post:
-        result = post_process_tiled(result, config.width, config.height, layout)
-    img = _untile(result, layout, config.height, config.width)
-    return img.permute(1, 2, 0)
+        img = post_process(img, enable_fxaa=config.enable_fxaa)
+    return img
 
 
 def trace_planar(

@@ -71,6 +71,10 @@ class RenderParamsC(ctypes.Structure):
         ("height", ctypes.c_int),
         ("n_rays", ctypes.c_int),
         ("bounces", ctypes.c_int),
+        ("atlas_mode", ctypes.c_int),
+        ("shadows", ctypes.c_int),
+        ("gi", ctypes.c_int),
+        ("gi_base", ctypes.c_uint),
     ]
 
 

@@ -5,7 +5,9 @@ The reference appends every RGB8 image to one texel pool and keeps
 Texture 0 is 1x1 white and texture 1 is 1x1 black
 (ResourceManager.cpp:168-177). Image files are not decoded here: the
 procedural scenes bake their textures, and file import comes with a later
-part of the port.
+part of the port. ``checkerboard`` and ``gradient_sky`` are images for
+``SceneBuilder.import_texture``: the bakes of the procedural descriptors,
+as the JAX package's ``scene/textures.py`` makes them.
 """
 
 from __future__ import annotations
@@ -13,6 +15,25 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from clraytracer_tpu_torch.scene import procedural_tex as ptex
+
+
+def checkerboard(
+    size: int = 64,
+    cells: int = 8,
+    color_a: tuple[int, int, int] = (255, 255, 255),
+    color_b: tuple[int, int, int] = (40, 40, 40),
+) -> np.ndarray:
+    """[size, size, 3] u8 checker image: the bake of ``ptex.checker``, so
+    imported and procedural checkers are texel-identical."""
+    return ptex.bake(ptex.checker(size, cells, color_a, color_b))
+
+
+def gradient_sky(width: int = 256, height: int = 128) -> np.ndarray:
+    """[height, width, 3] u8 equirect sky image: the bake of
+    ``ptex.sky_gradient``."""
+    return ptex.bake(ptex.sky_gradient(width, height))
 
 
 @dataclasses.dataclass

@@ -7,7 +7,8 @@ without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The tests marked ``cuda`` need an NVIDIA card (the kernels have no CPU
-build) and skip without one.
+build) and skip without one. The option scenes and the plane comparison
+are chip_smoke.py's.
 """
 
 import pytest
@@ -334,3 +335,101 @@ def test_diff_step_on_card_matches_cpu():
     assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
     assert set(g_g) == set(g_c)
     assert grads_disagree(g_g, g_c) == []
+
+
+#: K2.2's option instantiations on the card: (scene of chip_smoke's
+#: option_scene, shadows, GI seed or None)
+OPTION_CASES = [
+    ("atlas", False, None), ("atlas", True, None), ("atlas", False, 3), ("atlas", True, 3),
+    ("atlas65", False, None), ("atlas65", True, 3),
+    ("sphere", False, 3), ("sphere", True, 3), ("ground", True, None), ("ground", True, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,shadows,gi_seed", OPTION_CASES)
+def test_render_kernel_options_match_plain_on_card(spec, shadows, gi_seed):
+    """Each option of K2.2 (atlas mode 1: ``atlas``, mode 2: ``atlas65``,
+    shadows, GI in mode 0 and in the atlas modes) against
+    render_fused_plain: pool indices exact, every other plane within 1e-5
+    on all but FRAME_MISMATCH_MAX rays, with GI as without."""
+    from chip_smoke import compare_options, option_args, option_frame, option_scene
+
+    dev = _card()
+    scene = option_scene(spec, device=dev)
+    mode = rf.atlas_mode_of(scene)
+    assert mode == {"atlas": 1, "atlas65": 2}.get(spec, 0)
+    args = option_args(scene, option_frame(spec, W, H), W, H)
+    opts = dict(atlas_mode=mode, shadows=shadows, gi_seed=gi_seed)
+    before = dict(rf.render_cuda.variant_launches)
+    got = rf.render_cuda(*args, **opts)
+    ref = rf.render_fused_plain(*args, dev, **opts)
+    torch.cuda.synchronize()
+    name = rf.variant(mode, shadows, gi_seed is not None)
+    assert rf.render_cuda.variant_launches.get(name, 0) == before.get(name, 0) + 1
+    assert got.shape == ref.shape == (9 + rf.deferred_planes(mode, gi_seed is not None) * 2,
+                                      args[6] * 128)
+    case = compare_options(got, ref, mode, gi_seed is not None)
+    assert case["ok"], case
+
+
+@pytest.mark.cuda
+def test_shadow_walk_mixed_and_dead_warps_on_card():
+    """An odd-sized frame of the ground under the horizon: many warps hold
+    both rays that hit at bounce 0 (and walk the shadow ray) and sky rays
+    (which walk it as dead lanes), and pad lanes past the image's right
+    edge. K2.2 with shadows against render_fused_plain."""
+    from chip_smoke import (
+        camera_rays, compare_options, option_args, option_frame, option_scene,
+    )
+
+    dev = _card()
+    w, h = 97, 61
+    scene = option_scene("ground", device=dev)
+    frame = option_frame("ground", w, h)
+    args = option_args(scene, frame, w, h)
+    kt, rows_total = args[0], args[6]
+    rays, _ = camera_rays(w, h, dev, frame)
+    hit0 = (tr.trace_plain(kt, rays)[0] < tr.BIG).reshape(rows_total // 4, 4, 16, 8)
+    per_warp = hit0.sum(dim=(1, 3))
+    assert int(((per_warp > 0) & (per_warp < 32)).sum()) >= 4
+    got = rf.render_cuda(*args, atlas_mode=0, shadows=True)
+    ref = rf.render_fused_plain(*args, dev, atlas_mode=0, shadows=True)
+    torch.cuda.synchronize()
+    case = compare_options(got, ref, 0, False)
+    assert case["ok"], case
+    unshadowed = rf.render_cuda(*args)
+    assert (got[0:3] <= unshadowed[0:3] + 1e-6).all()
+    assert (got[0:3] < unshadowed[0:3] - 1e-3).any()
+
+
+@pytest.mark.cuda
+def test_render_frame_options_on_card_match_cpu():
+    """render_frame with imported textures, shadows, GI and 4 samples on the
+    card: one launch of the atlas1+shadows+gi instantiation per sample,
+    the image against the CPU frame (plain versions) on at least 98% of
+    pixels within 1e-3 (GI's tolerance)."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    cfg = RenderConfig(width=W, height=H, enable_shadows=True, enable_gi=True, samples=4)
+    frame = option_frame("atlas", W, H)
+    img_c = trender.render_frame(option_scene("atlas", device="cpu"), frame, cfg, device="cpu")
+    before = dict(rf.render_cuda.variant_launches)
+    img_g = trender.render_frame(option_scene("atlas", device=dev), frame, cfg)
+    torch.cuda.synchronize()
+    name = "atlas1+shadows+gi"
+    assert rf.render_cuda.variant_launches[name] == before.get(name, 0) + 4
+    assert torch.isfinite(img_g).all()
+    close = ((img_g.cpu() - img_c).abs() <= 1e-3).all(dim=-1).double().mean()
+    assert close >= 0.98, float(close)
+
+
+@pytest.mark.cuda
+def test_render_kernel_refuses_unknown_atlas_mode_on_card():
+    dev = _card()
+    args = _frame_args(build_scene("two", device=dev))
+    before = rf.render_cuda.launches
+    with pytest.raises(ValueError):
+        rf.render_cuda(*args, atlas_mode=3)
+    assert rf.render_cuda.launches == before

@@ -1,7 +1,8 @@
 """The port's frame (plain versions, on the CPU) against the JAX
 ``render_frame`` on the same scene and camera; the post chain against the
-JAX post chain; the options this slice does not port; and that the port
-loads neither JAX nor the JAX package."""
+JAX post chain; the options the port does not render yet; and that the
+port loads neither JAX nor the JAX package. The other options are held
+against JAX in tests/test_torch_options.py."""
 
 import os
 import subprocess
@@ -85,10 +86,6 @@ def test_post_process_tiled_matches_jax():
 @pytest.mark.parametrize(
     "option",
     [
-        dict(samples=2),
-        dict(enable_fxaa=True),
-        dict(enable_shadows=True),
-        dict(enable_gi=True),
         dict(enable_refraction=True),
         dict(reference_parity_shading=False),
         dict(integer_colors=False),
@@ -98,12 +95,6 @@ def test_post_process_tiled_matches_jax():
 def test_unported_options_raise(option, port_procedural):
     with pytest.raises(NotImplementedError):
         _port_frame(port_procedural, 8, 8, **option)
-
-
-def test_imported_texture_scene_raises(two_instance_scene):
-    port = scene_from_numpy(*flatten(two_instance_scene), device="cpu")
-    with pytest.raises(NotImplementedError):
-        _port_frame(port, 8, 8)
 
 
 def test_too_many_materials_raise():
@@ -120,11 +111,19 @@ def test_too_many_materials_raise():
         _port_frame(scene, 8, 8)
 
 
-def test_cpu_frame_launches_no_kernel(port_procedural):
-    before = (render_fused.render_cuda.launches, trace.trace_cuda.launches)
+def test_cpu_frame_launches_no_kernel(port_procedural, two_instance_scene):
+    """Neither the default frame nor a shadows + GI frame of an imported-
+    texture scene launches a kernel on the CPU."""
+    atlas = scene_from_numpy(*flatten(two_instance_scene), device="cpu")
+    assert render_fused.atlas_mode_of(atlas) == 1
+    before = (render_fused.render_cuda.launches, trace.trace_cuda.launches,
+              dict(render_fused.render_cuda.variant_launches))
     img = _port_frame(port_procedural, 16, 8)
     assert img.shape == (8, 16, 3)
-    assert (render_fused.render_cuda.launches, trace.trace_cuda.launches) == before
+    img = _port_frame(atlas, 16, 8, enable_shadows=True, enable_gi=True, samples=2)
+    assert img.shape == (8, 16, 3) and torch.isfinite(img).all()
+    assert (render_fused.render_cuda.launches, trace.trace_cuda.launches,
+            render_fused.render_cuda.variant_launches) == before
 
 
 def test_port_imports_no_jax():
@@ -137,6 +136,9 @@ def test_port_imports_no_jax():
         "s = build_scene('two', device='cpu')\n"
         "cam = Camera.create(CameraConfig(position=(0.13, 0.21, 10.0)), 32, 24)\n"
         "img = render(s, cam, RenderConfig(width=32, height=24), device='cpu')\n"
+        "assert img.shape == (24, 32, 3), img.shape\n"
+        "img = render(s, cam, RenderConfig(width=32, height=24, enable_shadows=True,\n"
+        "             enable_gi=True, samples=2, enable_fxaa=True), device='cpu')\n"
         "assert img.shape == (24, 32, 3), img.shape\n"
         "from clraytracer_tpu_torch.diff import image_loss_and_grads\n"
         "from clraytracer_tpu_torch.render import frame_inputs_from_camera\n"
