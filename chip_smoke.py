@@ -31,12 +31,15 @@ differentiable step) and prints one JSON line per phase:
    no K2.2). Then the option cells, each through ``render.render_frame``
    at 1920x1080: (h) ``atlas`` (bench.py's sphere with imported textures,
    atlas mode 1), (i) ``atlas65`` (mode 2), (j) ``sphere`` with GI
-   (bench.py's gi row), (k) the shadowed ground (the bounce-0 hits in
+   (bench.py's gi row), (k) the shadowed ground, (l) and (m) (a)'s and
+   (c)'s spheres with shadows (in each shadow cell the bounce-0 hits in
    shadow must be > 0); frame ms, K2.2 ms, the tail piece by piece, the
-   host's time to issue a frame, K2.2's six counters and bound, the
-   device's idle share and time by kernel, one launch of the cell's
-   instantiation per frame, K2.2 vs its plain version at 1920x1080 and on
-   a strip
+   host's time to issue a frame, K2.2's six counters and bound (the shadow
+   walk's counts apart, and the same frame without shadows timed beside),
+   the device's idle share and time by kernel, one launch of the cell's
+   instantiation per frame, K2.2 vs its plain version at 1920x1080 (for
+   (m)'s million triangles on a band of 16 image rows of its 1920x1080
+   launch, which must hold hits in shadow) and on a strip
 5. profile: torch.profiler over 10 frames of (a), device time by kernel
    and the device's idle share against (a)'s unprofiled frame time
 6. diff: the differentiable step ``diff.image_loss_and_grads``.
@@ -46,7 +49,8 @@ differentiable step) and prints one JSON line per phase:
    (K2.1, K2.3 and K2.4 twice each), peak memory, finite gradients that
    are nonzero on albedo, v0 and the instance transforms; K2.3 (bit-exact)
    and K2.4 (within 1e-5 * sum|g| + 1e-7) against their plain versions and
-   library calls on the step's own inputs; torch.profiler over 3 steps.
+   library calls on the step's own inputs, timed per call and on the
+   card (``device_ms``); torch.profiler over 3 steps.
    (f) the card's step against the CPU step (plain versions) on ``two``
    and ``sphere`` at 160x120. (g) 5 Adam steps of ``cli.fit`` on
    ``two``'s albedo at 1249x720: the loss falls
@@ -54,11 +58,14 @@ differentiable step) and prints one JSON line per phase:
    six work counters of K2.1/K2.2 on every main-path configuration and
    their registers and spill bytes (``-Xptxas -v``), then the kernels
    line: per kernel its TPU counterpart, launches on its path, error
-   against the plain version, ms, plain ms, bound ms (K2.1/K2.2: the
-   bytes the scene's data needs, ``walk_bytes``, and this run's counts;
-   the phase lines print beside it the bound from the per-ray walk's
-   counts), library ms; one entry per K2.2 instantiation of the option
-   cells, its bound counting its deferred planes and its shading
+   against the plain version, ms (events around one call, the host's
+   issue included; device_ms beside it: the card's time, ``device_ms``),
+   plain ms, bound ms (K2.1/K2.2: the bytes the scene's data needs,
+   ``walk_bytes``, and this run's counts; the phase lines print beside it
+   the bound from the per-ray walk's counts), library ms (per call;
+   library_device_ms beside it);
+   one entry per K2.2 instantiation of the option cells, its bound
+   counting its deferred planes and its shading
 
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
@@ -115,6 +122,13 @@ PER_RAY_WALK_COUNTS = {
     ("K2.2", "c", 1002000): (166356994, 13883264, 2179296, 90343),
     ("K2.1", "a", 4224): (17438758, 10321312, 2088960, 90177),
 }
+# The same four counts of (k)'s frame when its shadow ray walked as a
+# nearest-hit ray (both walks together; this script on an NVIDIA H100 80GB
+# HBM3, 700 W, before the any-hit walk). Cell (k)'s line prints the bound
+# they give beside this run's; the kernels line holds only this run's.
+NEAREST_SHADOW_WALK_COUNTS = {
+    ("K2.2", "k", 198): (13536618, 48518176, 9232436, 1304787),
+}
 
 CAMERA = (0.13, 0.21, 10.0)
 SUN = -1.96
@@ -148,8 +162,22 @@ OPTION_CELLS = (
     ("i", "atlas65", 4096, 1920, 1080, {}),
     ("j", "sphere", 4096, 1920, 1080, {"enable_gi": True}),
     ("k", "ground", 4096, 1920, 1080, {"enable_shadows": True}),
+    # (a)'s and (c)'s spheres with shadows: hits facing away from the sun
+    # cast shadow rays through the sphere itself
+    ("l", "sphere", 4096, 1920, 1080, {"enable_shadows": True}),
+    ("m", "sphere", TRIS_LARGE, 1920, 1080, {"enable_shadows": True}),
 )
+# Above this many triangles a cell's plain version runs on a band of
+# CHECK_BAND_ROWS image rows through the middle of the frame, held against
+# those rays of the cell's own launch: its brute force over 1M triangles at
+# 1920x1080 passes 2M rays over 31,313 chunks of 32 slots per trace, hours
+# on the card
+PLAIN_FULL_MAX_TRIS = 100_000
+CHECK_BAND_ROWS = 16
 GI_SEED = 7  # the seed of the GI checks (phase options)
+# a sun behind the sphere as the smoke camera sees it (shadow rays head
+# away from the camera, through the sphere): most bounce-0 hits in shadow
+BACKLIT_SUN = 0.0
 # differentiable step (phase diff): (e) the JAX bench's grads configuration
 # (bench.py:217, sphere --tris 4096 → 4224 triangles), (f) card vs CPU at
 # DIFF_CHECK_WH, (g) Adam steps of ``fit`` on ``two``'s albedo
@@ -188,6 +216,38 @@ def event_ms(fn, reps: int, warmup: int = 3) -> tuple[float, list[float]]:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2], times
+
+
+# a spin kernel of this many cycles (about 10 ms on an H100) holds the card
+# while the host issues a timed run of calls behind it
+SLEEP_CYCLES = 20_000_000
+
+
+def device_ms(fn, calls: int = 5, runs: int = 5) -> float:
+    """A kernel's time on the card: CUDA events around a run of ``calls``
+    calls, over ``calls``, the median of ``runs``, each run queued behind a
+    spin kernel (``torch.cuda._sleep``) that keeps the card busy while the
+    host issues it, so that the events time the card's work alone.
+    ``event_ms`` around one call issued to an idle card also counts the
+    host's time to issue it: for a kernel of a tenth of a millisecond
+    behind a Python wrapper, a large part."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    times.sort()
+    return times[len(times) // 2]
 
 
 def hits_match(ref_hit, got_hit, ref_t, got_t, ref_tri, got_tri) -> dict:
@@ -282,6 +342,24 @@ def ptxas_summary(log: str) -> list:
             cur["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", ln)
             cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def k22_registers(entries: list) -> dict:
+    """K2.2's ptxas entries (``ptxas_summary`` of render.cu) by
+    instantiation name (``render_fused.variant``): registers and spill
+    bytes."""
+    import re
+
+    from clraytracer_tpu_torch.ops.render_fused import variant
+
+    out = {}
+    for e in entries:
+        m = re.search(r"(render_kernel|render_shadow_kernel)ILi(\d)ELb(\d)EE", e["kernel"])
+        if m:
+            name = variant(int(m.group(2)), m.group(1) == "render_shadow_kernel",
+                           m.group(3) == "1")
+            out[name] = {k: e.get(k) for k in ("registers", "spill_stores", "spill_loads")}
     return out
 
 
@@ -484,9 +562,10 @@ def option_scene(spec: str, tris: int = 4096, device=None):
     return b.build(device=device)
 
 
-def option_frame(spec: str, w: int, h: int):
+def option_frame(spec: str, w: int, h: int, sun: float | None = None):
     """The camera and sun of a cell: test_shadows.py:38-44's view of the
-    ground (sun overhead), else the smoke camera."""
+    ground (sun overhead), else the smoke camera and SUN; ``sun`` sets
+    another sun angle."""
     import math
 
     from clraytracer_tpu_torch.camera import Camera
@@ -495,8 +574,9 @@ def option_frame(spec: str, w: int, h: int):
 
     if spec == "ground":
         cam = Camera.create(CameraConfig(position=(0.3, 4.0, 7.0), pitch_deg=-28.0), w, h)
-        return frame_inputs_from_camera(cam, -math.pi / 2)
-    return frame_inputs_from_camera(Camera.create(CameraConfig(position=CAMERA), w, h), SUN)
+        return frame_inputs_from_camera(cam, -math.pi / 2 if sun is None else sun)
+    cam = Camera.create(CameraConfig(position=CAMERA), w, h)
+    return frame_inputs_from_camera(cam, SUN if sun is None else sun)
 
 
 def option_args(scene, frame, w, h, bounces=2):
@@ -508,6 +588,32 @@ def option_args(scene, frame, w, h, bounces=2):
     rows_total = -(-h // trows) * -(-w // 128) * trows
     return (kernel_tables(scene), rf.frame_tables(scene), rf.camera_row(frame), w, h,
             trows, rows_total, bounces)
+
+
+def band_args(args, y0: int, rows: int):
+    """K2.2's positional arguments ``args`` of a w x h frame, cut to the
+    image rows y0 .. y0 + rows - 1 at full width: one strip of ``rows``
+    rows per 128 columns, the camera row's row0 set to y0. Without GI a
+    ray's planes depend only on its pixel, so these rays' planes are those
+    of the same pixels in the whole frame's launch (``band_index``)."""
+    from clraytracer_tpu_torch.ops.render_fused import CameraRow
+
+    kt, ft, cr, w, h, _trows, _rows_total, bounces = args
+    cr = CameraRow(cam=tuple(cr.cam[:35]) + (float(y0),), sun=cr.sun)
+    return (kt, ft, cr, w, h, rows, rows * -(-w // 128), bounces)
+
+
+def band_index(w: int, trows: int, y0: int, rows: int, device):
+    """The ray indices, in a launch of width w and strip height trows, of
+    the rays of ``band_args(..., y0, rows)`` in that band's order."""
+    import torch
+
+    tiles_x = -(-w // 128)
+    r = torch.arange(rows * tiles_x, device=device)[:, None]
+    lane = torch.arange(128, device=device)[None, :]
+    py = y0 + r % rows
+    whole = ((py // trows) * tiles_x + r // rows) * trows + py % trows
+    return (whole * 128 + lane).reshape(-1)
 
 
 def compare_options(got, ref, mode: int, gi: bool) -> dict:
@@ -580,15 +686,15 @@ def phase_options(dev, results) -> None:
     results["options"] = cases
 
 
-def shadowed_hits(kt, rays, sun) -> tuple[int, int]:
-    """(bounce-0 hits whose shadow ray toward the sun is occluded, hits) of
-    camera rays [6, n], by K2.1 launches and render.cu's shadow-ray origin
-    ``(mo + md t) + n 0.01``."""
+def shadow_rays(kt, rays, rec, sun):
+    """The bounce-0 shadow rays [6, n] of camera rays [6, n] whose hit
+    record (K2.1's [11, n] layout) is ``rec``, from render.cu's origin
+    ``(mo + md t) + n 0.01`` toward the sun (sin, cos), and the mask of the
+    rays that hit."""
     import torch
 
     from clraytracer_tpu_torch.ops import trace as tr
 
-    rec = tr.trace_cuda(kt, rays)
     t = rec[0]
     hit = t < tr.BIG
     m = kt.inst[rec[4].view(torch.int32).long()].T
@@ -599,43 +705,96 @@ def shadowed_hits(kt, rays, sun) -> tuple[int, int]:
            + (d[0] * m[c] + d[1] * m[4 + c] + d[2] * m[8 + c]) * t) + (nw[c] / sn) * 0.01
           for c in range(3)]
     zero = torch.zeros_like(t)
-    srays = torch.stack(so + [zero, zero - sun[0], zero - sun[1]]).contiguous()
+    return torch.stack(so + [zero, zero - sun[0], zero - sun[1]]).contiguous(), hit
+
+
+def shadow_masks(kt, rays, sun):
+    """The masks [n] of bounce-0 hits whose shadow ray toward the sun is
+    occluded and of the hits, of camera rays [6, n], by K2.1 launches
+    (``shadow_rays``)."""
+    from clraytracer_tpu_torch.ops import trace as tr
+
+    srays, hit = shadow_rays(kt, rays, tr.trace_cuda(kt, rays), sun)
     occ = tr.trace_cuda(kt, srays, hit.float())[0] < tr.BIG
-    return int((hit & occ).sum()), int(hit.sum())
+    return hit & occ, hit
 
 
-def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi) -> dict:
+def shadowed_hits(kt, rays, sun) -> tuple[int, int]:
+    """(bounce-0 hits in shadow, hits) of camera rays [6, n]
+    (``shadow_masks``)."""
+    in_shadow, hit = shadow_masks(kt, rays, sun)
+    return int(in_shadow.sum()), int(hit.sum())
+
+
+def band_start(mask, w: int, h: int, trows: int, rows: int) -> int:
+    """The first image row of a band of ``rows`` rows centred on the median
+    image row of the rays in ``mask`` (a launch's strip order, width w,
+    strip height trows), kept inside the frame; the middle of the frame
+    when the mask is empty."""
+    import torch
+
+    r = torch.nonzero(mask)[:, 0] // 128
+    if r.numel() == 0:
+        return (h - rows) // 2
+    py = (r // trows // -(-w // 128)) * trows + r % trows
+    mid = int(py.float().median())
+    return max(0, min(h - rows, mid - rows // 2))
+
+
+def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi, key=None,
+                  shadow_counts=None) -> dict:
     """A K2.2 instantiation's bound: the bytes the scene's data needs
     (``walk_bytes``) plus its 9 + K*B output planes, and the operations of
     this run's counts (the shadow walk's included) with the shading of its
-    atlas mode and GI per shaded hit and the raygen per ray."""
+    atlas mode and GI per shaded hit and the raygen per ray.
+    ``shadow_counts``: the shadow walk's own counts, printed apart with the
+    primary walks' (the rest). ``key`` (kernel, cell, triangles): where
+    ``NEAREST_SHADOW_WALK_COUNTS`` holds it, the bound those counts give is
+    printed beside this run's."""
     from clraytracer_tpu_torch.ops.render_fused import deferred_planes
     from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
 
     planes = 9 + deferred_planes(mode, gi) * bounces
     bytes_moved = walk_bytes(kt, clusters, slots, ft) + planes * n * 4
-    boxes, tris, xforms, hits = (float(c) for c in counts[:4])
-    ops = (boxes * BOX_OPS + tris * TRI_OPS + xforms * XFORM_OPS
-           + hits * (INTERP_OPS + SHADE_OPS_BY_MODE[mode] + (GI_OPS if gi else 0))
-           + n * RAYGEN_OPS)
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
+
+    def operations(c):
+        boxes, tris, xforms, hits = (float(x) for x in c[:4])
+        return (boxes * BOX_OPS + tris * TRI_OPS + xforms * XFORM_OPS
+                + hits * (INTERP_OPS + SHADE_OPS_BY_MODE[mode] + (GI_OPS if gi else 0))
+                + n * RAYGEN_OPS)
+
+    ops = operations(counts)
     t_ops = ops / PEAK_F32 * 1e3
-    return {"counts": dict(zip(COUNTER_NAMES, counts)), "bytes": bytes_moved,
-            "operations": ops, "output_planes": planes, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out = {"counts": dict(zip(COUNTER_NAMES, counts)), "bytes": bytes_moved,
+           "operations": ops, "output_planes": planes, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if shadow_counts is not None:
+        out["shadow_walk_counts"] = dict(zip(COUNTER_NAMES, shadow_counts))
+        out["primary_walk_counts"] = dict(
+            zip(COUNTER_NAMES, (a - b for a, b in zip(counts, shadow_counts))))
+    old = NEAREST_SHADOW_WALK_COUNTS.get(key)
+    if old is not None:
+        out["bound_ms_nearest_hit_shadow_counts"] = max(
+            t_bytes, operations(old) / PEAK_F32 * 1e3)
+    return out
 
 
 def phase_option_cells(dev, results) -> None:
     """The option cells on the main path, each through render.render_frame
     at full width with the counts from zero: (h) ``atlas`` (mode 1), (i)
     ``atlas65`` (mode 2), (j) ``sphere`` with GI (bench.py's gi row), (k)
-    the shadowed ground, sun overhead. Per cell: frame ms, K2.2 ms, the
-    tail after it (texel gather / sky, post, untile), the host's time to
-    issue a frame, K2.2's six counters, its bound, torch.profiler over 5
-    frames (device time by kernel, idle share), K2.2 against its plain
-    version at the cell's own shapes (the plain run also gives plain_ms)
-    and on a CHECK_STRIP_WH strip, and in (k) the bounce-0 hits in
-    shadow."""
+    the shadowed ground, sun overhead, (l) and (m) (a)'s and (c)'s spheres
+    with shadows. Per cell: frame ms, K2.2 ms, the tail after it (texel
+    gather / sky, post, untile), the host's time to issue a frame, K2.2's
+    six counters, its bound, torch.profiler over 5 frames (device time by
+    kernel, idle share), K2.2 against its plain version at the cell's own
+    shapes (above PLAIN_FULL_MAX_TRIS triangles on a band of the same
+    launch's rays, ``band_args``; the plain run also gives plain_ms) and on
+    a CHECK_STRIP_WH strip. In the shadow
+    cells also the bounce-0 hits in shadow, the shadow walk's six counts
+    apart, and the same frame without shadows (its instantiation's ms and
+    counts; in (k) the k0 split)."""
     import torch
 
     from clraytracer_tpu_torch.config import RenderConfig
@@ -670,23 +829,62 @@ def phase_option_cells(dev, results) -> None:
         kt, ft, rows_total = args[0], args[1], args[6]
         n = rows_total * 128
         counters = torch.zeros(6, dtype=torch.int64, device=dev)
-        out = rf.render_cuda(*args, counters, **opts)
+        shadow_cnt = (torch.zeros(6, dtype=torch.int64, device=dev)
+                      if cfg.enable_shadows else None)
+        out = rf.render_cuda(*args, counters, shadow_counters=shadow_cnt, **opts)
         kms, _ = event_ms(lambda: rf.render_cuda(*args, **opts), 10, 2)
-        # the plain version on the same inputs: timed once, and held against
-        # the kernel's output at the cell's own shapes
-        keep = []
-        plain_ms, _ = event_ms(
-            lambda: keep.append(rf.render_fused_plain(*args, dev, **opts)), 1, 0)
-        full = compare_options(out, keep.pop(), mode, gi)
+        kdev = device_ms(lambda: rf.render_cuda(*args, **opts))
+        # a shadow cell's frame without shadows (the instantiation of its
+        # other options), timed beside it: the shadow walk's share
+        unshadowed = None
+        if cfg.enable_shadows:
+            u_opts = dict(opts, shadows=False)
+            u_cnt = torch.zeros(6, dtype=torch.int64, device=dev)
+            rf.render_cuda(*args, u_cnt, **u_opts)
+            unshadowed = {
+                "variant": rf.variant(mode, False, gi),
+                "kernel_ms": event_ms(lambda: rf.render_cuda(*args, **u_opts), 10, 2)[0],
+                "kernel_device_ms": device_ms(lambda: rf.render_cuda(*args, **u_opts)),
+                "counts": u_cnt.cpu().tolist(),
+            }
         cnt = counters.cpu().tolist()
         rays, _cam = camera_rays(w, h, dev, frame)
         clusters, slots = winners(tr.trace_cuda(kt, rays))
-        kb = variant_bound(kt, ft, cnt, clusters, slots, n, cfg.bounces, mode, gi)
-        shadow = None
+        kb = variant_bound(
+            kt, ft, cnt, clusters, slots, n, cfg.bounces, mode, gi,
+            key=("K2.2", tag, int(scene.tris.count)),
+            shadow_counts=None if shadow_cnt is None else shadow_cnt.cpu().tolist())
+        shadow, in_shadow = None, None
         if cfg.enable_shadows:
-            in_shadow, hits0 = shadowed_hits(kt, rays, args[2].sun)
-            shadow = {"bounce0_hits": hits0, "bounce0_hits_in_shadow": in_shadow}
+            in_shadow, hit0 = shadow_masks(kt, rays, args[2].sun)
+            shadow = {"bounce0_hits": int(hit0.sum()),
+                      "bounce0_hits_in_shadow": int(in_shadow.sum()),
+                      "walk_counts": kb["shadow_walk_counts"],
+                      "without_shadows": unshadowed}
         del rays
+        # the plain version on the same inputs: timed once, and held against
+        # the output of the launch above, at the cell's own shapes (above
+        # PLAIN_FULL_MAX_TRIS triangles on a band of that launch's rays,
+        # through the middle of its bounce-0 hits in shadow)
+        pargs, p_out, p_frame, band = args, out, f"{w}x{h}", None
+        if int(scene.tris.count) > PLAIN_FULL_MAX_TRIS:
+            if gi:
+                raise SystemExit(f"option cell {tag}: a band check needs a frame without GI")
+            y0 = (band_start(in_shadow, w, h, args[5], CHECK_BAND_ROWS)
+                  if in_shadow is not None else (h - CHECK_BAND_ROWS) // 2)
+            pargs = band_args(args, y0, CHECK_BAND_ROWS)
+            band = band_index(w, args[5], y0, CHECK_BAND_ROWS, dev)
+            p_out = out[:, band]
+            p_frame = (f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-{y0 + CHECK_BAND_ROWS - 1})"
+                       f" of {w}x{h}")
+            if shadow is not None:  # the checked band holds hits in shadow too
+                shadow["band_bounce0_hits"] = int(hit0[band].sum())
+                shadow["band_bounce0_hits_in_shadow"] = int(in_shadow[band].sum())
+        keep = []
+        plain_ms, _ = event_ms(
+            lambda: keep.append(rf.render_fused_plain(*pargs, dev, **opts)), 1, 0)
+        full = compare_options(p_out, keep.pop(), mode, gi)
+        del p_out
         out3 = out.reshape(-1, rows_total, 128)
         trows = args[5]
         layout = ("strip", trows, -(-w // 128), -(-h // trows))
@@ -717,7 +915,8 @@ def phase_option_cells(dev, results) -> None:
             "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
             "frame_host_ms": frame_host_ms,
             "mrays_per_s": w * h * cfg.bounces / (ms * 1e-3) / 1e6,
-            "kernel_ms": kms, "plain_ms": plain_ms, "kernel_bound_ms": kb["bound_ms"],
+            "kernel_ms": kms, "kernel_device_ms": kdev, "plain_ms": plain_ms,
+            "kernel_bound_ms": kb["bound_ms"],
             "kernel_bound_by": kb["bound_by"], "kernel_bound": kb,
             "winning_clusters": clusters, "winning_slots": slots, "tail": tail,
             "launches": launches, "frames": frames,
@@ -725,13 +924,14 @@ def phase_option_cells(dev, results) -> None:
             "shaded_hits": cnt[3], "node_steps": cnt[4], "staged_clusters": cnt[5],
             "rays_traced": n, "shadow": shadow, "finite": finite,
             "mean": float(img.mean()), "check": {"frame": list(CHECK_STRIP_WH), **check},
-            "check_full": {"frame": [w, h], **full},
+            "check_full": {"frame": p_frame, **full}, "plain_frame": p_frame,
             "profile": prof,
         }
         line["ok"] = (
             finite and check["ok"] and full["ok"] and launches["K2.2"] == frames
             and launches["K2.2_variants"] == {name: frames} and launches["K2.1"] == 0
             and (shadow is None or shadow["bounce0_hits_in_shadow"] > 0)
+            and (shadow is None or band is None or shadow["band_bounce0_hits_in_shadow"] > 0)
         )
         results["option_cells"].append(line)
         results["fused_err"] = max(results["fused_err"], check["max_abs_err_within"],
@@ -818,10 +1018,9 @@ def phase_main(dev, results, tris_large: int) -> None:
         rows_total = -(-h // trows) * -(-w // 128) * trows
         counters = torch.zeros(6, dtype=torch.int64, device=dev)
         out = rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, cfg.bounces, counters)
-        kms, _ = event_ms(
-            lambda: rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, cfg.bounces),
-            10, 2,
-        )
+        launch = lambda: rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, cfg.bounces)
+        kms, _ = event_ms(launch, 10, 2)
+        kdev = device_ms(launch)
         cnt = counters.cpu().tolist()
         # ---- the walk split: K2.2's bounce 0 alone, and K2.1 on the frame's
         # camera rays, on the rays that hit alone and on those that miss
@@ -867,7 +1066,7 @@ def phase_main(dev, results, tris_large: int) -> None:
             "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
             "frame_host_ms": frame_host_ms,
             "mrays_per_s": w * h * cfg.bounces / (ms * 1e-3) / 1e6,
-            "kernel_ms": kms, "kernel_bound_ms": kb["bound_ms"],
+            "kernel_ms": kms, "kernel_device_ms": kdev, "kernel_bound_ms": kb["bound_ms"],
             "kernel_bound_by": kb["bound_by"], "kernel_bound": kb,
             "winning_clusters": clusters, "winning_slots": slots, "split": split,
             "tail": tail,
@@ -1126,10 +1325,15 @@ def check_gather_kernels(gathers, scatters) -> dict:
     table_t = table.t().contiguous()
     reps = 20
     bytes_moved = n * 4 + n * w * 4 + t_rows * w * 4
+    # ms and library_ms: one event pair around each call; device_ms and
+    # library_device_ms beside them: the card's time (``device_ms``)
+    gather = lambda: gr.gather_rows_cuda(table, idx)
+    lib_gather = lambda: torch.index_select(table_t, 1, idx)
     k3 = {
-        "ms": event_ms(lambda: gr.gather_rows_cuda(table, idx), reps)[0],
+        "ms": event_ms(gather, reps)[0], "device_ms": device_ms(gather),
         "plain_ms": event_ms(lambda: gr.gather_rows_plain(table, idx), reps)[0],
-        "library_ms": event_ms(lambda: torch.index_select(table_t, 1, idx), reps)[0],
+        "library_ms": event_ms(lib_gather, reps)[0],
+        "library_device_ms": device_ms(lib_gather),
         "bound_ms": bytes_moved / PEAK_BYTES * 1e3, "bound_by": "bytes",
         "bytes": bytes_moved, "shape": f"table [{table.shape[0]}, {w}], idx [{n}]",
     }
@@ -1137,10 +1341,12 @@ def check_gather_kernels(gathers, scatters) -> dict:
     adds = int((g != 0).sum())
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = adds / PEAK_F32 * 1e3
+    scatter = lambda: gr.scatter_rows_cuda(g, gidx, t_rows)
     k4 = {
-        "ms": event_ms(lambda: gr.scatter_rows_cuda(g, gidx, t_rows), reps)[0],
+        "ms": event_ms(scatter, reps)[0], "device_ms": device_ms(scatter),
         "plain_ms": event_ms(lambda: gr.scatter_rows_plain(g, gidx, t_rows), reps)[0],
         "library_ms": event_ms(lib_scatter, reps)[0],
+        "library_device_ms": device_ms(lib_scatter),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": bytes_moved, "adds": adds,
@@ -1345,6 +1551,7 @@ def phase_kernels(dev, results) -> None:
     clusters, slots = winners(got)
     del got, ref
     t_ms, _ = event_ms(lambda: tr.trace_cuda(kt, rays), 10, 2)
+    t_dev = device_ms(lambda: tr.trace_cuda(kt, rays))
     tp_ms, _ = event_ms(lambda: tr.trace_plain(kt, rays), 1, 0)
     kb1 = walk_bound(("K2.1", "a", int(scene.tris.count)),
                      6 * n * 4 + walk_bytes(kt, clusters, slots) + 11 * n * 4,
@@ -1362,6 +1569,7 @@ def phase_kernels(dev, results) -> None:
     r_ms, _ = event_ms(
         lambda: rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, 2), 10, 2
     )
+    r_dev = device_ms(lambda: rf.render_cuda(kt, ft, cr, w, h, trows, rows_total, 2))
     rp_ms, _ = event_ms(
         lambda: rf.render_fused_plain(kt, ft, cr, w, h, trows, rows_total, 2, dev),
         1, 0,
@@ -1387,7 +1595,7 @@ def phase_kernels(dev, results) -> None:
             "max_abs_err": max(results["trace_err"], check1["max_abs_err"]),
             "tolerance": (f"hit rule of tests/test_trace.py; <= {FRAME_MISMATCH_MAX} "
                           "rays not exact in (t, slot, instance); attrs rtol 1e-5 atol 1e-6"),
-            "ms": t_ms, "plain_ms": tp_ms, "bound_ms": kb1["bound_ms"],
+            "ms": t_ms, "device_ms": t_dev, "plain_ms": tp_ms, "bound_ms": kb1["bound_ms"],
             "bound_by": kb1["bound_by"], "library_ms": None,
             "shape": f"{n} camera rays, {spec} {scene.tris.count} tris",
         },
@@ -1399,7 +1607,7 @@ def phase_kernels(dev, results) -> None:
             "path": "(a)-(c) render.render_frame",
             "max_abs_err": max(results["fused_err"], check2["max_abs_err_all"]),
             "tolerance": f"<= {FRAME_MISMATCH_MAX} rays over 1e-5 on any of nine planes",
-            "ms": r_ms, "plain_ms": rp_ms, "bound_ms": kb2["bound_ms"],
+            "ms": r_ms, "device_ms": r_dev, "plain_ms": rp_ms, "bound_ms": kb2["bound_ms"],
             "bound_by": kb2["bound_by"], "library_ms": None,
             "shape": f"{w}x{h}x2 bounces, {spec} {scene.tris.count} tris",
         },
@@ -1428,10 +1636,12 @@ def option_kernel_entries(results) -> list:
             "max_abs_err": max(errs),
             "tolerance": (f"pool indices exact; other planes within 1e-5 on all but "
                           f"{FRAME_MISMATCH_MAX} rays"),
-            "ms": line["kernel_ms"], "plain_ms": line["plain_ms"],
+            "ms": line["kernel_ms"], "device_ms": line["kernel_device_ms"],
+            "plain_ms": line["plain_ms"],
             "bound_ms": line["kernel_bound_ms"], "bound_by": line["kernel_bound_by"],
             "library_ms": None,
             "shape": f"{w}x{h}x{line['bounces']} bounces, {spec} {line['triangles']} tris",
+            "plain_shape": line["plain_frame"],
         })
     return out
 
@@ -1456,8 +1666,9 @@ def diff_kernel_entries(results) -> list:
             "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
             "tolerance": ("bit-exact" if key == "K2.3"
                           else "1e-5 * sum|g| (plain scatter of |g|) + 1e-7"),
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "library_device_ms": k["library_device_ms"],
             "shape": k["shape"],
         })
     return out
@@ -1485,13 +1696,15 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     regs = {src: ptxas_summary(log) for src, log in kernels.build_log.items()}
     results["ptxas"] = regs
-    # K2.2's default instantiation (atlas mode 0, no shadows, no GI)
-    k22_default = [e for e in regs.get("render.cu", []) if "ILi0ELb0ELb0E" in e["kernel"]]
+    # K2.2's default instantiation (atlas mode 0, no GI, no shadows)
+    k22_default = [e for e in regs.get("render.cu", [])
+                   if "render_kernelILi0ELb0EE" in e["kernel"]]
     emit({
         "phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "python": sys.version.split()[0],
         "kernel_build_s": build_s, "ptxas": regs, "k22_default": k22_default,
+        "k22_instantiations": k22_registers(regs.get("render.cu", [])),
     })
     phase_trace(dev, results)
     phase_fused(dev, results)

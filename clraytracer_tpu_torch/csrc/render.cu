@@ -15,8 +15,8 @@
 //    reads the material row and emits the texel-pool index; mode 2 reads
 //    no material data and emits the material id and (uu, vv);
 //  * shadows: on bounce 0 every lane walks a second ray from the offset
-//    hit point toward the sun; an occluded hit loses dif, spec_s and
-//    spec_light (render_pallas.py:476-515);
+//    hit point toward the sun, in traverse.cuh's any-hit mode; an occluded
+//    hit loses dif, spec_s and spec_light (render_pallas.py:476-515);
 //  * gi: Monte-Carlo continuation in a uniform hemisphere direction with
 //    throughput colour * 2 cos(theta) (render_pallas.py:542-604), from a
 //    per-ray Wang-hash/xorshift32 stream seeded by the ray's strip index.
@@ -51,6 +51,20 @@
 // everything is inlined, so the per-ray arrays live in registers. The
 // options are compile-time, so the default frame's instantiation compiles
 // to the same code as the option-free kernel before them.
+//
+// The shadow walk. What bounds it is the same latency, on up to one shadow
+// ray per pixel (60% of the rays on a ground scene), and two costs of its
+// own: a nearest-hit walk keeps opening boxes and leaves after the ray's
+// first occluder, and a second inlined walk holds the hit's shading state
+// (normal, next origin, colour inputs) live across it, which under the
+// default instantiation's register bound spilled. So the shadow ray walks in
+// any-hit mode (a lane leaves at its first accepted hit, the warp when none
+// is left open). The shadow factor is the nearest walk's, but for a grazing
+// hit that a triangles-outer leaf finds behind a box the lane's own slab
+// test culled (traverse.cuh's one exception, under the frame rule of at
+// most 16 rays). The shadow instantiations are their own kernel,
+// render_shadow_kernel, with their own register bound. The shadow walk's
+// counts can be read apart (the shadow_counters of clrt_render).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false.
 // No --use_fast_math: divisions, sqrtf, cosf and sinf stay IEEE/accurate,
@@ -183,10 +197,14 @@ __device__ __forceinline__ float gi_sample(uint32_t sg, const float (&n)[3],
   return 2.0f * fabsf(dot);
 }
 
+// The frame, one thread per ray; render_kernel and render_shadow_kernel
+// inline it under their own register bounds.
 template <int ATLAS, bool SHADOWS, bool GI>
-__global__ void __launch_bounds__(128)
-render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
-              unsigned long long* counters) {
+__device__ __forceinline__ void render_frame(const SceneTables& s,
+                                             const RenderParams& p,
+                                             float* __restrict__ out,
+                                             unsigned long long* counters,
+                                             unsigned long long* shadow_counters) {
   constexpr int K = Defer<ATLAS, GI>::K;
   __shared__ WarpStage stage[4];
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
@@ -280,17 +298,25 @@ render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
     }
 
     // ---- sun shadow on bounce 0: every lane walks, the unshaded ones as
-    // rays that pass nothing; an occluded hit keeps only the ambient term
+    // rays that pass nothing; an occluded hit keeps only the ambient term.
+    // Any hit will do (traverse.cuh's any-hit mode). Its counts go out on
+    // their own: the warp's counts so far first, then the walk's to both
+    // counter sets.
     float shadow = 1.0f;
     if (SHADOWS && b == 0) {
+      if (counters != nullptr) add_counts_warp(counters, cnt);
+      cnt = TestCount{0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
       Hit sh;
       sh.t = alive ? CLRT_BIG : -CLRT_BIG;
       sh.u = 0.0f;
       sh.v = 0.0f;
       sh.slot = 0;
       sh.inst = 0;
-      traverse(s, stage[warp], alive, new_o[0], new_o[1], new_o[2], 0.0f,
-               0.0f - p.sun_sin, 0.0f - p.sun_cos, sh, cnt);
+      traverse<true>(s, stage[warp], alive, new_o[0], new_o[1], new_o[2], 0.0f,
+                     0.0f - p.sun_sin, 0.0f - p.sun_cos, sh, cnt);
+      if (counters != nullptr) add_counts_warp(counters, cnt);
+      if (shadow_counters != nullptr) add_counts_warp(shadow_counters, cnt);
+      cnt = TestCount{0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
       if (alive && sh.t < CLRT_BIG) shadow = 0.0f;
     }
 
@@ -421,34 +447,66 @@ render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
   if (counters != nullptr) add_counts(counters, cnt);
 }
 
+// Register bounds, one per kind of instantiation. Without shadows: 128
+// threads and no floor on resident blocks, under which ptxas keeps the
+// default frame at 126 registers without spills (16 warps an SM). With
+// shadows the two walks' state overlaps on bounce 0, and the same bound
+// made ptxas cap them at 96 registers and spill 170-182 bytes; a floor of
+// one resident block lets them take what they need (a floor of 4, capping
+// them at 128 registers, was slower: PERF.md).
+template <int ATLAS, bool GI>
+__global__ void __launch_bounds__(128)
+render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
+              unsigned long long* counters) {
+  render_frame<ATLAS, false, GI>(s, p, out, counters, nullptr);
+}
+
+template <int ATLAS, bool GI>
+__global__ void __launch_bounds__(128, 1)
+render_shadow_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
+                     unsigned long long* counters,
+                     unsigned long long* shadow_counters) {
+  render_frame<ATLAS, true, GI>(s, p, out, counters, shadow_counters);
+}
+
 template <int ATLAS, bool SHADOWS, bool GI>
 static int launch(const SceneTables* s, const RenderParams* p, float* out,
-                  unsigned long long* counters, cudaStream_t stream, int blocks) {
-  render_kernel<ATLAS, SHADOWS, GI><<<blocks, 128, 0, stream>>>(*s, *p, out, counters);
+                  unsigned long long* counters, unsigned long long* shadow_counters,
+                  cudaStream_t stream, int blocks) {
+  if constexpr (SHADOWS) {
+    render_shadow_kernel<ATLAS, GI><<<blocks, 128, 0, stream>>>(*s, *p, out, counters,
+                                                                shadow_counters);
+  } else {
+    render_kernel<ATLAS, GI><<<blocks, 128, 0, stream>>>(*s, *p, out, counters);
+  }
   return (int)cudaGetLastError();
 }
 
+// shadow_counters: optional int64[6], the shadow walk's counts alone (it
+// needs p->shadows; counters, when given, count both walks as before).
 extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
                            float* out, unsigned long long* counters,
-                           void* stream) {
+                           unsigned long long* shadow_counters, void* stream) {
   if (p->n_rays <= 0) return 0;
+  if (shadow_counters != nullptr && !p->shadows) return (int)cudaErrorInvalidValue;
   const int rows = (p->n_rays + 127) / 128;
   const int blocks = (rows + 3) / 4 * 4;  // four blocks per 4 strip rows
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* sc = shadow_counters;
   const int sel = p->atlas_mode * 4 + (p->shadows ? 2 : 0) + (p->gi ? 1 : 0);
   switch (sel) {
-    case 0: return launch<0, false, false>(s, p, out, counters, st, blocks);
-    case 1: return launch<0, false, true>(s, p, out, counters, st, blocks);
-    case 2: return launch<0, true, false>(s, p, out, counters, st, blocks);
-    case 3: return launch<0, true, true>(s, p, out, counters, st, blocks);
-    case 4: return launch<1, false, false>(s, p, out, counters, st, blocks);
-    case 5: return launch<1, false, true>(s, p, out, counters, st, blocks);
-    case 6: return launch<1, true, false>(s, p, out, counters, st, blocks);
-    case 7: return launch<1, true, true>(s, p, out, counters, st, blocks);
-    case 8: return launch<2, false, false>(s, p, out, counters, st, blocks);
-    case 9: return launch<2, false, true>(s, p, out, counters, st, blocks);
-    case 10: return launch<2, true, false>(s, p, out, counters, st, blocks);
-    case 11: return launch<2, true, true>(s, p, out, counters, st, blocks);
+    case 0: return launch<0, false, false>(s, p, out, counters, sc, st, blocks);
+    case 1: return launch<0, false, true>(s, p, out, counters, sc, st, blocks);
+    case 2: return launch<0, true, false>(s, p, out, counters, sc, st, blocks);
+    case 3: return launch<0, true, true>(s, p, out, counters, sc, st, blocks);
+    case 4: return launch<1, false, false>(s, p, out, counters, sc, st, blocks);
+    case 5: return launch<1, false, true>(s, p, out, counters, sc, st, blocks);
+    case 6: return launch<1, true, false>(s, p, out, counters, sc, st, blocks);
+    case 7: return launch<1, true, true>(s, p, out, counters, sc, st, blocks);
+    case 8: return launch<2, false, false>(s, p, out, counters, sc, st, blocks);
+    case 9: return launch<2, false, true>(s, p, out, counters, sc, st, blocks);
+    case 10: return launch<2, true, false>(s, p, out, counters, sc, st, blocks);
+    case 11: return launch<2, true, true>(s, p, out, counters, sc, st, blocks);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,9 @@
-// Nearest-hit traversal over the cluster hierarchy, walked by a whole warp
-// at once, as __device__ code shared by the hit-record kernel (trace.cu) and
-// the fused frame kernel (render.cu).
+// Traversal over the cluster hierarchy, walked by a whole warp at once, as
+// __device__ code shared by the hit-record kernel (trace.cu) and the fused
+// frame kernel (render.cu), in two modes (the template parameter ANY of
+// Walk and traverse): nearest hit (K2.1, every walk of K2.2 but one), and
+// any hit (K2.2's sun-shadow ray, which asks only whether an occluder
+// exists).
 //
 // Replaces the traversal body of the TPU kernels,
 // clraytracer_tpu/ops/trace_pallas.py:_emit_traversal: its algorithm (a
@@ -60,6 +63,25 @@
 //  * padding supers (inverted-empty boxes that PASS the slab test) are
 //    masked by count, never by box value; padding triangles have all-zero
 //    planes, give NaN and never accept.
+//
+// Any-hit mode. A shadow ray needs one accepted hit (t > 0, u >= 0, v >= 0,
+// u + v <= 1, t below its starting CLRT_BIG), not the nearest: a nearest
+// walk keeps opening boxes and leaves that could hold a nearer hit after
+// its first accept. Here a lane that accepts is resolved: its best t drops
+// to -CLRT_BIG, so every later box and leaf culls it as it culls a dead
+// lane (the occlusion masks of pop and leaves), and its leaf loop ends.
+// When no lane of the warp is open, the levels end through pop and the
+// instance loop stops. Until its first accept a lane has best t =
+// CLRT_BIG in both modes, so in both it reaches every leaf whose boxes pass
+// it at that t, whatever the other lanes do and in whatever order, and tests
+// it with the same arithmetic: it accepts in one mode if and only if in the
+// other. So a lane resolves exactly when the nearest walk returns t <
+// CLRT_BIG, and the shadow factor is the same bit for bit. (One exception,
+// in both modes alike: a leaf tested triangles outer also tests lanes whose
+// own boxes culled it, so a hit behind a box that a float slab test culls
+// may be found in one mode and not the other; the grazing case the frame
+// rule of K2.1 and K2.2 allows against their plain versions.) With ANY =
+// false every `if constexpr` drops out and the walk compiles as before.
 //
 // Build with --fmad=false: the JAX reference evaluates these expressions
 // without fused multiply-adds, and the plain torch versions do too.
@@ -171,7 +193,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One lane's view of the warp's walk.
+// One lane's view of the warp's walk; ANY: any-hit mode (see the header).
+template <bool ANY>
 struct Walk {
   const SceneTables& s;
   WarpStage& ws;
@@ -314,17 +337,27 @@ struct Walk {
                 t * (r.dx * U.x + r.dy * U.y + r.dz * U.z);
       float v = (r.ox * V.x + r.oy * V.y + r.oz * V.z + V.w) +
                 t * (r.dx * V.x + r.dy * V.y + r.dz * V.z);
-      const int slot_id = c * CLRT_CLUSTER + k;
-      const bool closer =
-          (t < h.t) ||
-          (t == h.t && (inst < h.inst || (inst == h.inst && slot_id < h.slot)));
-      if ((t > 0.0f) && closer && (u >= 0.0f) && (v >= 0.0f) &&
-          (u + v <= 1.0f)) {
-        h.t = t;
-        h.u = u;
-        h.v = v;
-        h.slot = slot_id;
-        h.inst = inst;
+      if constexpr (ANY) {
+        // an open lane's h.t is CLRT_BIG; a resolved or dead one (h.t =
+        // -CLRT_BIG) accepts nothing
+        if ((t > 0.0f) && (t < h.t) && (u >= 0.0f) && (v >= 0.0f) &&
+            (u + v <= 1.0f)) {
+          h.t = -CLRT_BIG;
+          break;
+        }
+      } else {
+        const int slot_id = c * CLRT_CLUSTER + k;
+        const bool closer =
+            (t < h.t) ||
+            (t == h.t && (inst < h.inst || (inst == h.inst && slot_id < h.slot)));
+        if ((t > 0.0f) && closer && (u >= 0.0f) && (v >= 0.0f) &&
+            (u + v <= 1.0f)) {
+          h.t = t;
+          h.u = u;
+          h.v = v;
+          h.slot = slot_id;
+          h.inst = inst;
+        }
       }
     }
     ws.ray[lane][0].w = h.t;
@@ -356,6 +389,12 @@ struct Walk {
                 t * (e.x * V.x + e.y * V.y + e.z * V.z);
       const bool ok = real && (t > 0.0f) && (u >= 0.0f) && (v >= 0.0f) &&
                       (u + v <= 1.0f);
+      if constexpr (ANY) {
+        // ray q is open (h.t = CLRT_BIG): one accept below that resolves it
+        const bool acc = __ballot_sync(CLRT_FULL, ok && t < CLRT_BIG) != 0u;
+        if (acc && lane == q) h.t = -CLRT_BIG;
+        continue;
+      }
       // t > 0: its bits order as its values; NaN never passes `ok`
       const uint32_t kt = ok ? __float_as_uint(t) : CLRT_NOKEY;
       const uint32_t kmin = __reduce_min_sync(CLRT_FULL, kt);
@@ -505,16 +544,25 @@ struct Walk {
 // Nearest hit over every instance. Every lane of the warp calls it: `alive`
 // lanes arrive with h.t = CLRT_BIG and leave with the winner's (t, u, v,
 // cluster slot, instance); the others (h.t = -CLRT_BIG) pass no box.
+// ANY (any-hit mode): an alive lane leaves with h.t = -CLRT_BIG if it
+// accepted a hit, else CLRT_BIG (h.t < CLRT_BIG as in nearest mode); u, v,
+// slot and instance stay as they came. The instances after the one where
+// the warp's last open lane resolved are not walked.
+template <bool ANY = false>
 __device__ __forceinline__ void traverse(const SceneTables& s, WarpStage& ws,
                                          bool alive, float ox_w, float oy_w,
                                          float oz_w, float dx_w, float dy_w,
                                          float dz_w, Hit& h, TestCount& cnt) {
-  const uint32_t live = __ballot_sync(CLRT_FULL, alive);
+  uint32_t live = __ballot_sync(CLRT_FULL, alive);
   if (live == 0u) return;
-  Walk w{s, ws, h, cnt, {}, (int)(threadIdx.x & 31), 0, alive};
+  Walk<ANY> w{s, ws, h, cnt, {}, (int)(threadIdx.x & 31), 0, alive};
   for (int inst = 0; inst < s.n_inst; ++inst) {
+    if constexpr (ANY) {
+      live = __ballot_sync(CLRT_FULL, alive && h.t >= CLRT_BIG);  // open lanes
+      if (live == 0u) break;
+    }
     const float* m = s.inst + inst * 17;
-    if (alive) ++cnt.xforms;
+    if (ANY ? ((live >> w.lane) & 1u) != 0u : alive) ++cnt.xforms;
     ObjRay& r = w.r;
     r.ox = ox_w * m[0] + oy_w * m[4] + oz_w * m[8] + m[12];
     r.oy = ox_w * m[1] + oy_w * m[5] + oz_w * m[9] + m[13];
@@ -572,4 +620,18 @@ __device__ __forceinline__ void add_counts(unsigned long long* counters,
   atomicAdd(&blk[5], cnt.staged);
   __syncthreads();
   if (threadIdx.x < CLRT_COUNTERS) atomicAdd(&counters[threadIdx.x], blk[threadIdx.x]);
+}
+
+// Adds this warp's counts to counters[0..5]. Every lane of the warp must
+// call it (a walk's counts, where not every warp of the block walks).
+__device__ __forceinline__ void add_counts_warp(unsigned long long* counters,
+                                                const TestCount& cnt) {
+  unsigned long long v[CLRT_COUNTERS] = {cnt.boxes, cnt.tris, cnt.xforms,
+                                         cnt.hits, cnt.steps, cnt.staged};
+#pragma unroll
+  for (int k = 0; k < CLRT_COUNTERS; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_xor_sync(CLRT_FULL, v[k], off);
+    if ((threadIdx.x & 31) == 0 && v[k] != 0ull) atomicAdd(&counters[k], v[k]);
+  }
 }

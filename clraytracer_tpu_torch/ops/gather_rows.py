@@ -7,15 +7,21 @@ that joins them.
   ``clraytracer_tpu/ops/gather_pallas.py`` ``_gather_kernel``:
   ``out[w, p] = table[clip(idx[p]), w]``, bit-exact, field-planar out.
 * ``scatter_rows_cuda`` launches ``clrt_scatter_rows``, the port of
-  ``_scatter_kernel``: ``d[t, w] = sum_p [clip(idx[p]) == t] * g[w, p]``
-  by atomic adds, so its order of summation, and with it the rounding,
-  varies from run to run. On the card it is held to the plain version
-  within ``1e-5 * sum_p |g| + 1e-7`` per element.
+  ``_scatter_kernel``: ``d[t, w] = sum_p [clip(idx[p]) == t] * g[w, p]``.
+  Each thread loads 4 neighbouring rays' index and cotangents as 16-byte
+  loads (one ray a thread where N % 4 != 0), 8 columns at a time; a warp
+  whose cotangents in a chunk are all zero skips it, and the others sum
+  over the lanes that share a row (``__match_any_sync`` and shuffles) and
+  add one atomic per distinct (row, column). Its order of summation, and
+  with it the rounding, varies from run to run: on the card it is held to
+  the plain version within ``1e-5 * sum_p |g| + 1e-7`` per element.
 * ``gather_rows_plain`` (``index_select``) and ``scatter_rows_plain``
   (``index_add_``) are the plain versions. The tests use them, and
   ``gather_rows``/``scatter_rows`` take them only for CPU tensors.
 
-Both kernels are bound by bytes; csrc/gather.cu states the bound.
+Both kernels are bound by bytes, ``4 N + 4 N W + 4 T W`` (idx, the [W, N]
+plane, the table): 0.0648 ms at 3.35 TB/s at the 1920x1080 step's shapes
+(csrc/gather.cu).
 """
 
 from __future__ import annotations

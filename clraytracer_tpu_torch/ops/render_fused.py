@@ -362,6 +362,7 @@ def render_cuda(
     atlas_mode: int = 0,
     shadows: bool = False,
     gi_seed: int | None = None,
+    shadow_counters: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K2.2 (csrc/render.cu) → [9 + K*bounces, rows_total*128] f32
     on the tables' CUDA device (K = ``deferred_planes(atlas_mode, gi)``).
@@ -369,17 +370,23 @@ def render_cuda(
     seed runs the same compiled instantiation. ``counters``: optional int64
     [6] device tensor the launch adds its work to, in
     ``ops.trace.COUNTER_NAMES`` order (its hits are the shaded hits; the
-    shadow walk adds its boxes, triangles and transforms)."""
+    shadow walk adds its boxes, triangles and transforms).
+    ``shadow_counters``: optional int64 [6] device tensor that only the
+    shadow walk adds to (needs ``shadows``), so that its share of
+    ``counters`` can be read apart."""
     from clraytracer_tpu_torch.runtime import kernels
 
     dev = kt.planes.device
+    if shadow_counters is not None and not shadows:
+        raise ValueError("shadow_counters count the shadow walk: pass shadows=True")
+    check_counters(counters, dev)
+    check_counters(shadow_counters, dev)
     if dev.type != "cuda":
         raise ValueError("render_cuda needs the scene on a CUDA device")
     if len(cr.cam) != 36:
         raise ValueError("camera row must hold 36 floats")
     if atlas_mode not in (0, 1, 2):
         raise ValueError(f"atlas_mode must be 0, 1 or 2, not {atlas_mode}")
-    check_counters(counters, dev)
     lib = kernels.build_all()["render.cu"]
     n = rows_total * 128
     gi = gi_seed is not None
@@ -399,7 +406,7 @@ def render_cuda(
     tables = kt.as_c()
     code = lib.clrt_render(
         ctypes.byref(tables), ctypes.byref(params), out.data_ptr(),
-        kernels.ptr(counters), kernels.stream_handle(dev),
+        kernels.ptr(counters), kernels.ptr(shadow_counters), kernels.stream_handle(dev),
     )
     kernels.check(code, "clrt_render")
     render_cuda.launches += 1

@@ -138,7 +138,7 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     fn = libs["render.cu"].clrt_render
     fn.restype = ci
     fn.argtypes = [
-        ctypes.POINTER(SceneTablesC), ctypes.POINTER(RenderParamsC), vp, vp, vp,
+        ctypes.POINTER(SceneTablesC), ctypes.POINTER(RenderParamsC), vp, vp, vp, vp,
     ]
     fn = libs["gather.cu"].clrt_gather_rows
     fn.restype = ci

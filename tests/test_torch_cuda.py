@@ -309,6 +309,60 @@ def test_scatter_kernel_matches_plain_on_card(t_rows):
     assert not torch.signbit(got[mag == 0]).any()
 
 
+def _scatter_case(kind: str, n: int, w: int, t_rows: int = 700, seed: int = 2):
+    """K2.4 inputs ([W, n] cotangents, [n] i32 rows) of one kind: every ray
+    on one row, runs of equal rows (as neighbouring hit rays give), random
+    rows, out-of-range rows that clip, or signed zeros among the
+    cotangents."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cot = torch.randn(w, n, generator=g)
+    if kind == "one_row":
+        idx = torch.full((n,), 5, dtype=torch.int32)
+    elif kind == "runs":
+        idx = torch.randint(0, t_rows, (-(-n // 37),), generator=g,
+                            dtype=torch.int32).repeat_interleave(37)[:n]
+    elif kind == "random":
+        idx = torch.randint(0, t_rows, (n,), generator=g, dtype=torch.int32)
+    elif kind == "clipped":
+        idx = torch.randint(-50, t_rows + 50, (n,), generator=g, dtype=torch.int32)
+    else:  # signed zeros: whole rows of -0.0 / +0.0 and zeros mixed with values
+        idx = torch.randint(0, 9, (n,), generator=g, dtype=torch.int32)
+        cot[:, idx == 3] = -0.0
+        cot[:, idx == 4] = 0.0
+        mask = torch.rand(w, n, generator=g) < 0.5
+        cot = torch.where(mask, torch.where(torch.rand(w, n, generator=g) < 0.5,
+                                            -0.0, 0.0), cot)
+    return cot, idx
+
+
+def _assert_scatter_close(cot, idx, t_rows):
+    got = gr.scatter_rows_cuda(cot, idx, t_rows)
+    ref = gr.scatter_rows_plain(cot, idx, t_rows)
+    mag = gr.scatter_rows_plain(cot.abs(), idx, t_rows)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert ((got - ref).abs() <= 1e-5 * mag + 1e-7).all(), float((got - ref).abs().max())
+    assert not torch.signbit(got[mag == 0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 25, 32])
+@pytest.mark.parametrize("kind", ["one_row", "runs", "random", "clipped", "signed_zero"])
+def test_scatter_kernel_cases_on_card(kind, w):
+    """K2.4 (4 rays a thread, warp sums over equal rows) against index_add_
+    within 1e-5 * sum |g| + 1e-7 per element, at N a multiple of 4 and not,
+    N below a warp, and on an idx that is not 16-byte aligned (one ray a
+    thread)."""
+    dev = _card()
+    t_rows = 700
+    for n in (100_004, 1001, 7, 30):
+        cot, idx = _scatter_case(kind, n, w, t_rows)
+        _assert_scatter_close(cot.to(dev), idx.to(dev), t_rows)
+    cot, idx = _scatter_case(kind, 4097, w, t_rows)
+    idx = idx.to(dev)[1:]  # 4096 rays at a 4-byte offset
+    _assert_scatter_close(cot.to(dev)[:, 1:].contiguous(), idx, t_rows)
+
+
 @pytest.mark.cuda
 def test_diff_step_on_card_matches_cpu():
     """image_loss_and_grads on the card (K2.1, K2.3, K2.4, two launches
@@ -401,6 +455,97 @@ def test_shadow_walk_mixed_and_dead_warps_on_card():
     unshadowed = rf.render_cuda(*args)
     assert (got[0:3] <= unshadowed[0:3] + 1e-6).all()
     assert (got[0:3] < unshadowed[0:3] - 1e-3).any()
+
+
+#: every shadow instantiation: (scene of chip_smoke's option_scene, GI)
+SHADOW_CASES = [(spec, gi) for spec in ("sphere", "atlas", "atlas65") for gi in (None, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,gi_seed", SHADOW_CASES)
+def test_shadow_any_hit_exact_on_backlit_sphere_on_card(spec, gi_seed):
+    """Each shadow instantiation (atlas modes 0/1/2, GI off and on) against
+    render_fused_plain, whose shadow ray is a nearest-hit trace_plain, on a
+    sphere lit from behind (sun angle 0: the shadow rays head away from
+    the camera, through the sphere), so most bounce-0 hits are in shadow
+    and their any-hit walks end early: 0 rays differ, max abs error 0."""
+    from chip_smoke import (
+        BACKLIT_SUN, camera_rays, compare_options, option_args, option_frame,
+        option_scene, shadowed_hits,
+    )
+
+    dev = _card()
+    scene = option_scene(spec, device=dev)
+    mode = rf.atlas_mode_of(scene)
+    frame = option_frame(spec, W, H, sun=BACKLIT_SUN)
+    args = option_args(scene, frame, W, H)
+    rays, _ = camera_rays(W, H, dev, frame)
+    in_shadow, hits = shadowed_hits(args[0], rays, args[2].sun)
+    assert in_shadow > 0.8 * hits > 0, (in_shadow, hits)
+    opts = dict(atlas_mode=mode, shadows=True, gi_seed=gi_seed)
+    got = rf.render_cuda(*args, **opts)
+    ref = rf.render_fused_plain(*args, dev, **opts)
+    torch.cuda.synchronize()
+    case = compare_options(got, ref, mode, gi_seed is not None)
+    assert case["rays_differing"] == 0 and case["max_abs_err_all"] == 0.0, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,gi_seed", [(m, gi) for m in (0, 1, 2) for gi in (None, 3)])
+def test_shadow_instantiations_mixed_and_dead_warps_on_card(mode, gi_seed):
+    """test_shadow_walk_mixed_and_dead_warps_on_card's odd-sized ground
+    frame (warps of shadow walkers, sky rays and pad lanes) under every
+    shadow instantiation: the kernel's atlas mode is forced, and its
+    deferred planes are held against the plain version's on the same
+    inputs. 0 rays differ, max abs error 0."""
+    from chip_smoke import compare_options, option_args, option_frame, option_scene
+
+    dev = _card()
+    w, h = 97, 61
+    scene = option_scene("ground", device=dev)
+    args = option_args(scene, option_frame("ground", w, h), w, h)
+    opts = dict(atlas_mode=mode, shadows=True, gi_seed=gi_seed)
+    got = rf.render_cuda(*args, **opts)
+    ref = rf.render_fused_plain(*args, dev, **opts)
+    torch.cuda.synchronize()
+    case = compare_options(got, ref, mode, gi_seed is not None)
+    assert case["rays_differing"] == 0 and case["max_abs_err_all"] == 0.0, case
+
+
+@pytest.mark.cuda
+def test_shadow_counters_add_up_on_card():
+    """The shadow walk's own int64[6] counts: no interpolated hits, at most
+    one transform per bounce-0 hit and instance, each count within the
+    launch's total; and the total less them is exactly the default
+    instantiation's counts on the same frame (the primary walks are the
+    same walks). A launch without shadows refuses shadow counters, and a
+    counter tensor of another shape is refused."""
+    from chip_smoke import option_args, option_frame, option_scene
+
+    dev = _card()
+    scene = option_scene("ground", device=dev)
+    args = option_args(scene, option_frame("ground", W, H), W, H)
+    kt = args[0]
+    total = torch.zeros(6, dtype=torch.int64, device=dev)
+    shadow = torch.zeros(6, dtype=torch.int64, device=dev)
+    rf.render_cuda(*args, total, shadows=True, shadow_counters=shadow)
+    plain = torch.zeros(6, dtype=torch.int64, device=dev)
+    rf.render_cuda(*args, plain)
+    torch.cuda.synchronize()
+    s, t = shadow.tolist(), total.tolist()
+    # shaded hits (t[3]) include every bounce-0 hit, each of which walks
+    # one shadow ray
+    assert s[3] == 0 and 0 < s[2] <= t[3] * kt.n_inst
+    assert s[0] > 0 and s[1] > 0 and s[4] > 0
+    assert all(0 <= a <= b for a, b in zip(s, t))
+    assert (total - shadow).tolist() == plain.tolist()
+    before = rf.render_cuda.launches
+    with pytest.raises(ValueError):
+        rf.render_cuda(*args, shadow_counters=shadow)
+    with pytest.raises(ValueError):
+        rf.render_cuda(*args, shadows=True,
+                       shadow_counters=torch.zeros(4, dtype=torch.int64, device=dev))
+    assert rf.render_cuda.launches == before
 
 
 @pytest.mark.cuda
