@@ -4,9 +4,11 @@
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, drives the
-main paths (``render.render_frame``: the default frame on three scenes and
-the frame's options on four more; ``diff.image_loss_and_grads``, the
-differentiable step) and prints one JSON line per phase:
+main paths (``render.render_frame``: the default frame on three scenes,
+the fused frame's options on six more cells and the two-phase path on
+four; ``render.trace_planar`` through K2.2's ray mode;
+``diff.image_loss_and_grads``, the differentiable step) and prints one
+JSON line per phase:
 
 1. device: card name and power limit, torch/CUDA versions, build seconds
 2. trace: K2.1 vs ``trace_plain`` on ``two`` (320x240 camera rays + 4096
@@ -16,7 +18,10 @@ differentiable step) and prints one JSON line per phase:
    options: every option instantiation of K2.2 (atlas modes 0/1/2 x
    shadows x GI, the shadowed ground, the four jittered samples of a
    ``samples=4`` frame) vs its plain version at 320x240 (pool indices
-   exact, at most FRAME_MISMATCH_MAX rays over 1e-5, GI included)
+   exact, at most FRAME_MISMATCH_MAX rays over 1e-5, GI included); every
+   ray-mode instantiation on the camera's tiled rays bit for bit equal to
+   camera mode, and on rays with their own origins and directions
+   (``jittered_rays``) vs its plain version on the same rays
 4. main path: ``render.render_frame`` on (a) ``sphere`` 4224 tris at
    1920x1080, (b) ``two`` at 1249x720, (c) ``sphere --tris 1000000`` at
    1920x1080; frame ms (CUDA events, median of 20 after 3 warm-ups),
@@ -39,7 +44,19 @@ differentiable step) and prints one JSON line per phase:
    the device's idle share and time by kernel, one launch of the cell's
    instantiation per frame, K2.2 vs its plain version at 1920x1080 (for
    (m)'s million triangles on a band of 16 image rows of its 1920x1080
-   launch, which must hold hits in shadow) and on a strip
+   launch, which must hold hits in shadow) and on a strip.
+   Then the two-phase cells through ``render.render_frame`` at 1920x1080,
+   (n) ``glass`` with refraction, (o) (k)'s ground with float colours and
+   shadows, (p) (a)'s sphere with material shading and GI, (q)
+   ``sphere65`` (65 materials, all procedural): frame ms, the host's time
+   to issue a frame, K2.1 launches per frame (one per bounce and one for
+   the shadow rays; no K2.2), a finite image, and every K2.1 launch of one
+   frame (recorded with its live mask) against ``trace_plain`` on the same
+   inputs, each timed beside its plain version. Then (r)
+   ``render.trace_planar`` on (a)'s scene and 1920x1080 camera rays with
+   integer colours: one K2.2 ray-mode launch per call and no K2.1, the
+   launch against its plain version on the same rays (and with GI), its
+   ms, counters and bound
 5. profile: torch.profiler over 10 frames of (a), device time by kernel
    and the device's idle share against (a)'s unprofiled frame time
 6. diff: the differentiable step ``diff.image_loss_and_grads``.
@@ -65,7 +82,9 @@ differentiable step) and prints one JSON line per phase:
    the bound from the per-ray walk's counts), library ms (per call;
    library_device_ms beside it);
    one entry per K2.2 instantiation of the option cells, its bound
-   counting its deferred planes and its shading
+   counting its deferred planes and its shading; K2.1 on the two-phase
+   path (timed at (o)'s shadow rays) and K2.2 in ray mode (at (r)'s rays,
+   its bound counting its 24 bytes of input a ray)
 
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
@@ -167,6 +186,20 @@ OPTION_CELLS = (
     ("l", "sphere", 4096, 1920, 1080, {"enable_shadows": True}),
     ("m", "sphere", TRIS_LARGE, 1920, 1080, {"enable_shadows": True}),
 )
+# The two-phase path's cells (phase twophase_cells), each through
+# render_frame: (tag, scene of ``option_scene``, --tris, width, height,
+# RenderConfig keys, K2.1 launches per frame: one per bounce, one more for
+# the shadow rays)
+TWO_PHASE_CELLS = (
+    ("n", "glass", 4096, 1920, 1080, {"enable_refraction": True}, 2),
+    ("o", "ground", 4096, 1920, 1080, {"integer_colors": False, "enable_shadows": True}, 3),
+    ("p", "sphere", 4096, 1920, 1080,
+     {"reference_parity_shading": False, "enable_gi": True}, 2),
+    ("q", "sphere65", 4096, 1920, 1080, {}, 2),
+)
+# (r): render.trace_planar with K2.1's tracer and integer colours on (a)'s
+# scene and the camera's [3, H, W] rays: one launch of K2.2 in ray mode
+RAY_CELL = ("r", "sphere", 4096, 1920, 1080)
 # Above this many triangles a cell's plain version runs on a band of
 # CHECK_BAND_ROWS image rows through the middle of the frame, held against
 # those rays of the cell's own launch: its brute force over 1M triangles at
@@ -264,7 +297,8 @@ def hits_match(ref_hit, got_hit, ref_t, got_t, ref_tri, got_tri) -> dict:
         and (close.mean() > 0.99 if close.size else True)
         and same_tri > 0.98
     )
-    return {"ok": bool(ok), "hit_mismatch": mism, "t_close": float(close.mean()),
+    return {"ok": bool(ok), "hit_mismatch": mism,
+            "t_close": float(close.mean()) if close.size else 1.0,
             "same_tri": same_tri}
 
 
@@ -347,18 +381,19 @@ def ptxas_summary(log: str) -> list:
 
 def k22_registers(entries: list) -> dict:
     """K2.2's ptxas entries (``ptxas_summary`` of render.cu) by
-    instantiation name (``render_fused.variant``): registers and spill
-    bytes."""
+    instantiation name (``render_fused.variant``, ray mode's with "rays"):
+    registers and spill bytes."""
     import re
 
     from clraytracer_tpu_torch.ops.render_fused import variant
 
     out = {}
     for e in entries:
-        m = re.search(r"(render_kernel|render_shadow_kernel)ILi(\d)ELb(\d)EE", e["kernel"])
+        m = re.search(r"(render_kernel|render_shadow_kernel)ILi(\d)ELb(\d)ELb(\d)EE",
+                      e["kernel"])
         if m:
             name = variant(int(m.group(2)), m.group(1) == "render_shadow_kernel",
-                           m.group(3) == "1")
+                           m.group(3) == "1", m.group(4) == "1")
             out[name] = {k: e.get(k) for k in ("registers", "spill_stores", "spill_loads")}
     return out
 
@@ -527,8 +562,11 @@ def option_scene(spec: str, tris: int = 4096, device=None):
     """Scenes of the option cells. ``atlas``: bench.py:78-92's sphere with
     its textures imported as images (the bakes of a 512x256 sky and a
     128/8 checker); ``atlas65``: the same with unused materials up to 65,
-    past the 64 of atlas mode 1; ``ground``: test_shadows.py:88-98's
-    checkered ground quad under a red sphere. Others: ``cli.build_scene``."""
+    past the 64 of atlas mode 1; ``sphere65``: ``sphere`` (procedural
+    textures) with unused materials up to 65, past the 64 the fused
+    kernel reads rows for; ``ground``: test_shadows.py:88-98's checkered
+    ground quad under a red sphere. Others (``glass`` included):
+    ``cli.build_scene``."""
     from clraytracer_tpu_torch import math3d
     from clraytracer_tpu_torch.cli import build_scene
     from clraytracer_tpu_torch.scene import SceneBuilder
@@ -549,6 +587,17 @@ def option_scene(spec: str, tris: int = 4096, device=None):
         if spec == "atlas65":
             while len(b._materials) < 65:
                 b.create_material(albedo=(0.5, 0.5, 0.5))
+    elif spec == "sphere65":
+        n_lat = max(4, int((tris / 4) ** 0.5) + 1)
+        b.import_procedural(ptex.sky_gradient(512, 256))
+        checker = b.import_procedural(ptex.checker(128, 8))
+        mat = b.create_material(
+            albedo=(0.9, 0.6, 0.3), albedo_tex=checker, shininess=1.0, roughness=0.4
+        )
+        b.add_instance(b.add_mesh(uv_sphere(2.0, n_lat=n_lat, n_lon=2 * n_lat),
+                                  materials_start=mat))
+        while len(b._materials) < 65:
+            b.create_material(albedo=(0.5, 0.5, 0.5))
     elif spec == "ground":
         b.import_procedural(ptex.sky_gradient(32, 16))
         checker = b.import_procedural(ptex.checker(16, 4))
@@ -683,7 +732,44 @@ def phase_options(dev, results) -> None:
             emit({"phase": "options", **case})
             if not case["ok"]:
                 raise SystemExit("options phase failed")
+            if si is not None:
+                continue
+            # ray mode: on the camera's tiled rays it gives camera mode's
+            # planes bit for bit; on rays with their own origins it agrees
+            # with the plain version on the same rays
+            cam_bits = got.view(torch.int32)
+            rays, _cam = camera_rays(w, h, dev, fr)
+            same = rf.render_cuda(*args, rays=rays, **opts)
+            jr = jittered_rays(rays, len(cases))
+            got = rf.render_cuda(*args, rays=jr, **opts)
+            ref = rf.render_fused_plain(*args, dev, rays=jr, **opts)
+            torch.cuda.synchronize()
+            case = {"scene": spec, "atlas_mode": mode, "shadows": sh, "gi_seed": gi,
+                    "sample": None, "variant": rf.variant(mode, sh, gi is not None, True),
+                    "rays": "camera rays, each origin moved and direction turned (seeded)",
+                    "equals_camera_mode": torch.equal(same.view(torch.int32), cam_bits),
+                    **compare_options(got, ref, mode, gi is not None)}
+            case["ok"] = case["ok"] and case["equals_camera_mode"]
+            cases.append(case)
+            emit({"phase": "options", **case})
+            if not case["ok"]:
+                raise SystemExit("options phase failed (ray mode)")
     results["options"] = cases
+
+
+def jittered_rays(rays, seed: int):
+    """Camera rays [6, n] with each origin moved by up to 0.5 along each
+    axis and each direction turned by a seeded normal of scale 0.05 and
+    renormalised: every lane of a warp has a ray of its own, which ray mode
+    allows and camera mode never gives."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = rays.shape[1]
+    do = (torch.rand(3, n, generator=g) - 0.5).to(rays.device)
+    d = rays[3:6] + (0.05 * torch.randn(3, n, generator=g)).to(rays.device)
+    d = d / torch.linalg.vector_norm(d, dim=0, keepdim=True)
+    return torch.cat([rays[0:3] + do, d]).contiguous()
 
 
 def shadow_rays(kt, rays, rec, sun):
@@ -742,11 +828,12 @@ def band_start(mask, w: int, h: int, trows: int, rows: int) -> int:
 
 
 def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi, key=None,
-                  shadow_counts=None) -> dict:
+                  shadow_counts=None, rays=False) -> dict:
     """A K2.2 instantiation's bound: the bytes the scene's data needs
-    (``walk_bytes``) plus its 9 + K*B output planes, and the operations of
-    this run's counts (the shadow walk's included) with the shading of its
-    atlas mode and GI per shaded hit and the raygen per ray.
+    (``walk_bytes``) plus its 9 + K*B output planes (and in ray mode,
+    ``rays``, its 6 input planes), and the operations of this run's counts
+    (the shadow walk's included) with the shading of its atlas mode and GI
+    per shaded hit and, in camera mode, the raygen per ray.
     ``shadow_counts``: the shadow walk's own counts, printed apart with the
     primary walks' (the rest). ``key`` (kernel, cell, triangles): where
     ``NEAREST_SHADOW_WALK_COUNTS`` holds it, the bound those counts give is
@@ -755,14 +842,14 @@ def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi, key=Non
     from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
 
     planes = 9 + deferred_planes(mode, gi) * bounces
-    bytes_moved = walk_bytes(kt, clusters, slots, ft) + planes * n * 4
+    bytes_moved = walk_bytes(kt, clusters, slots, ft) + (planes + (6 if rays else 0)) * n * 4
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
 
     def operations(c):
         boxes, tris, xforms, hits = (float(x) for x in c[:4])
         return (boxes * BOX_OPS + tris * TRI_OPS + xforms * XFORM_OPS
                 + hits * (INTERP_OPS + SHADE_OPS_BY_MODE[mode] + (GI_OPS if gi else 0))
-                + n * RAYGEN_OPS)
+                + (0 if rays else n * RAYGEN_OPS))
 
     ops = operations(counts)
     t_ops = ops / PEAK_F32 * 1e3
@@ -939,6 +1026,223 @@ def phase_option_cells(dev, results) -> None:
         emit(line)
         if not line["ok"]:
             raise SystemExit(f"option cell {tag} failed")
+
+
+def phase_twophase_cells(dev, results) -> None:
+    """The two-phase path on the main path, (n)-(q), each through
+    render.render_frame at 1920x1080 with the counts from zero: (n)
+    ``glass`` with refraction, (o) (k)'s shadowed ground with float colours
+    (shadow rays through K2.1 with the live mask), (p) (a)'s sphere with
+    material shading and GI, (q) ``sphere65`` (65 materials, every texture
+    procedural). Per cell: frame ms, the host's time to issue a frame, K2.1
+    and K2.2 launches per frame (K2.2 none), a finite image, and every K2.1
+    launch of one frame (its bounces and shadow rays, recorded with their
+    live masks) against trace_plain on the same inputs, each timed per
+    call and on the card beside its plain version, with its counters and
+    bound; torch.profiler over 5 frames (device time by kernel, idle
+    share)."""
+    import torch
+
+    from clraytracer_tpu_torch.config import RenderConfig
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+    from clraytracer_tpu_torch.render import render_frame
+
+    results["twophase_cells"] = []
+    for tag, spec, tris, w, h, cfg_kw, per_frame in TWO_PHASE_CELLS:
+        t0 = time.perf_counter()
+        scene = option_scene(spec, tris, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cfg = RenderConfig(width=w, height=h, **cfg_kw)
+        frame = option_frame(spec, w, h)
+        render_frame(scene, frame, cfg)  # first frame: tables upload
+        torch.cuda.synchronize()
+        # ---- the main path's own run: counts from zero
+        reset_counts()
+        ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
+        frames = FRAMES + WARMUP
+        counts = read_counts()
+        frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
+        # ---- every K2.1 launch of one frame, with its inputs
+        rec = []
+        real = tr.trace_cuda
+
+        def recorder(kt, rays, live=None, counters=None):
+            out = real(kt, rays, live, counters)
+            rec.append((kt, rays, live, out))
+            return out
+
+        # the wrapper counts on the module's ``trace_cuda``, the recorder
+        # while it stands in
+        recorder.launches = 0
+        tr.trace_cuda = recorder
+        try:
+            img = render_frame(scene, frame, cfg)
+            torch.cuda.synchronize()
+        finally:
+            tr.trace_cuda = real
+        finite = bool(torch.isfinite(img).all())
+        checks = []
+        for k, (kt, rays, live, out) in enumerate(rec):
+            keep = []
+            plain_ms, _ = event_ms(lambda: keep.append(tr.trace_plain(kt, rays, live)), 1, 0)
+            case = compare_trace(out, keep.pop(), live)
+            cnt = torch.zeros(6, dtype=torch.int64, device=dev)
+            real(kt, rays, live, cnt)
+            n = rays.shape[1]
+            clusters, slots = winners(out)
+            kb = walk_bound(("K2.1", tag, int(scene.tris.count)),
+                            (6 + 11 + (1 if live is not None else 0)) * n * 4
+                            + walk_bytes(kt, clusters, slots), cnt.cpu().tolist())
+            case.update({
+                "launch": k, "rays": n,
+                "live_rays": n if live is None else int((live != 0).sum()),
+                "hits": int((out[0].abs() < tr.BIG).sum()),
+                "ms": event_ms(lambda: real(kt, rays, live), 10, 2)[0],
+                "device_ms": device_ms(lambda: real(kt, rays, live)),
+                "plain_ms": plain_ms, "bound_ms": kb["bound_ms"],
+                "bound_by": kb["bound_by"], "bound": kb,
+            })
+            checks.append(case)
+        del rec, out, rays, live
+        prof = device_profile(lambda: render_frame(scene, frame, cfg), 5, ms)
+        line = {
+            "phase": "twophase_cells", "config": tag, "scene": spec, "options": cfg_kw,
+            "triangles": int(scene.tris.count), "materials": int(scene.materials.count),
+            "width": w, "height": h, "bounces": cfg.bounces, "host_build_s": build_s,
+            "fused_path_available": rf.fused_path_available(
+                scene, cfg.reference_parity_shading, cfg.integer_colors),
+            "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
+            "frame_host_ms": frame_host_ms,
+            "mrays_per_s": w * h * cfg.bounces / (ms * 1e-3) / 1e6,
+            "launches": counts, "frames": frames,
+            "k21_launches_per_frame": counts["K2.1"] / frames,
+            "k22_launches_per_frame": counts["K2.2"] / frames,
+            "k21_ms_per_frame": sum(c["ms"] for c in checks),
+            "k21_device_ms_per_frame": sum(c["device_ms"] for c in checks),
+            "k21_checks": checks, "finite": finite, "mean": float(img.mean()),
+            "profile": prof,
+        }
+        line["ok"] = (
+            finite and len(checks) == per_frame and all(c["ok"] for c in checks)
+            and counts == {"K2.1": per_frame * frames, "K2.2": 0, "K2.3": 0, "K2.4": 0}
+            and (tag != "q" or not line["fused_path_available"])
+            and (tag != "o" or checks[1]["live_rays"] < checks[1]["rays"])
+        )
+        results["twophase_cells"].append(line)
+        results["trace_err"] = max(results["trace_err"], *(c["max_abs_err"] for c in checks))
+        emit(line)
+        if not line["ok"]:
+            raise SystemExit(f"two-phase cell {tag} failed")
+
+
+def phase_ray_cell(dev, results) -> None:
+    """(r) ``render.trace_planar`` with K2.1's tracer and integer colours on
+    (a)'s scene and the camera's [3, H, W] rays at 1920x1080: one launch of
+    K2.2 in ray mode per call and no K2.1 (counts from zero), call ms and
+    the host's time to issue a call, a finite image; the launch, recorded
+    with its rays, against render_fused_plain on them (the plain run gives
+    plain_ms), timed per call and on the card, its counters and bound; the
+    same rays with GI (ray i's seed i*9999 wraps at 32 bits past 429,540)
+    against the plain version; and ray mode on the camera's 1920x1080
+    tiled rays, bit for bit equal to camera mode, both timed in turns."""
+    import torch
+
+    from clraytracer_tpu_torch import render
+    from clraytracer_tpu_torch.camera import ray_directions_planar
+    from clraytracer_tpu_torch.cli import build_scene
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+
+    tag, spec, tris, w, h = RAY_CELL
+    scene = build_scene(spec, tris, device=dev)
+    frame = diff_frame(w, h, dev)
+    dirs = ray_directions_planar(frame.inverse_view, frame.inverse_projection, w, h)
+    origin = frame.camera_position[:, None, None].expand(dirs.shape)
+    call = lambda: render.trace_planar(scene, origin, dirs, frame.sun_angle, 2, tr.trace,
+                                       True, True)
+    call()  # first call: tables upload
+    torch.cuda.synchronize()
+    # ---- the main path's own run: counts from zero
+    reset_counts()
+    ms, times = event_ms(call, FRAMES, WARMUP)
+    calls = FRAMES + WARMUP
+    counts = read_counts()
+    variants = dict(rf.render_cuda.variant_launches)
+    call_host_ms = host_ms(call, FRAMES)
+    # ---- the launch of one call, with its rays
+    rec = []
+    real = rf.render_cuda
+
+    def recorder(*args, **kw):
+        out = real(*args, **kw)
+        rec.append((args, kw, out))
+        return out
+
+    # the wrapper counts on the module's ``render_cuda``, the recorder
+    # while it stands in
+    recorder.launches, recorder.variant_launches = 0, {}
+    rf.render_cuda = recorder
+    try:
+        img = call()
+        torch.cuda.synchronize()
+    finally:
+        rf.render_cuda = real
+    finite = bool(torch.isfinite(img).all()) and tuple(img.shape) == (3, h, w)
+    (args, kw, out), = rec
+    kt, ft = args[0], args[1]
+    rays, mode = kw["rays"], kw["atlas_mode"]
+    n = rays.shape[1]
+    keep = []
+    plain_ms, _ = event_ms(lambda: keep.append(rf.render_fused_plain(*args, dev, **kw)), 1, 0)
+    check = compare_options(out, keep.pop(), mode, False)
+    del out, rec
+    counters = torch.zeros(6, dtype=torch.int64, device=dev)
+    real(*args, counters, **kw)
+    kms, _ = event_ms(lambda: real(*args, **kw), 10, 2)
+    kdev = device_ms(lambda: real(*args, **kw))
+    cnt = counters.cpu().tolist()
+    clusters, slots = winners(tr.trace_cuda(kt, rays))
+    kb = variant_bound(kt, ft, cnt, clusters, slots, n, 2, mode, False, rays=True)
+    gi_kw = dict(kw, gi_seed=GI_SEED)
+    gi_check = compare_options(real(*args, **gi_kw), rf.render_fused_plain(*args, dev, **gi_kw),
+                               mode, True)
+    # the same scene's camera rays in screen-tile order: ray mode against
+    # camera mode on the same work, bit for bit and timed in turns
+    targs = option_args(scene, option_frame(spec, w, h), w, h)
+    trays, _cam = camera_rays(w, h, dev)
+    cam_run = lambda: real(*targs, atlas_mode=mode)
+    ray_run = lambda: real(*targs, atlas_mode=mode, rays=trays)
+    tiled = {"equal": torch.equal(ray_run().view(torch.int32), cam_run().view(torch.int32))}
+    for name, fn in (("camera_mode", cam_run), ("ray_mode", ray_run),
+                     ("ray_mode_again", ray_run), ("camera_mode_again", cam_run)):
+        tiled[f"{name}_ms"] = event_ms(fn, 10, 2)[0]
+        tiled[f"{name}_device_ms"] = device_ms(fn)
+    del trays
+    torch.cuda.synchronize()
+    line = {
+        "phase": "ray_cell", "config": tag, "entry": "render.trace_planar",
+        "scene": spec, "triangles": int(scene.tris.count), "width": w, "height": h,
+        "bounces": 2, "rays": n, "call_ms": ms, "call_ms_min": times[0],
+        "call_ms_max": times[-1], "call_host_ms": call_host_ms,
+        "mrays_per_s": w * h * 2 / (ms * 1e-3) / 1e6,
+        "launches": counts, "calls": calls, "k22_variant_launches": variants,
+        "kernel_ms": kms, "kernel_device_ms": kdev, "plain_ms": plain_ms,
+        "kernel_bound_ms": kb["bound_ms"], "kernel_bound_by": kb["bound_by"],
+        "kernel_bound": kb, "winning_clusters": clusters, "winning_slots": slots,
+        "check": check, "check_gi": {"gi_seed": GI_SEED, **gi_check},
+        "tiled_rays": tiled, "finite": finite, "mean": float(img.mean()),
+    }
+    line["ok"] = (
+        finite and check["ok"] and gi_check["ok"] and tiled["equal"]
+        and counts == {"K2.1": 0, "K2.2": calls, "K2.3": 0, "K2.4": 0}
+        and variants == {rf.variant(mode, False, False, True): calls}
+    )
+    results["ray_cell"] = line
+    emit(line)
+    if not line["ok"]:
+        raise SystemExit("ray cell r failed")
 
 
 def check_config(scene, w, h, dev) -> dict:
@@ -1612,8 +1916,56 @@ def phase_kernels(dev, results) -> None:
             "shape": f"{w}x{h}x2 bounces, {spec} {scene.tris.count} tris",
         },
         *option_kernel_entries(results),
+        *twophase_kernel_entries(results),
         *diff_kernel_entries(results),
     ]})
+
+
+def twophase_kernel_entries(results) -> list:
+    """The kernels-line entries of the two-phase path and of ray mode:
+    K2.1 with its launches in (n)-(q), timed at (o)'s shadow rays (the
+    launch with a live mask), its error the worst of every recorded launch;
+    K2.2 in ray mode with its launches in (r), timed at (r)'s rays, its
+    error the worst of (r)'s checks and of phase options' ray cases."""
+    cells = results["twophase_cells"]
+    o = next(c for c in cells if c["config"] == "o")
+    shadow = o["k21_checks"][1]
+    r = results["ray_cell"]
+    ray_errs = [c["max_abs_err_within"] for c in results["options"]
+                if c["variant"].startswith("rays")]
+    ray_errs += [r["check"]["max_abs_err_within"], r["check_gi"]["max_abs_err_within"]]
+    return [
+        {
+            "name": "K2.1 trace, two-phase frame", "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/trace.cu",
+            "replaces": "clraytracer_tpu/ops/trace_pallas.py:928",
+            "launches": sum(c["launches"]["K2.1"] for c in cells),
+            "path": "(n)-(q) render.render_frame, two-phase (bounces and shadow rays)",
+            "max_abs_err": max(ch["max_abs_err"] for c in cells for ch in c["k21_checks"]),
+            "tolerance": (f"hit rule of tests/test_trace.py; <= {FRAME_MISMATCH_MAX} "
+                          "rays not exact in (t, slot, instance); dead lanes -BIG"),
+            "ms": shadow["ms"], "device_ms": shadow["device_ms"],
+            "plain_ms": shadow["plain_ms"], "bound_ms": shadow["bound_ms"],
+            "bound_by": shadow["bound_by"], "library_ms": None,
+            "shape": (f"(o) shadow rays: {shadow['rays']} rays, {shadow['live_rays']} live, "
+                      f"{o['scene']} {o['triangles']} tris"),
+        },
+        {
+            "name": "K2.2 fused frame, ray mode", "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/render.cu",
+            "replaces": "clraytracer_tpu/ops/render_pallas.py:109",
+            "entry": "render_fused (clraytracer_tpu/ops/render_pallas.py:1115)",
+            "launches": r["launches"]["K2.2"],
+            "path": f"(r) render.trace_planar, {r['width']}x{r['height']} camera rays",
+            "max_abs_err": max(ray_errs),
+            "tolerance": (f"pool indices exact; other planes within 1e-5 on all but "
+                          f"{FRAME_MISMATCH_MAX} rays; on camera rays equal to camera mode"),
+            "ms": r["kernel_ms"], "device_ms": r["kernel_device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["kernel_bound_ms"],
+            "bound_by": r["kernel_bound_by"], "library_ms": None,
+            "shape": f"{r['rays']} rays x2 bounces, {r['scene']} {r['triangles']} tris",
+        },
+    ]
 
 
 def option_kernel_entries(results) -> list:
@@ -1698,7 +2050,7 @@ def main() -> int:
     results["ptxas"] = regs
     # K2.2's default instantiation (atlas mode 0, no GI, no shadows)
     k22_default = [e for e in regs.get("render.cu", [])
-                   if "render_kernelILi0ELb0EE" in e["kernel"]]
+                   if "render_kernelILi0ELb0ELb0EE" in e["kernel"]]
     emit({
         "phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1711,6 +2063,8 @@ def main() -> int:
     phase_options(dev, results)
     phase_main(dev, results, TRIS_LARGE)
     phase_option_cells(dev, results)
+    phase_twophase_cells(dev, results)
+    phase_ray_cell(dev, results)
     phase_profile(dev, results)
     phase_diff(dev, results)
     phase_kernels(dev, results)

@@ -5,12 +5,13 @@ Usage:
   python -m clraytracer_tpu_torch render --scene two --width 1024 --height 768 -o out.png
   python -m clraytracer_tpu_torch render --scene sphere --tris 1000000 --device cuda
   python -m clraytracer_tpu_torch render --scene two --shadows --gi --spp 4 --fxaa
+  python -m clraytracer_tpu_torch render --scene glass --refraction --ior 1.45
   python -m clraytracer_tpu_torch grads  --scene sphere --width 1920 --height 1080
   python -m clraytracer_tpu_torch fit    --scene two --steps 100 --lr 0.05
 
-Scenes: ``sphere`` (``--tris`` sets the triangle count), ``two`` and
-``field`` — the JAX package's named scenes (cli.py:28-74), whose textures
-are all procedural. The other commands and scene sources of the JAX CLI
+Scenes: ``sphere`` (``--tris`` sets the triangle count), ``two``,
+``glass`` and ``field`` — the JAX package's named scenes (cli.py:28-74),
+whose textures are all procedural. The other commands and scene sources of the JAX CLI
 come with later parts of the port.
 """
 
@@ -50,6 +51,18 @@ def build_scene(spec: str, tris: int = 4096, device=None):
         c = b.add_mesh(cube(1.0), materials_start=m2)
         b.add_instance(s, math3d.translation(-2.0, 1.0, 0.0))
         b.add_instance(c, math3d.rotation_y(0.7) @ math3d.translation(2.5, 0.5, -1.0))
+    elif spec == "glass":
+        # refraction demo (render with --refraction): a transmissive sphere
+        # in front of a checkered backdrop sphere
+        m_glass = b.create_material(
+            albedo=(0.95, 0.98, 1.0), transmission=0.85, shininess=2.0, roughness=0.1
+        )
+        checker = b.import_procedural(ptex.checker(64, 8))
+        m_back = b.create_material(albedo=(0.9, 0.5, 0.3), albedo_tex=checker)
+        glass = b.add_mesh(uv_sphere(1.5, 24, 48), materials_start=m_glass)
+        back = b.add_mesh(uv_sphere(2.5, 16, 32), materials_start=m_back)
+        b.add_instance(glass, math3d.translation(0.0, 0.5, 2.5))
+        b.add_instance(back, math3d.translation(0.0, 0.5, -3.0))
     elif spec == "field":
         mat = b.create_material(albedo=(0.7, 0.7, 0.9))
         mesh = b.add_mesh(
@@ -59,7 +72,7 @@ def build_scene(spec: str, tris: int = 4096, device=None):
     else:
         raise SystemExit(
             f"error: scene '{spec}' is not one of the named scenes "
-            "(sphere, two, field)"
+            "(sphere, two, glass, field)"
         )
     return b.build(device=device)
 
@@ -93,6 +106,8 @@ def cmd_render(args) -> int:
         enable_post=not args.no_post,
         enable_fxaa=args.fxaa,
         enable_shadows=args.shadows,
+        enable_refraction=args.refraction,
+        refraction_ior=args.ior,
         samples=args.spp,
         enable_gi=args.gi,
         gi_seed=args.gi_seed,
@@ -137,12 +152,13 @@ def cmd_grads(args) -> int:
 
 
 def fit(scene_true, frame, width, height, bounces=2, param="albedo",
-        steps=100, lr=5e-2, seed=0, device=None):
+        steps=100, lr=5e-2, seed=0, device=None, init_output=None):
     """Inverse rendering (cli.py:232 of the JAX package): render a target
     with the true scene, start the parameter group from
     ``clip(0.5 + 0.1 * normal, 0, 1)`` drawn with numpy's generator from
-    ``seed``, and descend the image L2 with Adam. Returns (report, the
-    fitted scene)."""
+    ``seed``, and descend the image L2 with Adam. ``init_output``: a PNG
+    path for the initial guess's render, written before the first step.
+    Returns (report, the fitted scene)."""
     import dataclasses
 
     import numpy as np
@@ -182,6 +198,11 @@ def fit(scene_true, frame, width, height, bounces=2, param="albedo",
         0.0, 1.0,
     )
     p = torch.tensor(init, dtype=leaf.dtype, device=leaf.device, requires_grad=True)
+    if init_output:
+        from clraytracer_tpu_torch.render import save_png
+
+        with torch.no_grad():
+            save_png(init_output, render(with_param(p)).cpu().numpy())
     opt = torch.optim.Adam([p], lr=lr)
     losses = []
     for i in range(steps):
@@ -207,14 +228,23 @@ def fit(scene_true, frame, width, height, bounces=2, param="albedo",
 
 
 def cmd_fit(args) -> int:
+    """``fit``; with ``-o out.png`` the initial guess's render goes to
+    ``out_init.png`` first and the fitted one to ``out.png`` (cli.py:291-294
+    of the JAX package)."""
+    import os
+
     from clraytracer_tpu_torch.diff import render_image_diff
     from clraytracer_tpu_torch.render import frame_inputs_from_camera, save_png
 
     scene_true = build_scene(args.scene, args.tris, device=args.device)
     frame = frame_inputs_from_camera(_camera(args), args.sun_angle)
+    init_output = None
+    if args.output:
+        root, ext = os.path.splitext(args.output)
+        init_output = f"{root}_init{ext}"
     report, fitted = fit(
         scene_true, frame, args.width, args.height, args.bounces,
-        args.fit_param, args.steps, args.lr, args.seed, args.device,
+        args.fit_param, args.steps, args.lr, args.seed, args.device, init_output,
     )
     report.pop("losses")
     print(json.dumps(report, indent=2))
@@ -232,7 +262,7 @@ def main(argv: list[str] | None = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def common(p):
-        p.add_argument("--scene", default="sphere", help="sphere | two | field")
+        p.add_argument("--scene", default="sphere", help="sphere | two | glass | field")
         p.add_argument("--width", type=int, default=1024)
         p.add_argument("--height", type=int, default=768)
         p.add_argument("--tris", type=int, default=4096)
@@ -252,6 +282,11 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--no-post", action="store_true")
     p.add_argument("--shadows", action="store_true",
                    help="sun shadow rays (beyond the reference: its TODO)")
+    p.add_argument("--refraction", action="store_true",
+                   help="Snell refraction through transmissive materials "
+                   "(beyond the reference: its TODO); see the 'glass' scene")
+    p.add_argument("--ior", type=float, default=1.45,
+                   help="index of refraction for --refraction")
     p.add_argument("--spp", type=int, default=1,
                    help="sub-pixel samples per pixel (supersampling AA)")
     p.add_argument("--gi", action="store_true",
@@ -279,7 +314,8 @@ def main(argv: list[str] | None = None) -> int:
                    "(not the JAX package's jax.random draw, so the two CLIs "
                    "start from different guesses)")
     p.add_argument("-o", "--output", default=None,
-                   help="write the render of the fitted scene here")
+                   help="write the render of the fitted scene here, and the "
+                   "initial guess's beside it as <name>_init.png")
     p.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -27,10 +27,12 @@ class CameraConfig:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Frame/render parameters; the same fields and defaults as the JAX
-    package's ``RenderConfig``. This package renders the default frame
-    (reference-parity integer-colour shading, post on, FXAA off, one sample);
-    ``render.render_frame`` raises ``NotImplementedError`` for the other
-    options."""
+    package's ``RenderConfig``. ``render.render_frame`` renders every
+    combination: the fused kernel takes reference-parity integer-colour
+    frames without refraction (any samples, post, FXAA, shadows, GI), the
+    two-phase path the others (refraction, material shading, float
+    colours). It refuses only a scene built without cluster or packed
+    tables."""
 
     width: int = 1249
     height: int = 720

@@ -1,10 +1,18 @@
-// K2.2 — fused forward frame: raygen, then per bounce traverse, shade
-// (reference-parity integer-colour Phong) and continue, per ray in
-// registers.
+// K2.2 — fused forward frame: raygen (or given rays), then per bounce
+// traverse, shade (reference-parity integer-colour Phong) and continue,
+// per ray in registers.
 //
 // Replaces clraytracer_tpu/ops/render_pallas.py:_make_render_kernel
-// (launched by _render_tiles, entry render_fused_camera) in its camera
-// mode, with its options as template parameters (atlas_mode, shadows, gi):
+// (launched by _render_tiles, entries render_fused_camera and
+// render_fused) in both its ray sources, with its options as template
+// parameters (atlas_mode, shadows, gi, rays):
+//  * camera mode: each lane unprojects its pixel (the in-kernel raygen);
+//  * ray mode (the template parameter RAYS, RenderParams::rays given): each
+//    lane reads its origin and direction from six f32 planes [n], ray i
+//    at i, c * n + i. Everything after is the same code; nothing in the
+//    walk assumes that a warp's rays share an origin (traverse.cuh moves
+//    each lane's own ray to object space), so the bounce-0 walk is the
+//    one later bounces make. Lanes past n walk as dead rays;
 //  * atlas mode 0 (every texture procedural): texels evaluated per ray in
 //    registers, the full Phong sum accumulated here;
 //  * atlas modes 1 and 2 (imported textures): the kernel is texel-blind.
@@ -20,7 +28,7 @@
 //  * gi: Monte-Carlo continuation in a uniform hemisphere direction with
 //    throughput colour * 2 cos(theta) (render_pallas.py:542-604), from a
 //    per-ray Wang-hash/xorshift32 stream seeded by the ray's strip index.
-// Not ported: ray mode and the split-rebin carry. Every shading formula
+// Not ported: the split-rebin carry. Every shading formula
 // keeps the JAX kernel's expression tree (which replicates ops/shade.py);
 // the equirect sky stays outside the kernel: each ray's throughput and
 // direction at its first miss are recorded.
@@ -33,16 +41,21 @@
 // the coefficient splits into E*dif and, as 3 more planes, atm*amb.
 // Lanes that are not shaded at a bounce write zeros beside the sentinel.
 // Ray i = row i / 128, lane i % 128 of the screen-tile order (a trows x
-// 128 pixel strip per trows rows).
+// 128 pixel strip per trows rows) in camera mode, of the given planes in
+// ray mode; its GI stream is seeded by i in both.
 //
 // Bound on the H100: its least time is the output bytes in a small scene
-// (36 B/ray, plus 4 K B bytes a ray in the atlas modes) and the walk's
+// (36 B/ray, plus 4 K B bytes a ray in the atlas modes, plus the 24 B/ray
+// of input planes in ray mode) and the walk's
 // operations in a large one; shading is a few hundred FP32 operations per
 // hit ray, GI about 80 more. What holds it above both is the traversal's
 // latency (traverse.cuh). Design here: a block of 128 threads is four
 // warps; each warp takes an 8 x 4 pixel tile (4 consecutive strip rows, 32
 // columns per block), so the warp's bounce-0 rays are coherent in both
 // screen directions, and writes its outputs at their strip-order index i.
+// Ray mode keeps that mapping over (row, lane) of the given planes: rays
+// laid out in screen-tile order (camera.ray_directions_tiled) are as
+// coherent as camera mode's, and any other order is right, only less so.
 // Rays that missed stay in the warp's walks as dead lanes; a bounce ends
 // the loop only when every lane of the warp has missed. The shadow walk
 // sits between two shading blocks, outside any per-lane branch, so every
@@ -83,6 +96,7 @@ struct RenderParams {
   int shadows;              // sun shadow walk on bounce 0
   int gi;                   // Monte-Carlo GI continuation
   unsigned int gi_base;     // GI seed base of bounce 0 (+1237 per bounce)
+  const float* rays;        // ray mode: [6, n_rays] origin xyz | direction xyz
 };
 
 // procedural_tex.descriptor_row columns
@@ -199,7 +213,7 @@ __device__ __forceinline__ float gi_sample(uint32_t sg, const float (&n)[3],
 
 // The frame, one thread per ray; render_kernel and render_shadow_kernel
 // inline it under their own register bounds.
-template <int ATLAS, bool SHADOWS, bool GI>
+template <int ATLAS, bool SHADOWS, bool GI, bool RAYS>
 __device__ __forceinline__ void render_frame(const SceneTables& s,
                                              const RenderParams& p,
                                              float* __restrict__ out,
@@ -216,28 +230,42 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
   const bool valid = i < p.n_rays;
   TestCount cnt = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
 
-  // ---- raygen: strip tile -> pixel -> unproject (camera._unproject_grid)
-  const int tile = r / p.trows;
-  const float px = (float)((tile % p.tiles_x) * 128 + lane);
-  const float py = (float)((tile / p.tiles_x) * p.trows + r % p.trows) + p.cam[35];
-  const float cx = (px / (float)p.width) * 2.0f - 1.0f;
-  const float cy = (py / (float)p.height) * 2.0f - 1.0f;
-  const float* ip = p.cam;
-  const float* iv = p.cam + 16;
-  float tx = cx * ip[0] + cy * ip[4] + ip[8] + ip[12];
-  float ty = cx * ip[1] + cy * ip[5] + ip[9] + ip[13];
-  float tz = cx * ip[2] + cy * ip[6] + ip[10] + ip[14];
-  const float tw = cx * ip[3] + cy * ip[7] + ip[11] + ip[15];
-  const float inv_w = 1.0f / tw;
-  tx = tx * inv_w;
-  ty = ty * inv_w;
-  tz = tz * inv_w;
-  const float wx = tx * iv[0] + ty * iv[4] + tz * iv[8] + iv[12];
-  const float wy = tx * iv[1] + ty * iv[5] + tz * iv[9] + iv[13];
-  const float wz = tx * iv[2] + ty * iv[6] + tz * iv[10] + iv[14];
-  const float rn = 1.0f / sqrtf(wx * wx + wy * wy + wz * wz);
-  float d[3] = {wx * rn, wy * rn, wz * rn};
-  float o[3] = {p.cam[32], p.cam[33], p.cam[34]};
+  float d[3], o[3];
+  if constexpr (RAYS) {
+    // ---- ray mode: the lane's ray from the six input planes
+    const size_t NR = (size_t)p.n_rays;
+    for (int c = 0; c < 3; ++c) {
+      o[c] = valid ? p.rays[c * NR + i] : 0.0f;
+      d[c] = valid ? p.rays[(3 + c) * NR + i] : 0.0f;
+    }
+  } else {
+    // ---- raygen: strip tile -> pixel -> unproject (camera._unproject_grid)
+    const int tile = r / p.trows;
+    const float px = (float)((tile % p.tiles_x) * 128 + lane);
+    const float py = (float)((tile / p.tiles_x) * p.trows + r % p.trows) + p.cam[35];
+    const float cx = (px / (float)p.width) * 2.0f - 1.0f;
+    const float cy = (py / (float)p.height) * 2.0f - 1.0f;
+    const float* ip = p.cam;
+    const float* iv = p.cam + 16;
+    float tx = cx * ip[0] + cy * ip[4] + ip[8] + ip[12];
+    float ty = cx * ip[1] + cy * ip[5] + ip[9] + ip[13];
+    float tz = cx * ip[2] + cy * ip[6] + ip[10] + ip[14];
+    const float tw = cx * ip[3] + cy * ip[7] + ip[11] + ip[15];
+    const float inv_w = 1.0f / tw;
+    tx = tx * inv_w;
+    ty = ty * inv_w;
+    tz = tz * inv_w;
+    const float wx = tx * iv[0] + ty * iv[4] + tz * iv[8] + iv[12];
+    const float wy = tx * iv[1] + ty * iv[5] + tz * iv[9] + iv[13];
+    const float wz = tx * iv[2] + ty * iv[6] + tz * iv[10] + iv[14];
+    const float rn = 1.0f / sqrtf(wx * wx + wy * wy + wz * wz);
+    d[0] = wx * rn;
+    d[1] = wy * rn;
+    d[2] = wz * rn;
+    o[0] = p.cam[32];
+    o[1] = p.cam[33];
+    o[2] = p.cam[34];
+  }
 
   float result[3] = {0.0f, 0.0f, 0.0f};
   float energy[3] = {1.0f, 1.0f, 1.0f};
@@ -453,37 +481,61 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
 // shadows the two walks' state overlaps on bounce 0, and the same bound
 // made ptxas cap them at 96 registers and spill 170-182 bytes; a floor of
 // one resident block lets them take what they need (a floor of 4, capping
-// them at 128 registers, was slower: PERF.md).
-template <int ATLAS, bool GI>
+// them at 128 registers, was slower: PERF.md). Ray mode keeps the bound of
+// the camera mode it shares its options with.
+template <int ATLAS, bool GI, bool RAYS>
 __global__ void __launch_bounds__(128)
 render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
               unsigned long long* counters) {
-  render_frame<ATLAS, false, GI>(s, p, out, counters, nullptr);
+  render_frame<ATLAS, false, GI, RAYS>(s, p, out, counters, nullptr);
 }
 
-template <int ATLAS, bool GI>
+template <int ATLAS, bool GI, bool RAYS>
 __global__ void __launch_bounds__(128, 1)
 render_shadow_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
                      unsigned long long* counters,
                      unsigned long long* shadow_counters) {
-  render_frame<ATLAS, true, GI>(s, p, out, counters, shadow_counters);
+  render_frame<ATLAS, true, GI, RAYS>(s, p, out, counters, shadow_counters);
 }
 
-template <int ATLAS, bool SHADOWS, bool GI>
+template <int ATLAS, bool SHADOWS, bool GI, bool RAYS>
 static int launch(const SceneTables* s, const RenderParams* p, float* out,
                   unsigned long long* counters, unsigned long long* shadow_counters,
                   cudaStream_t stream, int blocks) {
   if constexpr (SHADOWS) {
-    render_shadow_kernel<ATLAS, GI><<<blocks, 128, 0, stream>>>(*s, *p, out, counters,
-                                                                shadow_counters);
+    render_shadow_kernel<ATLAS, GI, RAYS><<<blocks, 128, 0, stream>>>(
+        *s, *p, out, counters, shadow_counters);
   } else {
-    render_kernel<ATLAS, GI><<<blocks, 128, 0, stream>>>(*s, *p, out, counters);
+    render_kernel<ATLAS, GI, RAYS><<<blocks, 128, 0, stream>>>(*s, *p, out, counters);
   }
   return (int)cudaGetLastError();
 }
 
+// The 12 instantiations of one ray source, by atlas mode, shadows and GI.
+template <bool RAYS>
+static int dispatch(int sel, const SceneTables* s, const RenderParams* p, float* out,
+                    unsigned long long* counters, unsigned long long* sc,
+                    cudaStream_t st, int blocks) {
+  switch (sel) {
+    case 0: return launch<0, false, false, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 1: return launch<0, false, true, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 2: return launch<0, true, false, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 3: return launch<0, true, true, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 4: return launch<1, false, false, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 5: return launch<1, false, true, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 6: return launch<1, true, false, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 7: return launch<1, true, true, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 8: return launch<2, false, false, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 9: return launch<2, false, true, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 10: return launch<2, true, false, RAYS>(s, p, out, counters, sc, st, blocks);
+    case 11: return launch<2, true, true, RAYS>(s, p, out, counters, sc, st, blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // shadow_counters: optional int64[6], the shadow walk's counts alone (it
 // needs p->shadows; counters, when given, count both walks as before).
+// p->rays selects ray mode.
 extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
                            float* out, unsigned long long* counters,
                            unsigned long long* shadow_counters, void* stream) {
@@ -492,21 +544,9 @@ extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
   const int rows = (p->n_rays + 127) / 128;
   const int blocks = (rows + 3) / 4 * 4;  // four blocks per 4 strip rows
   cudaStream_t st = (cudaStream_t)stream;
-  unsigned long long* sc = shadow_counters;
   const int sel = p->atlas_mode * 4 + (p->shadows ? 2 : 0) + (p->gi ? 1 : 0);
-  switch (sel) {
-    case 0: return launch<0, false, false>(s, p, out, counters, sc, st, blocks);
-    case 1: return launch<0, false, true>(s, p, out, counters, sc, st, blocks);
-    case 2: return launch<0, true, false>(s, p, out, counters, sc, st, blocks);
-    case 3: return launch<0, true, true>(s, p, out, counters, sc, st, blocks);
-    case 4: return launch<1, false, false>(s, p, out, counters, sc, st, blocks);
-    case 5: return launch<1, false, true>(s, p, out, counters, sc, st, blocks);
-    case 6: return launch<1, true, false>(s, p, out, counters, sc, st, blocks);
-    case 7: return launch<1, true, true>(s, p, out, counters, sc, st, blocks);
-    case 8: return launch<2, false, false>(s, p, out, counters, sc, st, blocks);
-    case 9: return launch<2, false, true>(s, p, out, counters, sc, st, blocks);
-    case 10: return launch<2, true, false>(s, p, out, counters, sc, st, blocks);
-    case 11: return launch<2, true, true>(s, p, out, counters, sc, st, blocks);
-    default: return (int)cudaErrorInvalidValue;
+  if (p->rays != nullptr) {
+    return dispatch<true>(sel, s, p, out, counters, shadow_counters, st, blocks);
   }
+  return dispatch<false>(sel, s, p, out, counters, shadow_counters, st, blocks);
 }

@@ -28,6 +28,7 @@ from clraytracer_tpu_torch.camera import ray_directions_planar
 from clraytracer_tpu_torch.device import resolve_device
 from clraytracer_tpu_torch.ops import planar
 from clraytracer_tpu_torch.ops.gather import wide_rows_diff
+from clraytracer_tpu_torch.ops.post import post_process
 from clraytracer_tpu_torch.ops.shade import object_space_rays
 from clraytracer_tpu_torch.ops.trace import SceneHit, trace
 from clraytracer_tpu_torch.render import FrameInputs, Tracer, trace_planar
@@ -118,19 +119,18 @@ def render_image_diff(
     width: int,
     height: int,
     bounces: int = 2,
+    reference_parity: bool = True,
     enable_post: bool = False,
     device: str | torch.device | None = None,
 ) -> torch.Tensor:
-    """Differentiable [H, W, 3] render on the float colour path with
-    reference-parity shading (diff.py:177 of the JAX package). ``device``
-    (None = the CUDA card) must be where the scene lies."""
+    """Differentiable [H, W, 3] render on the float colour path
+    (diff.py:177 of the JAX package): reference-parity shading, or the
+    materials' own with ``reference_parity=False``; ``enable_post``
+    applies the post chain (``ops.post.post_process``). ``device`` (None =
+    the CUDA card) must be where the scene lies."""
     dev = resolve_device(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene is on {scene.device}, render asked for {dev}")
-    if enable_post:
-        raise NotImplementedError(
-            "render_image_diff: the untiled post_process is not ported yet"
-        )
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
     dirs = ray_directions_planar(
         f32(frame.inverse_view), f32(frame.inverse_projection), width, height
@@ -138,9 +138,12 @@ def render_image_diff(
     origin = f32(frame.camera_position)[:, None, None].expand(dirs.shape)
     result = trace_planar(
         scene, origin, dirs, f32(frame.sun_angle), bounces,
-        make_differentiable_tracer(),
+        make_differentiable_tracer(), reference_parity, integer_colors=False,
     )
-    return planar.to_last(result, (height, width))
+    img = planar.to_last(result, (height, width))
+    if enable_post:
+        img = post_process(img)
+    return img
 
 
 def _float_leaves(scene: Scene):

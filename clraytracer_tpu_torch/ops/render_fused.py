@@ -2,17 +2,19 @@
 
 * ``render_cuda`` launches the hand-written CUDA kernel (csrc/render.cu), a
   port of the TPU kernel ``clraytracer_tpu/ops/render_pallas.py``
-  (``_make_render_kernel``) in camera mode with its options: atlas modes 0
-  (every texture procedural), 1 and 2 (imported textures, deferred
-  texels), sun shadows on bounce 0 and Monte-Carlo GI. Ray mode and the
-  split-rebin carry are not ported.
-* ``render_fused_plain`` is the plain PyTorch version: the same raygen,
-  ``trace_plain`` per bounce (and for the shadow ray) and the same shading
-  expressions. The tests use it, and ``render_fused_camera`` takes it only
-  for a scene on the CPU.
-* ``render_fused_camera`` is the frame entry (render_pallas.py:1204): one
-  kernel launch, then ``_finish_frame``: the deferred sky add, and in the
-  atlas modes the one combined texel gather of every bounce.
+  (``_make_render_kernel``) with its options: atlas modes 0 (every
+  texture procedural), 1 and 2 (imported textures, deferred texels), sun
+  shadows on bounce 0, Monte-Carlo GI, and its two ray sources: camera
+  mode (in-kernel raygen) and ray mode (given rays). The split-rebin
+  carry is not ported.
+* ``render_fused_plain`` is the plain PyTorch version: the same raygen (or
+  the given rays), ``trace_plain`` per bounce (and for the shadow ray)
+  and the same shading expressions. The tests use it, and the frame
+  entries take it only for a scene on the CPU.
+* ``render_fused_camera`` (render_pallas.py:1204) and ``render_fused``
+  (render_pallas.py:1115, ray mode) are the frame entries: one kernel
+  launch, then ``_finish_frame``: the deferred sky add, and in the atlas
+  modes the one combined texel gather of every bounce.
 """
 
 from __future__ import annotations
@@ -61,15 +63,22 @@ def tile_rows(n_rays: int) -> int:
     return max(8, min(MAX_ROWS, rows))
 
 
-def fused_path_available(scene: Scene) -> bool:
-    """The scene has the tables the fused frame reads (render_pallas.py:909
-    less the TPU's VMEM budget: the CUDA kernel reads global memory at any
-    scene size). ``render._unsupported`` checks the options and materials.
-    Every such scene takes the fused frame: the JAX package's
-    ``fused_path_preferred`` exception for museum-class streamed atlas
-    scenes is a TPU speed choice between two paths that agree to float
-    precision, and is not copied."""
-    return scene.packed is not None and scene.clusters is not None
+def fused_path_available(scene: Scene, reference_parity: bool,
+                         integer_colors: bool) -> bool:
+    """Does the fused kernel cover this scene and shading
+    (render_pallas.py:909)? Reference-parity integer-colour shading, the
+    cluster and packed tables, and at most ``MAX_FUSED_MATERIALS``
+    materials when every texture is procedural (the atlas modes read any
+    number). The TPU's VMEM budget is not a condition here: the CUDA
+    kernel reads global memory at any scene size. Refraction is the
+    caller's condition (render.py)."""
+    return (
+        reference_parity
+        and integer_colors
+        and scene.packed is not None
+        and scene.clusters is not None
+        and (scene.materials.count <= MAX_FUSED_MATERIALS or not _all_procedural(scene))
+    )
 
 
 def atlas_mode_of(scene: Scene) -> int:
@@ -90,11 +99,12 @@ def deferred_planes(mode: int, gi: bool) -> int:
     return (7 if mode == 1 else 6) + (3 if gi else 0)
 
 
-def variant(mode: int, shadows: bool, gi: bool) -> str:
+def variant(mode: int, shadows: bool, gi: bool, rays: bool = False) -> str:
     """Name of a K2.2 instantiation, as ``render_cuda.variant_launches``
-    counts them: "default", or its options joined by "+"."""
-    parts = ([f"atlas{mode}"] if mode else []) + (["shadows"] if shadows else []) + (
-        ["gi"] if gi else [])
+    counts them: "default", or its options joined by "+" ("rays" first in
+    ray mode)."""
+    parts = (["rays"] if rays else []) + ([f"atlas{mode}"] if mode else []) + (
+        ["shadows"] if shadows else []) + (["gi"] if gi else [])
     return "+".join(parts) or "default"
 
 
@@ -155,6 +165,18 @@ class CameraRow:
     sun: tuple[float, float]
 
 
+def _sun(sun_angle) -> tuple[float, float]:
+    """(sin, cos) of the sun angle in f32, computed on the host."""
+    angle = torch.as_tensor(sun_angle, dtype=torch.float32).cpu()
+    return tuple(torch.stack([torch.sin(angle), torch.cos(angle)]).tolist())
+
+
+def ray_row(sun_angle) -> CameraRow:
+    """The per-frame state of ray mode: the sun alone (the camera part is
+    not read when the rays are given)."""
+    return CameraRow(cam=(0.0,) * 36, sun=_sun(sun_angle))
+
+
 def camera_row(frame) -> CameraRow:
     cam = torch.cat(
         [
@@ -164,9 +186,20 @@ def camera_row(frame) -> CameraRow:
             torch.zeros(1),
         ]
     ).cpu()
-    angle = torch.as_tensor(frame.sun_angle, dtype=torch.float32).cpu()
-    sun = torch.stack([torch.sin(angle), torch.cos(angle)])
-    return CameraRow(cam=tuple(cam.tolist()), sun=tuple(sun.tolist()))
+    return CameraRow(cam=tuple(cam.tolist()), sun=_sun(frame.sun_angle))
+
+
+def check_rays(rays: torch.Tensor, rows_total: int) -> int:
+    """Ray mode's input: a contiguous [6, n] f32 tensor (origin xyz |
+    direction xyz planes, ray i = row i // 128, lane i % 128) of
+    ``rows_total`` rows of 128 rays, the last maybe ragged. Returns n."""
+    if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 6 or (
+            not rays.is_contiguous()):
+        raise ValueError("rays must be a contiguous [6, n] f32 tensor")
+    n = rays.shape[1]
+    if n == 0 or -(-n // 128) != rows_total:
+        raise ValueError(f"{n} rays do not fill {rows_total} rows of 128")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -199,19 +232,28 @@ def render_fused_plain(
     atlas_mode: int = 0,
     shadows: bool = False,
     gi_seed: int | None = None,
+    rays: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The plain version of K2.2 → [9 + K*bounces, rows_total*128] f32
-    (result rgb | miss energy rgb | miss dir xyz | K deferred planes per
-    bounce, csrc/render.cu's layout), op for op the kernel's expressions."""
-    n = rows_total * 128
+    """The plain version of K2.2 → [9 + K*bounces, n] f32 (result rgb |
+    miss energy rgb | miss dir xyz | K deferred planes per bounce,
+    csrc/render.cu's layout), op for op the kernel's expressions. Camera
+    mode: n = rows_total*128 rays of the camera row's raygen. Ray mode
+    (``rays`` [6, n], ``check_rays``): the given rays; of ``cr`` only the
+    sun is read."""
     gi = gi_seed is not None
-    cam = torch.tensor(cr.cam, dtype=torch.float32, device=device)
-    px, py = tile_pixels(width, trows, rows_total, device, row0=cr.cam[35])
-    d = unproject(
-        cam[16:32].reshape(4, 4), cam[0:16].reshape(4, 4), px, py, width, height
-    ).reshape(3, n)
-    d = [d[0], d[1], d[2]]
-    o = [cam[32 + c].expand(n) for c in range(3)]
+    if rays is None:
+        n = rows_total * 128
+        cam = torch.tensor(cr.cam, dtype=torch.float32, device=device)
+        px, py = tile_pixels(width, trows, rows_total, device, row0=cr.cam[35])
+        d = unproject(
+            cam[16:32].reshape(4, 4), cam[0:16].reshape(4, 4), px, py, width, height
+        ).reshape(3, n)
+        d = [d[0], d[1], d[2]]
+        o = [cam[32 + c].expand(n) for c in range(3)]
+    else:
+        n = check_rays(rays, rows_total)
+        o = [rays[c] for c in range(3)]
+        d = [rays[3 + c] for c in range(3)]
     zero = torch.zeros(n, device=device)
     light = [zero, zero + cr.sun[0], zero + cr.sun[1]]
     result = [zero, zero, zero]
@@ -225,8 +267,8 @@ def render_fused_plain(
     ray_index = torch.arange(n, device=device)
     n_mat = ft.mat_rows.shape[0]
     for b in range(bounces):
-        rays = torch.stack(o + d).contiguous()
-        hs = trace_plain(kt, rays, None if b == 0 else alive.float())
+        hs = trace_plain(kt, torch.stack(o + d).contiguous(),
+                         None if b == 0 else alive.float())
         t = hs[0]
         binst = hs[4].view(torch.int32).long()
         n_obj = hs[5:8]
@@ -363,9 +405,13 @@ def render_cuda(
     shadows: bool = False,
     gi_seed: int | None = None,
     shadow_counters: torch.Tensor | None = None,
+    rays: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch K2.2 (csrc/render.cu) → [9 + K*bounces, rows_total*128] f32
-    on the tables' CUDA device (K = ``deferred_planes(atlas_mode, gi)``).
+    """Launch K2.2 (csrc/render.cu) → [9 + K*bounces, n] f32 on the
+    tables' CUDA device (K = ``deferred_planes(atlas_mode, gi)``). Camera
+    mode: n = rows_total*128 rays of the in-kernel raygen. Ray mode
+    (``rays`` [6, n] on the device, ``check_rays``): the given rays, and
+    of ``cr`` only the sun is read.
     ``gi_seed`` None turns GI off; the seed is a launch parameter, so every
     seed runs the same compiled instantiation. ``counters``: optional int64
     [6] device tensor the launch adds its work to, in
@@ -387,8 +433,12 @@ def render_cuda(
         raise ValueError("camera row must hold 36 floats")
     if atlas_mode not in (0, 1, 2):
         raise ValueError(f"atlas_mode must be 0, 1 or 2, not {atlas_mode}")
-    lib = kernels.build_all()["render.cu"]
     n = rows_total * 128
+    if rays is not None:
+        n = check_rays(rays, rows_total)
+        if rays.device != dev:
+            raise ValueError("rays must lie on the tables' device")
+    lib = kernels.build_all()["render.cu"]
     gi = gi_seed is not None
     out = torch.empty(
         (9 + deferred_planes(atlas_mode, gi) * bounces, n),
@@ -401,7 +451,7 @@ def render_cuda(
         ft.mat_rows.shape[0], ft.tex.shape[0],
         trows, -(-width // 128), width, height, n, bounces,
         atlas_mode, int(shadows), int(gi),
-        rng.gi_seed_rows(gi_seed, 1)[0] if gi else 0,
+        rng.gi_seed_rows(gi_seed, 1)[0] if gi else 0, kernels.ptr(rays),
     )
     tables = kt.as_c()
     code = lib.clrt_render(
@@ -410,7 +460,7 @@ def render_cuda(
     )
     kernels.check(code, "clrt_render")
     render_cuda.launches += 1
-    name = variant(atlas_mode, shadows, gi)
+    name = variant(atlas_mode, shadows, gi, rays is not None)
     render_cuda.variant_launches[name] = render_cuda.variant_launches.get(name, 0) + 1
     return out
 
@@ -511,7 +561,7 @@ def render_fused_camera(
     """Fused frame with in-kernel raygen → ([3, rows_total, 128] radiance in
     trows x 128 screen-strip order, (trows, tiles_x, tiles_y)): one kernel
     launch, then ``_finish_frame``. ``gi_seed`` None turns GI off. Callers
-    check ``render._unsupported`` first."""
+    check ``fused_path_available`` first."""
     trows = tile_rows(width * height)
     tiles_x = -(-width // 128)
     tiles_y = -(-height // trows)
@@ -531,3 +581,36 @@ def render_fused_camera(
     out = out.reshape(-1, rows_total, 128)
     img = _finish_frame(scene, out, mode, gi_seed is not None)
     return img, (trows, tiles_x, tiles_y)
+
+
+def render_fused(
+    scene: Scene,
+    origin: torch.Tensor,  # [3, rows, 128] ray-linear
+    direction: torch.Tensor,  # [3, rows, 128]
+    sun_angle,
+    bounces: int,
+    enable_shadows: bool = False,
+    gi_seed: int | None = None,
+) -> torch.Tensor:
+    """Fused frame over given rays (render_pallas.py:1115, ray mode) →
+    [3, rows, 128] radiance: one kernel launch in ray mode, then
+    ``_finish_frame``. Ray i is row i // 128, lane i % 128, and its GI
+    stream is seeded by i, as in camera mode. ``gi_seed`` None turns GI
+    off. Callers check ``fused_path_available`` first."""
+    rows_total = origin.shape[1]
+    kt = kernel_tables(scene)
+    ft = frame_tables(scene)
+    dev = kt.planes.device
+    rays = torch.cat([origin.reshape(3, -1), direction.reshape(3, -1)]).to(
+        device=dev, dtype=torch.float32).contiguous()
+    mode = atlas_mode_of(scene)
+    opts = dict(atlas_mode=mode, shadows=enable_shadows, gi_seed=gi_seed, rays=rays)
+    # ray mode reads no camera: the strip geometry below is the rays' own
+    # grid (width 128, one strip of rows_total rows) and is not read
+    args = (kt, ft, ray_row(sun_angle), 128, rows_total, rows_total, rows_total, bounces)
+    if dev.type == "cuda":
+        out = render_cuda(*args, **opts)
+    else:
+        out = render_fused_plain(*args, dev, **opts)
+    out = out.reshape(-1, rows_total, 128)
+    return _finish_frame(scene, out, mode, gi_seed is not None)

@@ -1,20 +1,22 @@
-"""The shading step: skybox sampling and texture helpers, which the fused
-frame shares, and the differentiable float path of the JAX package's
-``ops/shade.py`` (``shade_hits`` with reference-parity Phong and float
-colours, the path ``diff.render_image_diff`` takes).
+"""The shading step of the two-phase path (the JAX package's
+``ops/shade.py``: ``shade_hits`` with every flag), and the skybox sampling
+and texture helpers the fused frame shares.
 
 The equirect skybox (MathAndSTL.cl:253-258) stays outside the frame kernel,
 as in the reference package: its ``atan2``/``acos`` come from torch here,
 on whichever device the frame runs.
 
-The float path builds its gather tables from the canonical scene leaves on
+Two colour paths. Integer colours read the scene's packed tables and
+modulate texels as bytes (``_modulate_bytes``), as the reference does. The
+float path builds its gather tables from the canonical scene leaves on
 every call (``build_shading_tables``), so gradients reach the material
 colours, the instance inverse transforms, and the triangles' f16 normals
 and uvs (through the tracer's attributes); imported-texture scenes sample
 the texel pool, so the texels get gradients too. All-procedural scenes
-evaluate their descriptors in place, and their texel gradients are zero by
-design. Only reference-parity shading is ported; shadows, GI, refraction
-and the integer-colour two-phase path are not.
+evaluate their descriptors in place in both paths, and their texel
+gradients are zero by design. Either path takes reference-parity or
+material shading, sun shadows through a shadow tracer, Monte-Carlo GI and
+refraction.
 """
 
 from __future__ import annotations
@@ -115,12 +117,13 @@ def _eval_tex_inline(
 
 
 # ---------------------------------------------------------------------------
-# the float (differentiable) shading path
+# the shading tables and the shading step
 # ---------------------------------------------------------------------------
 
 
 class ShadingTables(NamedTuple):
-    """Gather-ready tables, built from the canonical leaves."""
+    """Gather-ready tables: the scene's packed ones, or built from the
+    canonical leaves."""
 
     tri_attr: torch.Tensor  # [T, 16] f32: n0 n1 n2 (9) | uv0 uv1 uv2 (6) | mat
     inst_rows: torch.Tensor  # [I, 17] f32: inverse transform (16) | material_start
@@ -177,6 +180,41 @@ def build_shading_tables(scene) -> ShadingTables:
     return ShadingTables(
         tri_attr=tri_attr, inst_rows=_inst_rows(scene), mat_rows=mat_rows
     )
+
+
+def _shading_tables(scene, prefer_packed: bool) -> ShadingTables:
+    """The packed tables where asked for and built, else the tables from
+    the canonical leaves (shade.py:133 of the JAX package)."""
+    pk = scene.packed
+    if prefer_packed and pk is not None:
+        return ShadingTables(
+            tri_attr=pk.tri_attr, inst_rows=pk.inst_rows, mat_rows=pk.mat_rows
+        )
+    return build_shading_tables(scene)
+
+
+def sample_pool_planar(atlas, w, h, off, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Point-sample RGB from the texel pool → planar [3, *S]; ``w/h/off``
+    per-ray records or ints (shade.py:223 of the JAX package)."""
+    return gather.take_rgb(atlas.texels, _pool_index(w, h, off, u, v))
+
+
+def _modulate_bytes(texel: torch.Tensor, mat_rgb: torch.Tensor) -> torch.Tensor:
+    """The reference's integer colour modulate ``((mat_u8 * texel_u8) >> 8)
+    / 255`` (MathAndSTL.cl:243-249) in float arithmetic, exact: u8 * u8 <
+    2^24 (shade.py:283 of the JAX package). ``texel`` [3, *S] from the u8
+    pool, ``mat_rgb`` the canonical float colour."""
+    mat_b = torch.round(torch.clamp(mat_rgb, 0.0, 1.0) * 255.0)
+    tex_b = torch.round(texel * 255.0)
+    return torch.floor(mat_b * tex_b * (1.0 / 256.0)) * _U8
+
+
+def _pow_fast(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``x ** e`` by exp2/log2, 0 where x <= 0 (shade.py:296 of the JAX
+    package)."""
+    safe = torch.clamp(x, min=1e-30)
+    out = torch.exp2(e * torch.log2(safe))
+    return torch.where(x > 0.0, out, torch.zeros_like(out))
 
 
 def _transform_rays(
@@ -247,6 +285,8 @@ def initial_bounce_state(
     )
 
 
+
+
 def _max(x: torch.Tensor, c: float) -> torch.Tensor:
     """``jnp.maximum(x, c)``, whose gradient splits in half at a tie."""
     return torch.maximum(x, x.new_full((), c))
@@ -256,44 +296,93 @@ def shade_hits(
     scene,
     state: BounceState,
     t: torch.Tensor,  # [*S] hit distance (object space, as the reference)
-    hit: torch.Tensor,  # [*S] bool
+    u: torch.Tensor,  # [*S] barycentrics of the hit
+    v: torch.Tensor,
+    tri_idx: torch.Tensor,  # [*S] i32 arena triangle index
     instance_idx: torch.Tensor,  # [*S] i32
-    attrs: tuple,  # (object-space normal [3, *S], uu, vv, mat_local)
+    hit: torch.Tensor,  # [*S] bool
+    reference_parity: bool = True,
+    integer_colors: bool = True,
+    attrs: tuple | None = None,
+    shadow_tracer=None,
+    enable_refraction: bool = False,
+    refraction_ior: float = 1.45,
+    gi_state: torch.Tensor | None = None,
     deferred: list | None = None,
 ) -> BounceState:
-    """One bounce of shading on the float path (shade.py:374 of the JAX
-    package): misses add the sky and end (kernel_main.cl:219-224), hits add
-    reference-parity Phong (kernel_main.cl:226-271) and continue along the
-    mirror direction. ``attrs`` are the differentiable tracer's
-    interpolated attributes.
+    """One bounce of shading (shade.py:374 of the JAX package): misses add
+    the sky and end (kernel_main.cl:219-224), hits add Phong
+    (kernel_main.cl:226-271) and continue.
 
-    ``deferred`` (imported-texture scenes): when a list, the texel-pool
-    gather is skipped and ``(pool idx, F1, F2)`` is appended;
-    ``render.bounce_loop`` fetches every bounce's texels with one gather
-    after the loop (radiance += texel * F1 + texel * F2)."""
+    ``reference_parity`` keeps the reference kernel's specular (0.2),
+    roughness (0.5) and shininess (1.0) overrides (kernel_main.cl:248-250);
+    without it the material's specular texture and colour, roughness and
+    shininess shade. ``integer_colors`` reads the packed tables and
+    modulates colours as bytes; otherwise the float, differentiable path.
+    ``attrs``: the tracer's interpolated (object-space normal [3, *S], uu,
+    vv, mat_local); None gathers the triangle rows and interpolates here.
+    ``shadow_tracer``: a tracer (taking ``live``) for one occlusion ray
+    from each hit toward the sun, which kills the direct terms and the
+    specular carry of an occluded hit. ``gi_state``: per-ray uint32
+    streams (int64 tensor, ops/rng.py); the continuation then samples the
+    hemisphere about the normal with throughput colour * 2 cos(theta).
+    ``enable_refraction``: hits on a material with transmission > 0
+    continue by Snell refraction behind the surface (the mirror ray on
+    total internal reflection), carry the transmission and pass (1 -
+    transmission) of their direct terms.
+
+    ``deferred`` (reference parity, float colours, no refraction): when a
+    list, the texel-pool gather is skipped and ``(pool idx, F1, F2, albP,
+    live)`` is appended; ``render.bounce_loop`` fetches every bounce's
+    texels with one gather after the loop (radiance += texel * (F1 * P +
+    F2), P the GI colour product)."""
     atlas = scene.atlas
-    tables = build_shading_tables(scene)
+    fast = integer_colors and scene.packed is not None
+    tables = _shading_tables(scene, prefer_packed=fast)
 
-    kb = scene.skybox_tex
-    skw, skh, skoff = atlas.width[kb], atlas.height[kb], atlas.offset[kb]
+    if fast:
+        pk = scene.packed
+        skw, skh, skoff = pk.skybox_w, pk.skybox_h, pk.skybox_off
+    else:
+        kb = scene.skybox_tex
+        skw, skh, skoff = atlas.width[kb], atlas.height[kb], atlas.offset[kb]
     sky_idx = _skybox_index(skw, skh, skoff, state.direction)
 
     miss_now = state.alive & ~hit
     live = state.alive & hit
 
-    mat_local = attrs[3].to(torch.int32)
+    if attrs is not None:
+        attr = None
+        mat_local = attrs[3].to(torch.int32)
+    else:
+        # miss and dead lanes carry no triangle: pin them to row 0
+        attr = gather.take_rows(
+            tables.tri_attr, torch.where(hit, tri_idx, torch.zeros_like(tri_idx))
+        )  # [16, *S]
+        mat_local = attr[15].to(torch.int32)
     inst = gather.small_rows_diff(tables.inst_rows, instance_idx)  # [17, *S]
     mat_id = inst[16].to(torch.int32) + mat_local
     mat = gather.small_rows_diff(tables.mat_rows, mat_id)  # [16, *S]
-    alb_rgb = mat[0:3]
-    aoff = mat[10].to(torch.int32) * (1 << _OFF_SHIFT) + mat[11].to(torch.int32)
+    alb_rgb, spec_rgb = mat[0:3], mat[3:6]
+
+    def rec(base: int):
+        off = mat[base + 2].to(torch.int32) * (1 << _OFF_SHIFT) + mat[base + 3].to(
+            torch.int32)
+        return mat[base], mat[base + 1], off
 
     # the reference reuses the object-space hit point as the next world
     # origin (kernel_main.cl:246-253)
-    mesh_origin, mesh_direction = _transform_rays(
-        inst, state.origin, state.direction
-    )
-    n_obj, uu, vv = attrs[0], attrs[1], attrs[2]
+    mesh_origin, mesh_direction = _transform_rays(inst, state.origin, state.direction)
+
+    if attrs is not None:
+        n_obj, uu, vv = attrs[0], attrs[1], attrs[2]
+    else:
+        w0 = 1.0 - u - v
+        n_obj = torch.stack(
+            [attr[c] * w0 + attr[3 + c] * u + attr[6 + c] * v for c in range(3)]
+        )
+        uu = attr[9] * w0 + attr[11] * u + attr[13] * v
+        vv = attr[10] * w0 + attr[12] * u + attr[14] * v
     normal = planar.normalize(
         torch.stack(
             [
@@ -304,48 +393,123 @@ def shade_hits(
         )
     )
 
+    # ---- texels: all-procedural scenes evaluate their descriptors in place
+    # (in every colour mode); the others gather albedo (hit lanes) and sky
+    # (miss lanes) from the pool in one gather, dead lanes pinned to texel 0
+    aw, ah, aoff = rec(8)
     inline = _all_procedural(scene)
     if inline:
         sky = _eval_skybox_inline(scene, sky_idx, skw, skoff)
         texel = planar.where(hit, _eval_tex_inline(scene, aoff, uu, vv), sky)
     else:
-        alb_idx = _pool_index(mat[8], mat[9], aoff, uu, vv)
-        # dead lanes fetch texel 0
+        alb_idx = _pool_index(aw, ah, aoff, uu, vv)
         idx = torch.where(hit, alb_idx, sky_idx)
         idx = torch.where(state.alive, idx, torch.zeros_like(idx))
         if deferred is None:
-            texel = sky = gather.take_rgb(atlas.texels, idx)
+            pk_tex = scene.packed.texels_u32 if fast else None
+            if pk_tex is not None:
+                # flat packed-RGB8 pool: texel = byte / 255 is the pool's
+                # own construction, so the values equal the row gather's
+                word = pk_tex[idx.long().clamp(0, pk_tex.shape[0] - 1)]
+                texel = torch.stack(
+                    [((word >> s) & 0xFF).to(torch.float32) * _U8 for s in (0, 8, 16)]
+                )
+            else:
+                texel = gather.take_rgb(atlas.texels, idx)
+            sky = texel  # valid on miss lanes only
         else:
+            if not reference_parity or integer_colors or enable_refraction:
+                raise ValueError(
+                    "texel deferral needs reference parity, float colours and "
+                    "no refraction")
             texel = sky = None
     use_defer = deferred is not None and not inline
     if use_defer:
         result = state.result  # the sky rides the deferred gather
         color = None
     else:
-        result = planar.where(
-            miss_now, state.result + sky * state.energy, state.result
-        )
-        color = texel * alb_rgb
+        result = planar.where(miss_now, state.result + sky * state.energy, state.result)
+        color = _modulate_bytes(texel, alb_rgb) if integer_colors else texel * alb_rgb
 
-    # kernel_main.cl:248-250 overrides specular (0.2), roughness (0.5) and
-    # shininess (1.0, so the power is the identity)
-    specular_color = torch.full_like(state.energy, 0.2)
-    roughness = torch.full_like(t, 0.5)
+    if reference_parity:
+        specular_color = torch.full_like(state.energy, 0.2)
+        roughness = torch.full_like(t, 0.5)
+        shininess = None  # the constant 1.0: the power is the identity
+    else:
+        sw, sh, soff = rec(12)
+        if inline:
+            spec_texel = _eval_tex_inline(scene, soff, uu, vv)
+        else:
+            spec_texel = sample_pool_planar(atlas, sw, sh, soff, uu, vv)
+        specular_color = (
+            _modulate_bytes(spec_texel, spec_rgb) if integer_colors
+            else spec_texel * spec_rgb
+        )
+        roughness = mat[7]
+        shininess = mat[6]
 
     point = mesh_origin + planar.scale(mesh_direction, t)
     new_origin = point + normal * 0.01
     new_direction = planar.reflect(state.direction, normal)
+    if gi_state is not None:
+        # Monte-Carlo diffuse GI: a uniform hemisphere sample about the
+        # shading normal, kept on its side; the estimator weight of the
+        # uniform sampler is albedo * 2 cos(theta)
+        from clraytracer_tpu_torch.ops import rng
 
-    shadow = 1.0  # the reference's unimplemented sun-shadow factor
+        gi_dir, _ = rng.hemisphere_sample(gi_state, normal)
+        gi_dot = planar.dot(gi_dir, normal)
+        new_direction = planar.where(gi_dot < 0.0, -gi_dir, gi_dir)
+        gi_weight = 2.0 * gi_dot.abs()
+
+    use_refr = None
+    if enable_refraction:
+        trans = scene.materials.transmission[
+            mat_id.long().clamp(0, scene.materials.count - 1)]
+        cos_i = -planar.dot(state.direction, normal)
+        n_eff = planar.where(cos_i >= 0.0, normal, -normal)
+        ci = cos_i.abs()
+        eta = torch.where(
+            cos_i >= 0.0, cos_i.new_full((), 1.0 / refraction_ior),
+            cos_i.new_full((), refraction_ior),
+        )
+        kk = 1.0 - eta * eta * (1.0 - ci * ci)
+        refr_dir = planar.normalize(
+            planar.scale(state.direction, eta)
+            + planar.scale(n_eff, eta * ci - torch.sqrt(torch.clamp(kk, min=0.0)))
+        )
+        use_refr = hit & (trans > 0.0) & (kk >= 0.0)
+        new_direction = planar.where(use_refr, refr_dir, new_direction)
+        # a refracted continuation starts just behind the surface
+        new_origin = planar.where(use_refr, point - n_eff * 0.01, new_origin)
+
+    # ``shadow`` is the reference's declared but unimplemented sun-shadow
+    # factor (kernel_main.cl:258): one occlusion ray from the offset hit
+    # point toward the sun, traced for the shaded lanes only
+    shadow = 1.0
+    if shadow_tracer is not None:
+        to_sun = -state.light_dir
+        sh_origin = planar.where(hit, new_origin, torch.zeros_like(new_origin))
+        occ = shadow_tracer(scene, sh_origin, to_sun, live=live)
+        shadow = torch.where(hit & occ.hit, 0.0, 1.0)
     ndl_raw = planar.dot(normal, -state.light_dir)
     amb_m = _max(-ndl_raw, 0.1)
     ndl = _max(ndl_raw, 0.0)
     specular = planar.scale(specular_color, (1.0 - roughness) * ndl * shadow * ndl)
+    if gi_state is not None:
+        # the deferred path carries the weight alone: the colour joins
+        # through the P product of render.bounce_loop
+        specular = (gi_weight[None].expand_as(state.energy) if use_defer
+                    else planar.scale(color, gi_weight))
     refl_light = planar.reflect(-state.light_dir, normal)
     rdm = _max(planar.dot(refl_light, mesh_direction), 0.0)
-    spec_light = ndl * rdm * 0.2 * shadow
+    spec_pow = rdm if shininess is None else _pow_fast(rdm, shininess)
+    spec_light = ndl * spec_pow * 0.2 * shadow
 
     if use_defer:
+        # texel-blind terms: contribution = texel * (F1 * P + F2); F1 is
+        # E * dif * albedo (the plain energy on a miss lane, whose sky
+        # texel rides the same gather), F2 the ambient coefficient
         dif = ndl * shadow
         zero3 = torch.zeros_like(state.energy)
         f1 = planar.where(
@@ -353,26 +517,23 @@ def shade_hits(
             planar.scale(state.energy * alb_rgb, dif),
             planar.where(miss_now, state.energy, zero3),
         )
-        f2 = planar.where(
-            live, planar.scale(state.atmospheric * alb_rgb, amb_m), zero3
-        )
-        deferred.append((idx, f1, f2))
+        f2 = planar.where(live, planar.scale(state.atmospheric * alb_rgb, amb_m), zero3)
+        deferred.append((idx, f1, f2, alb_rgb if gi_state is not None else None, live))
         result = planar.where(live, result + spec_light[None], result)
     else:
         ambient = planar.scale(state.atmospheric * color, amb_m)
         contrib = (
-            planar.scale(state.energy * color, ndl * shadow)
-            + ambient
-            + spec_light[None]
+            planar.scale(state.energy * color, ndl * shadow) + ambient + spec_light[None]
         )
+        if use_refr is not None:
+            contrib = planar.where(use_refr, planar.scale(contrib, 1.0 - trans), contrib)
+            specular = planar.where(use_refr, trans[None].expand_as(specular), specular)
         result = planar.where(live, result + contrib, result)
 
     return BounceState(
         result=result,
         energy=planar.where(live, state.energy * specular, state.energy),
-        atmospheric=planar.where(
-            live, state.atmospheric * 0.4, state.atmospheric
-        ),
+        atmospheric=planar.where(live, state.atmospheric * 0.4, state.atmospheric),
         light_dir=planar.where(live, new_direction, state.light_dir),
         origin=planar.where(live, new_origin, state.origin),
         direction=planar.where(live, new_direction, state.direction),

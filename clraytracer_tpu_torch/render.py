@@ -1,21 +1,20 @@
-"""The frame pipeline: fused trace (K2.2) → deferred texels and sky → post
-chain, and the two-phase bounce loop of the differentiable path.
+"""The frame pipeline: trace and shade → post chain, on two paths.
 
-``render_frame`` runs every frame the JAX package's ``render.render_frame``
-(render.py:503) renders through its fused kernel: reference-parity
-integer-colour Phong over procedural or imported textures, with any of sun
-shadows, Monte-Carlo GI, supersampling (``samples`` jittered frames
-averaged), the post chain and FXAA. On a CUDA scene each frame (each
-sample) is one launch of the fused kernel; on a CPU scene it is the
-kernel's plain version. Refraction, non-parity shading and float colours
-(the JAX package's two-phase shading path) raise ``NotImplementedError``
-rather than taking another computation.
+``render_frame`` (render.py:503 of the JAX package) renders every frame
+the JAX ``render_frame`` renders. A frame the fused kernel covers
+(reference-parity integer-colour Phong, no refraction, at most 64
+materials when every texture is procedural) is one launch of K2.2 in
+camera mode per frame (per sample), then the deferred texels and sky and
+the post chain. Every other frame (refraction, material shading, float
+colours, all-procedural scenes of more materials) takes the two-phase
+path: ``bounce_loop`` traces each bounce with K2.1 (``ops.trace.trace``)
+and shades it in torch (``ops.shade.shade_hits``), sun-shadow rays
+through K2.1 too. On a CPU scene the kernels are their plain versions.
 
 ``trace_planar``/``bounce_loop`` (render.py:102-326 of the JAX package)
-trace and shade bounce by bounce on the float colour path with
-reference-parity shading, with a pluggable tracer:
-``diff.render_image_diff`` passes its differentiable one. The integer-
-colour two-phase path is not ported yet.
+take any tracer: given K2.1's, a frame the fused kernel covers is one
+launch of K2.2 in ray mode (``render_fused.render_fused``);
+``diff.render_image_diff`` passes its differentiable tracer.
 """
 
 from __future__ import annotations
@@ -27,18 +26,14 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from clraytracer_tpu_torch.camera import Camera
+from clraytracer_tpu_torch.camera import Camera, ray_directions_tiled
 from clraytracer_tpu_torch.config import RenderConfig
 from clraytracer_tpu_torch.device import resolve_device
-from clraytracer_tpu_torch.ops import gather
+from clraytracer_tpu_torch.ops import gather, rng
 from clraytracer_tpu_torch.ops import render_fused as rf
 from clraytracer_tpu_torch.ops.post import post_process, post_process_tiled
-from clraytracer_tpu_torch.ops.shade import (
-    _all_procedural,
-    initial_bounce_state,
-    shade_hits,
-)
-from clraytracer_tpu_torch.ops.trace import SceneHit
+from clraytracer_tpu_torch.ops.shade import initial_bounce_state, shade_hits
+from clraytracer_tpu_torch.ops.trace import SceneHit, trace
 from clraytracer_tpu_torch.scene.types import Scene
 
 #: A tracer maps (scene, origins [3, ...], directions [3, ...], live=None)
@@ -46,8 +41,8 @@ from clraytracer_tpu_torch.scene.types import Scene
 #: rays still bouncing, or None on bounce 0.
 Tracer = Callable[..., SceneHit]
 
-#: test hook: False makes imported-texture scenes gather their texels in
-#: every bounce instead of once after the loop
+#: test hook: False makes the float path of imported-texture scenes gather
+#: its texels in every bounce instead of once after the loop
 _DEFER_TEXELS = True
 
 
@@ -71,17 +66,11 @@ def frame_inputs_from_camera(camera: Camera, sun_angle: float) -> FrameInputs:
     )
 
 
-def _unsupported(scene: Scene, config: RenderConfig) -> str | None:
-    """Why the port cannot render the frame yet, or None."""
-    if config.enable_refraction:
-        return "enable_refraction"
-    if not config.reference_parity_shading:
-        return "reference_parity_shading=False"
-    if not config.integer_colors:
-        return "integer_colors=False"
-    if _all_procedural(scene) and scene.materials.count > rf.MAX_FUSED_MATERIALS:
-        return f"an all-procedural scene with more than {rf.MAX_FUSED_MATERIALS} materials"
-    if not rf.fused_path_available(scene):
+def _unsupported(scene: Scene) -> str | None:
+    """Why the port cannot render the scene yet, or None: both paths read
+    the cluster and packed tables (the JAX package's tracers without them
+    are not ported)."""
+    if scene.packed is None or scene.clusters is None:
         return "scene without cluster or packed tables"
     return None
 
@@ -92,16 +81,40 @@ def _trace_tiled(
     width: int,
     height: int,
     bounces: int,
+    reference_parity: bool = True,
+    integer_colors: bool = True,
     enable_shadows: bool = False,
+    enable_refraction: bool = False,
+    refraction_ior: float = 1.45,
     enable_gi: bool = False,
     gi_seed: int = 0,
 ) -> tuple[torch.Tensor, tuple]:
-    """The fused branch of the JAX ``_trace_tiled`` (render.py:409): raw
-    ``[3, rows, 128]`` radiance plus its ``("strip", trows, tiles_x,
-    tiles_y)`` layout."""
-    result, (trows, tiles_x, tiles_y) = rf.render_fused_camera(
-        scene, frame, width, height, bounces,
-        enable_shadows=enable_shadows, gi_seed=gi_seed if enable_gi else None,
+    """The JAX ``_trace_tiled`` (render.py:409): raw ``[3, rows, 128]``
+    radiance in screen-tile order plus its ``("strip", trows, tiles_x,
+    tiles_y)`` layout, from the fused kernel's in-kernel raygen where it
+    covers the frame, else from the tiled camera rays through
+    ``bounce_loop``."""
+    if not enable_refraction and rf.fused_path_available(
+        scene, reference_parity, integer_colors
+    ):
+        result, (trows, tiles_x, tiles_y) = rf.render_fused_camera(
+            scene, frame, width, height, bounces, enable_shadows=enable_shadows,
+            gi_seed=gi_seed if enable_gi else None,
+        )
+        return result, ("strip", trows, tiles_x, tiles_y)
+    trows = rf.tile_rows(width * height)
+    tiles_x = -(-width // 128)
+    tiles_y = -(-height // trows)
+    dev = scene.device
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
+    dirs = ray_directions_tiled(
+        f32(frame.inverse_view), f32(frame.inverse_projection), width, height, trows
+    )  # [3, tiles_y * tiles_x * trows, 128]
+    origin = f32(frame.camera_position)[:, None, None].expand(dirs.shape)
+    result = bounce_loop(
+        scene, origin, dirs, f32(frame.sun_angle), bounces, trace,
+        reference_parity, integer_colors, enable_shadows, enable_refraction,
+        refraction_ior, enable_gi, gi_seed,
     )
     return result, ("strip", trows, tiles_x, tiles_y)
 
@@ -112,14 +125,19 @@ def trace_image(
     width: int,
     height: int,
     bounces: int = 2,
+    reference_parity: bool = True,
+    integer_colors: bool = True,
     enable_shadows: bool = False,
+    enable_refraction: bool = False,
+    refraction_ior: float = 1.45,
     enable_gi: bool = False,
     gi_seed: int = 0,
 ) -> torch.Tensor:
     """Linear [H, W, 3] radiance before post-processing (render.py:373 of
-    the JAX package, its fused branch)."""
+    the JAX package)."""
     result, layout = _trace_tiled(
-        scene, frame, width, height, bounces, enable_shadows, enable_gi, gi_seed
+        scene, frame, width, height, bounces, reference_parity, integer_colors,
+        enable_shadows, enable_refraction, refraction_ior, enable_gi, gi_seed,
     )
     return _untile(result, layout, height, width).permute(1, 2, 0)
 
@@ -176,11 +194,16 @@ def render_frame(
     dev = resolve_device(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene is on {scene.device}, frame asked for {dev}")
-    why = _unsupported(scene, config)
+    why = _unsupported(scene)
     if why is not None:
         raise NotImplementedError(f"render_frame: {why} is not ported yet")
     opts = dict(
-        bounces=config.bounces, enable_shadows=config.enable_shadows,
+        bounces=config.bounces,
+        reference_parity=config.reference_parity_shading,
+        integer_colors=config.integer_colors,
+        enable_shadows=config.enable_shadows,
+        enable_refraction=config.enable_refraction,
+        refraction_ior=config.refraction_ior,
         enable_gi=config.enable_gi,
     )
     w, h = config.width, config.height
@@ -198,10 +221,8 @@ def render_frame(
             img = post_process(img, enable_fxaa=config.enable_fxaa)
         return img
     if config.enable_post and not config.enable_fxaa:
-        # the post chain on the kernel's tile layout: one relayout a frame
-        result, layout = _trace_tiled(
-            scene, frame, w, h, gi_seed=config.gi_seed, **opts
-        )
+        # the post chain on the tile layout: one relayout a frame
+        result, layout = _trace_tiled(scene, frame, w, h, gi_seed=config.gi_seed, **opts)
         result = post_process_tiled(result, w, h, layout)
         return _untile(result, layout, h, w).permute(1, 2, 0)
     img = trace_image(scene, frame, w, h, gi_seed=config.gi_seed, **opts)
@@ -217,6 +238,13 @@ def trace_planar(
     sun_angle: torch.Tensor,  # [] f32
     bounces: int,
     tracer: Tracer,
+    reference_parity: bool,
+    integer_colors: bool,
+    enable_shadows: bool = False,
+    enable_refraction: bool = False,
+    refraction_ior: float = 1.45,
+    enable_gi: bool = False,
+    gi_seed: int = 0,
 ) -> torch.Tensor:
     """N-bounce trace + shade over planar rays → [3, *spatial] radiance.
     The loop runs on ``[3, rows, 128]`` rays padded to a whole strip of
@@ -240,7 +268,8 @@ def trace_planar(
 
     result = bounce_loop(
         scene, to_linear(origin, 0.0), to_linear(direction, 1.0), sun_angle,
-        bounces, tracer,
+        bounces, tracer, reference_parity, integer_colors, enable_shadows,
+        enable_refraction, refraction_ior, enable_gi, gi_seed,
     )
     return result.reshape(3, -1)[:, :n].reshape((3,) + spatial)
 
@@ -252,32 +281,79 @@ def bounce_loop(
     sun_angle: torch.Tensor,
     bounces: int,
     tracer: Tracer,
+    reference_parity: bool,
+    integer_colors: bool,
+    enable_shadows: bool = False,
+    enable_refraction: bool = False,
+    refraction_ior: float = 1.45,
+    enable_gi: bool = False,
+    gi_seed: int = 0,
 ) -> torch.Tensor:
-    """The two-phase bounce loop (render.py:155 of the JAX package): trace,
-    then shade, per bounce. Bounce 0 traces every ray; later bounces pass
-    the alive mask, so dead lanes cost no traversal. Imported-texture
-    scenes gather every bounce's texels in one combined gather after the
-    loop (render.py:306-325)."""
+    """The N-bounce trace + shade core over ray-linear rays (render.py:155
+    of the JAX package) → [3, rows, 128] radiance.
+
+    With K2.1's tracer (``ops.trace.trace``) and a frame the fused kernel
+    covers (``render_fused.fused_path_available``, no refraction) the whole
+    loop is one launch of K2.2 in ray mode. The JAX package's
+    ``fused_path_preferred`` picks the two-phase path for some streamed
+    scenes, a choice between TPU table layouts; this port has no streamed
+    tables, so the fused kernel is always preferred where it is available.
+
+    Otherwise, two phases per bounce: trace (bounce 0 every ray, later
+    bounces with the alive mask, so dead lanes cost no walk) and
+    ``shade_hits``; the sun-shadow ray of bounce 0 goes through the same
+    tracer. The float path of imported-texture scenes (reference parity,
+    no refraction) gathers every bounce's texels in one combined gather
+    after the loop (render.py:306-325)."""
+    if tracer is trace and not enable_refraction and rf.fused_path_available(
+        scene, reference_parity, integer_colors
+    ):
+        return rf.render_fused(
+            scene, origin, direction, sun_angle, bounces,
+            enable_shadows=enable_shadows, gi_seed=gi_seed if enable_gi else None,
+        )
     state = initial_bounce_state(origin, direction, sun_angle)
-    defer_list: list | None = [] if _DEFER_TEXELS else None
+    defer_list: list | None = (
+        [] if _DEFER_TEXELS and not integer_colors and reference_parity
+        and not enable_refraction else None
+    )
+    ray_index = None
+    if enable_gi:
+        ray_index = torch.arange(origin[0].numel(), device=origin.device).reshape(
+            origin.shape[1:])
+        seeds = rng.gi_seed_rows(gi_seed, bounces)
     for b in range(bounces):
         if b == 0:
             hit = tracer(scene, state.origin, state.direction)
         else:
             hit = tracer(scene, state.origin, state.direction, live=state.alive)
+        attrs = None
+        if hit.attr_normal is not None:
+            attrs = (hit.attr_normal, hit.attr_uu, hit.attr_vv, hit.attr_mat)
+        # one decorrelated stream per ray per bounce: wang_hash(i * 9999 +
+        # 1 + seed * 7919 + b * 1237) of the ray-linear index
+        gi_state = None if ray_index is None else rng.ray_streams(ray_index, seeds[b])
         state = shade_hits(
-            scene, state, t=hit.t, hit=hit.hit, instance_idx=hit.instance,
-            attrs=(hit.attr_normal, hit.attr_uu, hit.attr_vv, hit.attr_mat),
-            deferred=defer_list,
+            scene, state, t=hit.t, u=hit.u, v=hit.v, tri_idx=hit.tri,
+            instance_idx=hit.instance, hit=hit.hit,
+            reference_parity=reference_parity, integer_colors=integer_colors,
+            attrs=attrs, shadow_tracer=tracer if enable_shadows and b == 0 else None,
+            enable_refraction=enable_refraction, refraction_ior=refraction_ior,
+            gi_state=gi_state, deferred=defer_list,
         )
     if not defer_list:
         return state.result
     idx_all = torch.stack([d[0] for d in defer_list])  # [B, rows, 128]
     tex_all = gather.take_rgb(scene.atlas.texels, idx_all)  # [3, B, rows, 128]
     res = state.result
-    for b, (_idx, f1, f2) in enumerate(defer_list):
+    prod = None  # the GI colour product (1 on the mirror path)
+    for b, (_idx, f1, f2, alb_p, live_b) in enumerate(defer_list):
         tx = tex_all[:, b]
-        res = res + tx * f1 + tx * f2
+        e = f1 if prod is None else f1 * prod
+        res = res + tx * e + tx * f2
+        if alb_p is not None:
+            base = torch.ones_like(tx) if prod is None else prod
+            prod = torch.where(live_b[None], base * (tx * alb_p), base)
     return res
 
 

@@ -75,6 +75,7 @@ class RenderParamsC(ctypes.Structure):
         ("shadows", ctypes.c_int),
         ("gi", ctypes.c_int),
         ("gi_base", ctypes.c_uint),
+        ("rays", ctypes.c_void_p),
     ]
 
 

@@ -578,3 +578,132 @@ def test_render_kernel_refuses_unknown_atlas_mode_on_card():
     with pytest.raises(ValueError):
         rf.render_cuda(*args, atlas_mode=3)
     assert rf.render_cuda.launches == before
+
+
+#: K2.2's ray-mode instantiations: (scene of chip_smoke's option_scene,
+#: shadows, GI seed or None), atlas modes 0, 1 and 2 each with every option
+RAY_CASES = [(spec, sh, gi) for spec in ("sphere", "atlas", "atlas65")
+             for sh in (False, True) for gi in (None, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,shadows,gi_seed", RAY_CASES)
+def test_ray_mode_matches_plain_and_camera_mode_on_card(spec, shadows, gi_seed):
+    """Each ray-mode instantiation of K2.2: on rays whose origins and
+    directions differ lane by lane (chip_smoke's jittered camera rays)
+    against render_fused_plain on the same rays (pool indices exact, other
+    planes within 1e-5 on all but FRAME_MISMATCH_MAX rays); on the
+    camera's own tiled rays bit for bit equal to the camera-mode launch."""
+    from chip_smoke import (
+        camera_rays, compare_options, jittered_rays, option_args, option_frame, option_scene,
+    )
+
+    dev = _card()
+    scene = option_scene(spec, device=dev)
+    mode = rf.atlas_mode_of(scene)
+    frame = option_frame(spec, W, H)
+    args = option_args(scene, frame, W, H)
+    opts = dict(atlas_mode=mode, shadows=shadows, gi_seed=gi_seed)
+    rays, _ = camera_rays(W, H, dev, frame)
+    before = dict(rf.render_cuda.variant_launches)
+    cam = rf.render_cuda(*args, **opts)
+    same = rf.render_cuda(*args, rays=rays, **opts)
+    jr = jittered_rays(rays, 11)
+    got = rf.render_cuda(*args, rays=jr, **opts)
+    ref = rf.render_fused_plain(*args, dev, rays=jr, **opts)
+    torch.cuda.synchronize()
+    name = rf.variant(mode, shadows, gi_seed is not None, True)
+    assert rf.render_cuda.variant_launches[name] == before.get(name, 0) + 2
+    assert torch.equal(same.view(torch.int32), cam.view(torch.int32))
+    case = compare_options(got, ref, mode, gi_seed is not None)
+    assert case["ok"], case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 4000, 12345])
+def test_ray_mode_ragged_last_warp_on_card(n):
+    """n rays, not a multiple of 32 * 4: the launch's last warps hold lanes
+    past n, which walk as dead rays and write nothing; the n columns equal
+    the plain version's and the first n of a launch on the rays padded to
+    whole rows."""
+    from chip_smoke import (
+        camera_rays, compare_options, option_args, option_frame, option_scene,
+    )
+
+    dev = _card()
+    scene = option_scene("ground", device=dev)
+    frame = option_frame("ground", W, H)
+    rays, _ = camera_rays(W, H, dev, frame)
+    rays = rays[:, :n].contiguous()
+    rows = -(-n // 128)
+    kt, ft, cr = option_args(scene, frame, W, H)[:3]
+    args = (kt, ft, cr, W, H, rows, rows, 2)
+    opts = dict(shadows=True, gi_seed=3)
+    got = rf.render_cuda(*args, rays=rays, **opts)
+    ref = rf.render_fused_plain(*args, dev, rays=rays, **opts)
+    padded = torch.cat([rays, torch.zeros(6, rows * 128 - n, device=dev)], 1).contiguous()
+    full = rf.render_cuda(*args, rays=padded, **opts)
+    torch.cuda.synchronize()
+    assert got.shape == (9, n)
+    assert compare_options(got, ref, 0, True)["ok"]
+    assert torch.equal(got, full[:, :n])
+
+
+@pytest.mark.cuda
+def test_trace_planar_launches_one_ray_mode_kernel_on_card():
+    """render.trace_planar with K2.1's tracer and integer colours: one
+    launch of K2.2 in ray mode and no K2.1; with float colours the
+    two-phase path: two K2.1 launches and no K2.2. Both finite, and the
+    ray-mode image against the CPU's (plain versions) on at least 99% of
+    pixels within 1e-5 (the sky's atan2/acos may round apart between the
+    two devices)."""
+    from clraytracer_tpu_torch.camera import ray_directions_planar
+
+    dev = _card()
+    gpu, cpu = build_scene("sphere", device=dev), build_scene("sphere", device="cpu")
+    cam = Camera.create(CAMERA, W, H)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    d = ray_directions_planar(f32(cam.inverse_view), f32(cam.inverse_projection), W, H)
+    o = f32(cam.position)[:, None, None].expand_as(d)
+    sun = torch.tensor(-1.96, device=dev)
+    before = (rf.render_cuda.launches, tr.trace_cuda.launches,
+              rf.render_cuda.variant_launches.get("rays", 0))
+    img = trender.trace_planar(gpu, o, d, sun, 2, tr.trace, True, True)
+    torch.cuda.synchronize()
+    after = (rf.render_cuda.launches, tr.trace_cuda.launches,
+             rf.render_cuda.variant_launches.get("rays", 0))
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 1)
+    ref = trender.trace_planar(cpu, o.cpu(), d.cpu(), sun.cpu(), 2, tr.trace, True, True)
+    assert torch.isfinite(img).all()
+    assert ((img.cpu() - ref).abs() <= 1e-5).all(dim=0).double().mean() >= 0.99
+    before = (rf.render_cuda.launches, tr.trace_cuda.launches)
+    img = trender.trace_planar(gpu, o, d, sun, 2, tr.trace, True, False)
+    torch.cuda.synchronize()
+    assert (rf.render_cuda.launches - before[0], tr.trace_cuda.launches - before[1]) == (0, 2)
+    assert torch.isfinite(img).all()
+
+
+@pytest.mark.cuda
+def test_render_frame_two_phase_on_card_matches_cpu():
+    """render_frame on the two-phase path on the card (refraction; float
+    colours with shadows; material shading): K2.1 per bounce and shadow
+    ray, no K2.2, the image against the CPU's on at least 99% of pixels
+    within 1e-5."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    for spec, kw, k21 in (("glass", dict(enable_refraction=True), 2),
+                          ("ground", dict(integer_colors=False, enable_shadows=True), 3),
+                          ("sphere", dict(reference_parity_shading=False), 2)):
+        cfg = RenderConfig(width=W, height=H, **kw)
+        frame = option_frame(spec, W, H)
+        img_c = trender.render_frame(option_scene(spec, device="cpu"), frame, cfg,
+                                     device="cpu")
+        scene = option_scene(spec, device=dev)
+        before = (rf.render_cuda.launches, tr.trace_cuda.launches)
+        img_g = trender.render_frame(scene, frame, cfg)
+        torch.cuda.synchronize()
+        assert (rf.render_cuda.launches - before[0], tr.trace_cuda.launches - before[1]) == (
+            0, k21), spec
+        close = ((img_g.cpu() - img_c).abs() <= 1e-5).all(dim=-1).double().mean()
+        assert close >= 0.99, (spec, float(close))

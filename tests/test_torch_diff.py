@@ -59,16 +59,18 @@ def _port(jscene):
 _JAX_REFS: dict = {}
 
 
-def _jax_ref(name, request):
+def _jax_ref(name, request, **render_kw):
     """(image, {key: gradient}) of the JAX step with loss sum(img * weights),
-    one jitted VJP per scene, kept for the module."""
-    if name not in _JAX_REFS:
+    one jitted VJP per scene and ``render_image_diff`` keywords, kept for
+    the module."""
+    key = (name, tuple(sorted(render_kw.items())))
+    if key not in _JAX_REFS:
         jscene = request.getfixturevalue(name)
         frame = j_frame_inputs(JCamera.create(JCameraConfig(position=CAMERA), W, H), -1.96)
 
         @jax.jit
         def step(s, w):
-            img, vjp = jax.vjp(lambda q: j_render_diff(q, frame, W, H), s)
+            img, vjp = jax.vjp(lambda q: j_render_diff(q, frame, W, H, **render_kw), s)
             return img, vjp(w)[0]
 
         img, g = step(jscene, jnp.asarray(_weights()))
@@ -81,25 +83,25 @@ def _jax_ref(name, request):
                 v = getattr(group, leaf.name)
                 if hasattr(v, "dtype") and jnp.issubdtype(v.dtype, jnp.floating):
                     grads[f"{f.name}.{leaf.name}"] = np.asarray(v)
-        _JAX_REFS[name] = (np.asarray(img), grads)
-    return _JAX_REFS[name]
+        _JAX_REFS[key] = (np.asarray(img), grads)
+    return _JAX_REFS[key]
 
 
-def _port_loss_grads(scene, weights=None, w=W, h=H):
+def _port_loss_grads(scene, weights=None, w=W, h=H, **render_kw):
     wt = torch.from_numpy(_weights(h, w) if weights is None else weights)
     return tdiff.image_loss_and_grads(
         scene, _port_frame(w, h), w, h,
-        loss_fn=lambda img: torch.sum(img * wt), device="cpu",
+        loss_fn=lambda img: torch.sum(img * wt), device="cpu", **render_kw,
     )
 
 
-@pytest.mark.parametrize("name", SCENES)
-def test_render_image_diff_matches_jax(name, request):
+def assert_image_matches_jax(name, request, **render_kw):
     """At least 99% of pixels within 1e-5 (the seam-tie allowance of
     tests/test_torch_render.py)."""
-    ref, _ = _jax_ref(name, request)
+    ref, _ = _jax_ref(name, request, **render_kw)
     got = tdiff.render_image_diff(
-        _port(request.getfixturevalue(name)), _port_frame(), W, H, device="cpu"
+        _port(request.getfixturevalue(name)), _port_frame(), W, H, device="cpu",
+        **render_kw,
     ).detach().numpy()
     assert got.shape == ref.shape == (H, W, 3)
     assert np.isfinite(got).all()
@@ -108,15 +110,14 @@ def test_render_image_diff_matches_jax(name, request):
     assert bad.mean() <= 0.01
 
 
-@pytest.mark.parametrize("name", SCENES)
-def test_image_loss_and_grads_match_jax(name, request):
+def assert_grads_match_jax(name, request, **render_kw):
     """Every floating leaf: same key, shape and dtype (f16 leaves get f16
     gradients). Aggregated leaves agree to rtol 1e-3; per-row leaves have
     >= 99% of rows within 1e-3 |g| + 1e-4 max |g_jax| (sums over pixels in
     another order, and seam ties may move a pixel to a neighbouring
     triangle); leaves the step does not read are zero in both."""
-    _, ref = _jax_ref(name, request)
-    _, got = _port_loss_grads(_port(request.getfixturevalue(name)))
+    _, ref = _jax_ref(name, request, **render_kw)
+    _, got = _port_loss_grads(_port(request.getfixturevalue(name)), **render_kw)
     assert set(got) == set(ref)
     for key, g in got.items():
         a, b = ref[key], g.numpy()
@@ -137,6 +138,25 @@ def test_image_loss_and_grads_match_jax(name, request):
         assert np.abs(ref[key]).max() > 0.0 and got[key].abs().max() > 0.0, key
     if name == "sphere_scene":  # imported textures: texel gradients
         assert got["atlas.texels"].abs().max() > 0.0
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_render_image_diff_matches_jax(name, request):
+    assert_image_matches_jax(name, request)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_image_loss_and_grads_match_jax(name, request):
+    assert_grads_match_jax(name, request)
+
+
+def test_material_shading_image_and_grads_match_jax(request):
+    """``reference_parity=False``: the materials' specular texture and
+    colour, roughness and shininess (``_pow_fast``) shade, on the float
+    path, with gradients into them; the imported-texture sphere samples
+    its specular texture from the pool."""
+    assert_image_matches_jax("sphere_scene", request, reference_parity=False)
+    assert_grads_match_jax("sphere_scene", request, reference_parity=False)
 
 
 def test_planar_rays_and_shading_tables_match_jax(sphere_scene):

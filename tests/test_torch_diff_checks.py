@@ -1,7 +1,7 @@
 """The port's own checks of its differentiable step, on the CPU: finite
 differences of albedo, texel and vertex gradients (as tests/test_diff.py
 checks the JAX package's), the deferred texel gather against per-bounce
-gathers, the ``fit`` CLI, and the options it does not port."""
+gathers, the ``fit`` CLI, and the post chain on the differentiable image."""
 
 import dataclasses
 
@@ -13,7 +13,14 @@ from clraytracer_tpu_torch import diff as tdiff
 from clraytracer_tpu_torch import render as trender
 from clraytracer_tpu_torch.ops import gather_rows
 from clraytracer_tpu_torch.ops import trace as ttrace
-from test_torch_diff import _port, _port_frame, _port_loss_grads, _weights
+from test_torch_diff import (
+    _port,
+    _port_frame,
+    _port_loss_grads,
+    _weights,
+    assert_grads_match_jax,
+    assert_image_matches_jax,
+)
 
 
 @pytest.fixture(scope="module")
@@ -135,11 +142,32 @@ def test_fit_texels_of_procedural_scene_raises():
         fit(scene, _port_frame(8, 8), 8, 8, param="texels", steps=1, device="cpu")
 
 
-def test_unported_options_raise(procedural_scene):
-    scene = _port(procedural_scene)
-    with pytest.raises(NotImplementedError):
-        tdiff.render_image_diff(scene, _port_frame(8, 8), 8, 8, enable_post=True,
-                                device="cpu")
+def test_unported_options_raise(request):
+    """``enable_post``, refused before: the post chain on the differentiable
+    image, held against the JAX image and its gradients at 32x24
+    (tests/test_torch_diff.py's rules)."""
+    assert_image_matches_jax("sphere_scene", request, enable_post=True)
+    assert_grads_match_jax("sphere_scene", request, enable_post=True)
+
+
+def test_fit_cli_writes_initial_and_fitted_renders(tmp_path, capsys):
+    """``fit -o out.png`` writes the initial guess's render as
+    ``out_init.png`` before the steps, then the fitted one (the JAX
+    cmd_fit, cli.py:291-294): two PNGs of the frame's size that differ."""
+    from clraytracer_tpu_torch.cli import main
+
+    out = tmp_path / "out.png"
+    argv = ["fit", "--scene", "two", "--width", "16", "--height", "12", "--steps", "3",
+            "--lr", "0.08", "--device", "cpu", "-o", str(out)]
+    assert main(argv) == 0
+    capsys.readouterr()
+    init = tmp_path / "out_init.png"
+    for png in (init, out):
+        data = png.read_bytes()
+        assert data[:8] == b"\x89PNG\r\n\x1a\n"
+        assert int.from_bytes(data[16:20], "big") == 16
+        assert int.from_bytes(data[20:24], "big") == 12
+    assert init.read_bytes() != out.read_bytes()
 
 
 def test_cpu_step_launches_no_kernel(procedural_scene):

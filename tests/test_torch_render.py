@@ -1,8 +1,9 @@
 """The port's frame (plain versions, on the CPU) against the JAX
 ``render_frame`` on the same scene and camera; the post chain against the
-JAX post chain; the options the port does not render yet; and that the
-port loads neither JAX nor the JAX package. The other options are held
-against JAX in tests/test_torch_options.py."""
+JAX post chain; the options this package once refused (the two-phase
+path) against the JAX frame; and that the port loads neither JAX nor the
+JAX package. The other options are held against JAX in
+tests/test_torch_options.py and tests/test_torch_twophase.py."""
 
 import os
 import subprocess
@@ -83,6 +84,25 @@ def test_post_process_tiled_matches_jax():
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
 
 
+def _jax_brute_frame(jscene, w, h, **cfg):
+    """The JAX ``render_frame`` through its golden tracer (every triangle
+    against every ray, on its two-phase path)."""
+    from clraytracer_tpu.ops.trace_ref import trace_brute
+
+    jcam = JCamera.create(JCameraConfig(**CAMERA), w, h)
+    return np.asarray(j_render_frame(
+        jscene, j_frame_inputs(jcam, -1.96), JRenderConfig(width=w, height=h, **cfg),
+        tracer=trace_brute,
+    ))
+
+
+def _assert_close_frames(got, ref, label):
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    bad = (np.abs(got - ref) > 1e-5).any(axis=-1)
+    print(f"{label}: {int(bad.sum())} of {bad.size} pixels differ by > 1e-5")
+    assert bad.mean() <= 0.01
+
+
 @pytest.mark.parametrize(
     "option",
     [
@@ -92,23 +112,42 @@ def test_post_process_tiled_matches_jax():
     ],
     ids=lambda o: next(iter(o)),
 )
-def test_unported_options_raise(option, port_procedural):
-    with pytest.raises(NotImplementedError):
-        _port_frame(port_procedural, 8, 8, **option)
+def test_unported_options_raise(option, procedural_scene, port_procedural):
+    """The options this package refused before it took the two-phase path
+    (K2.1 per bounce, shading in torch) now render, as the JAX
+    ``render_frame`` does with the same option: at least 99% of pixels
+    within 1e-5, at 32x24."""
+    ref = _jax_brute_frame(procedural_scene, 32, 24, **option)
+    got = _port_frame(port_procedural, 32, 24, **option).numpy()
+    _assert_close_frames(got, ref, next(iter(option)))
 
 
 def test_too_many_materials_raise():
-    from clraytracer_tpu_torch.scene import SceneBuilder
-    from clraytracer_tpu_torch.scene.procedural import cube
+    """An all-procedural scene of more materials than the fused kernel
+    reads rows for, refused before the two-phase path: it renders as the
+    JAX ``render_frame`` does (at least 99% of pixels within 1e-5)."""
+    from clraytracer_tpu.scene import SceneBuilder as JSceneBuilder
+    from clraytracer_tpu.scene.procedural import cube as jcube
 
-    b = SceneBuilder()
+    b = JSceneBuilder()
     for _ in range(render_fused.MAX_FUSED_MATERIALS):
         b.create_material()
-    b.add_instance(b.add_mesh(cube(1.0)))
-    scene = b.build(device="cpu")
+    b.add_instance(b.add_mesh(jcube(1.0)))
+    jscene = b.build()
+    scene = scene_from_numpy(*flatten(jscene), device="cpu")
     assert scene.materials.count > render_fused.MAX_FUSED_MATERIALS
+    assert not render_fused.fused_path_available(scene, True, True)
+    got = _port_frame(scene, 32, 24).numpy()
+    _assert_close_frames(got, _jax_brute_frame(jscene, 32, 24), "65 materials")
+
+
+def test_scene_without_tables_raises(port_procedural):
+    """Both paths read the cluster and packed tables: a scene built without
+    them is the one frame still refused."""
+    import dataclasses
+
     with pytest.raises(NotImplementedError):
-        _port_frame(scene, 8, 8)
+        _port_frame(dataclasses.replace(port_procedural, clusters=None), 8, 8)
 
 
 def test_cpu_frame_launches_no_kernel(port_procedural, two_instance_scene):
@@ -140,6 +179,17 @@ def test_port_imports_no_jax():
         "img = render(s, cam, RenderConfig(width=32, height=24, enable_shadows=True,\n"
         "             enable_gi=True, samples=2, enable_fxaa=True), device='cpu')\n"
         "assert img.shape == (24, 32, 3), img.shape\n"
+        "img = render(s, cam, RenderConfig(width=32, height=24, enable_refraction=True,\n"
+        "             integer_colors=False, reference_parity_shading=False,\n"
+        "             enable_shadows=True), device='cpu')\n"
+        "assert img.shape == (24, 32, 3), img.shape\n"
+        "import torch\n"
+        "from clraytracer_tpu_torch.ops.trace import trace\n"
+        "from clraytracer_tpu_torch.render import trace_planar\n"
+        "o = torch.tensor([0.1, 0.2, 9.0]).reshape(3, 1).expand(3, 300).contiguous()\n"
+        "d = torch.nn.functional.normalize(torch.randn(3, 300) * 0.2\n"
+        "    + torch.tensor([0.0, 0.0, -1.0])[:, None], dim=0)\n"
+        "assert trace_planar(s, o, d, torch.tensor(-1.96), 2, trace, True, True).shape == (3, 300)\n"
         "from clraytracer_tpu_torch.diff import image_loss_and_grads\n"
         "from clraytracer_tpu_torch.render import frame_inputs_from_camera\n"
         "from clraytracer_tpu_torch import cli\n"

@@ -126,14 +126,17 @@ def test_chip_smoke_bound_splits_the_shadow_walk():
     assert "bound_ms_nearest_hit_shadow_counts" not in plain
     assert "shadow_walk_counts" not in plain
     regs = cs.k22_registers([
-        {"kernel": "_Z13render_kernelILi0ELb0EEv11SceneTables12RenderParamsPfPy",
+        {"kernel": "_Z13render_kernelILi0ELb0ELb0EEv11SceneTables12RenderParamsPfPy",
          "registers": 126, "spill_stores": 0, "spill_loads": 0},
-        {"kernel": "_Z20render_shadow_kernelILi2ELb1EEv11SceneTables12RenderParamsPfPyS2_",
+        {"kernel": "_Z20render_shadow_kernelILi2ELb1ELb0EEv11SceneTables12RenderParamsPfPyS2_",
          "registers": 140, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "_Z13render_kernelILi1ELb0ELb1EEv11SceneTables12RenderParamsPfPy",
+         "registers": 127, "spill_stores": 4, "spill_loads": 4},
     ])
     assert regs == {"default": {"registers": 126, "spill_stores": 0, "spill_loads": 0},
                     "atlas2+shadows+gi": {"registers": 140, "spill_stores": 0,
-                                          "spill_loads": 0}}
+                                          "spill_loads": 0},
+                    "rays+atlas1": {"registers": 127, "spill_stores": 4, "spill_loads": 4}}
 
 
 def test_render_cuda_refuses_bad_shadow_counters_and_launches_nothing_on_cpu():
