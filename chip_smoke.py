@@ -7,10 +7,13 @@ holds each kernel against its plain PyTorch version on the card, drives the
 main paths (``render.render_frame``: the default frame on three scenes,
 the fused frame's options on six more cells and the two-phase path on
 four; ``render.trace_planar`` through K2.2's ray mode;
+``render_fused_camera(split_rebin=True)`` through K2.2's carry on four;
 ``diff.image_loss_and_grads``, the differentiable step) and prints one
 JSON line per phase:
 
-1. device: card name and power limit, torch/CUDA versions, build seconds
+1. device: card name and power limit, torch/CUDA versions, build seconds,
+   registers and spills per kernel and per K2.2 instantiation (the carry's
+   three included)
 2. trace: K2.1 vs ``trace_plain`` on ``two`` (320x240 camera rays + 4096
    seeded random rays), with and without a live mask, and ``return_slots``
 3. fused: K2.2 vs ``render_fused_plain`` on ``two`` and ``sphere`` at
@@ -21,7 +24,9 @@ JSON line per phase:
    exact, at most FRAME_MISMATCH_MAX rays over 1e-5, GI included); every
    ray-mode instantiation on the camera's tiled rays bit for bit equal to
    camera mode, and on rays with their own origins and directions
-   (``jittered_rays``) vs its plain version on the same rays
+   (``jittered_rays``) vs its plain version on the same rays; the carry's
+   instantiations (carry-out without and with shadows, carry-in on the
+   rows the re-bin gives, over 1 and 2 bounces) vs their plain versions
 4. main path: ``render.render_frame`` on (a) ``sphere`` 4224 tris at
    1920x1080, (b) ``two`` at 1249x720, (c) ``sphere --tris 1000000`` at
    1920x1080; frame ms (CUDA events, median of 20 after 3 warm-ups),
@@ -56,7 +61,15 @@ JSON line per phase:
    ``render.trace_planar`` on (a)'s scene and 1920x1080 camera rays with
    integer colours: one K2.2 ray-mode launch per call and no K2.1, the
    launch against its plain version on the same rays (and with GI), its
-   ms, counters and bound
+   ms, counters and bound. Then (s) ``render_fused_camera(split_rebin=
+   True)`` at 1920x1080 on (a)'s and (c)'s spheres and (k)'s ground
+   without (k0) and with shadows: two K2.2 launches per frame (carry-out,
+   carry-in) and no K2.1 (counts from zero), the split and the unsplit
+   frame in turns, each launch's ms and device ms, the re-bin glue's ms,
+   the carry-in launch's counters beside the unsplit frame's bounce-1
+   share, the rays that differ from the unsplit frame (at most
+   FRAME_MISMATCH_MAX), both launches against their plain versions (on a
+   band above PLAIN_FULL_MAX_TRIS triangles) and their bounds
 5. profile: torch.profiler over 10 frames of (a), device time by kernel
    and the device's idle share against (a)'s unprofiled frame time
 6. diff: the differentiable step ``diff.image_loss_and_grads``.
@@ -84,7 +97,9 @@ JSON line per phase:
    one entry per K2.2 instantiation of the option cells, its bound
    counting its deferred planes and its shading; K2.1 on the two-phase
    path (timed at (o)'s shadow rays) and K2.2 in ray mode (at (r)'s rays,
-   its bound counting its 24 bytes of input a ray)
+   its bound counting its 24 bytes of input a ray); the carry-out (76
+   bytes out a ray), carry-out with shadows and carry-in (112 bytes a ray:
+   rays and carry in, 9 planes out) instantiations at (s)'s shapes
 
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
@@ -135,6 +150,8 @@ GI_OPS = 86
 # by (kernel, configuration, triangles). The phase lines print the bound
 # they give beside this run's, so a walk that needs more tests than the one
 # it replaced shows there; the kernels line holds only this run's numbers.
+# Their triangle tests count all 32 slots of a cluster, padding included,
+# as the counter did then; this run's count only the real slots.
 PER_RAY_WALK_COUNTS = {
     ("K2.2", "a", 4224): (22337367, 14502656, 2179137, 90177),
     ("K2.2", "b", 2220): (5273356, 3669472, 2042510, 48010),
@@ -143,8 +160,9 @@ PER_RAY_WALK_COUNTS = {
 }
 # The same four counts of (k)'s frame when its shadow ray walked as a
 # nearest-hit ray (both walks together; this script on an NVIDIA H100 80GB
-# HBM3, 700 W, before the any-hit walk). Cell (k)'s line prints the bound
-# they give beside this run's; the kernels line holds only this run's.
+# HBM3, 700 W, before the any-hit walk; padding slots counted as above).
+# Cell (k)'s line prints the bound they give beside this run's; the
+# kernels line holds only this run's.
 NEAREST_SHADOW_WALK_COUNTS = {
     ("K2.2", "k", 198): (13536618, 48518176, 9232436, 1304787),
 }
@@ -200,6 +218,16 @@ TWO_PHASE_CELLS = (
 # (r): render.trace_planar with K2.1's tracer and integer colours on (a)'s
 # scene and the camera's [3, H, W] rays: one launch of K2.2 in ray mode
 RAY_CELL = ("r", "sphere", 4096, 1920, 1080)
+# (s): ops.render_fused.render_fused_camera(split_rebin=True), 2 bounces,
+# against the unsplit frame: (tag, scene of ``option_scene``, --tris,
+# width, height, shadows). (a) and (c) as in MAIN, (k0) and (k) (k)'s
+# ground without and with shadows, the mixed-surface procedural class
+SPLIT_CELLS = (
+    ("a", "sphere", 4096, 1920, 1080, False),
+    ("c", "sphere", TRIS_LARGE, 1920, 1080, False),
+    ("k0", "ground", 4096, 1920, 1080, False),
+    ("k", "ground", 4096, 1920, 1080, True),
+)
 # Above this many triangles a cell's plain version runs on a band of
 # CHECK_BAND_ROWS image rows through the middle of the frame, held against
 # those rays of the cell's own launch: its brute force over 1M triangles at
@@ -381,19 +409,22 @@ def ptxas_summary(log: str) -> list:
 
 def k22_registers(entries: list) -> dict:
     """K2.2's ptxas entries (``ptxas_summary`` of render.cu) by
-    instantiation name (``render_fused.variant``, ray mode's with "rays"):
-    registers and spill bytes."""
+    instantiation name (``render_fused.variant``, ray mode's with "rays",
+    the carry's with "carry_out" / "carry_in"): registers and spill bytes.
+    Reads the names with the carry parameter and those before it."""
     import re
 
     from clraytracer_tpu_torch.ops.render_fused import variant
 
     out = {}
     for e in entries:
-        m = re.search(r"(render_kernel|render_shadow_kernel)ILi(\d)ELb(\d)ELb(\d)EE",
-                      e["kernel"])
+        m = re.search(
+            r"(render_kernel|render_shadow_kernel)ILi(\d)ELb(\d)ELb(\d)E(?:Li(\d)E)?E",
+            e["kernel"])
         if m:
+            carry = {None: None, "0": None, "1": "out", "2": "in"}[m.group(5)]
             name = variant(int(m.group(2)), m.group(1) == "render_shadow_kernel",
-                           m.group(3) == "1", m.group(4) == "1")
+                           m.group(3) == "1", m.group(4) == "1", carry)
             out[name] = {k: e.get(k) for k in ("registers", "spill_stores", "spill_loads")}
     return out
 
@@ -754,7 +785,47 @@ def phase_options(dev, results) -> None:
             emit({"phase": "options", **case})
             if not case["ok"]:
                 raise SystemExit("options phase failed (ray mode)")
+    for case in carry_cases(dev):
+        cases.append(case)
+        emit({"phase": "options", **case})
+        if not case["ok"]:
+            raise SystemExit("options phase failed (carry)")
     results["options"] = cases
+
+
+def carry_cases(dev, wh=CHECK_WH) -> list:
+    """The carry instantiations against their plain versions at ``wh``:
+    the carry-out launch (bounce 0, camera mode, 19 planes) without and
+    with shadows, and the carry-in launch (ray mode from global bounce 1)
+    on the rows ``rebin_rows`` re-bins from the plain carry-out's output,
+    so that both versions resume from the same state; the carry-in also
+    over 2 remaining bounces (the atmospheric chain from bounce 1 on)."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import render_fused as rf
+
+    w, h = wh
+    cases = []
+    for spec, sh, rest in (("sphere", False, 2), ("ground", False, 1), ("ground", True, 1)):
+        scene = option_scene(spec, device=dev)
+        args = option_args(scene, option_frame(spec, w, h), w, h, bounces=1)
+        got = rf.render_cuda(*args, carry_out=True, shadows=sh)
+        ref = rf.render_fused_plain(*args, dev, carry_out=True, shadows=sh)
+        torch.cuda.synchronize()
+        cases.append({"scene": spec, "atlas_mode": 0, "shadows": sh, "gi_seed": None,
+                      "sample": None, "variant": rf.variant(0, sh, False, carry="out"),
+                      **compare_options(got, ref, 0, False)})
+        rays, carry, _inv = rf.rebin_rows(ref, args[6])
+        args2 = args[:7] + (rest,)
+        kw = dict(rays=rays, carry=carry, start_bounce=1, shadows=sh)
+        got = rf.render_cuda(*args2, **kw)
+        ref = rf.render_fused_plain(*args2, dev, **kw)
+        torch.cuda.synchronize()
+        cases.append({"scene": spec, "atlas_mode": 0, "shadows": sh, "gi_seed": None,
+                      "sample": None, "variant": rf.variant(0, False, False, True, "in"),
+                      "bounces": rest, "live_rays": int((carry[12] > 0.5).sum()),
+                      **compare_options(got, ref, 0, False)})
+    return cases
 
 
 def jittered_rays(rays, seed: int):
@@ -828,10 +899,11 @@ def band_start(mask, w: int, h: int, trows: int, rows: int) -> int:
 
 
 def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi, key=None,
-                  shadow_counts=None, rays=False) -> dict:
+                  shadow_counts=None, rays=False, carry=None) -> dict:
     """A K2.2 instantiation's bound: the bytes the scene's data needs
     (``walk_bytes``) plus its 9 + K*B output planes (and in ray mode,
-    ``rays``, its 6 input planes), and the operations of this run's counts
+    ``rays``, its 6 input planes; ``carry`` "out": 10 more output planes,
+    "in": 13 more input planes), and the operations of this run's counts
     (the shadow walk's included) with the shading of its atlas mode and GI
     per shaded hit and, in camera mode, the raygen per ray.
     ``shadow_counts``: the shadow walk's own counts, printed apart with the
@@ -841,8 +913,9 @@ def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi, key=Non
     from clraytracer_tpu_torch.ops.render_fused import deferred_planes
     from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
 
-    planes = 9 + deferred_planes(mode, gi) * bounces
-    bytes_moved = walk_bytes(kt, clusters, slots, ft) + (planes + (6 if rays else 0)) * n * 4
+    planes = 9 + deferred_planes(mode, gi) * bounces + (10 if carry == "out" else 0)
+    inputs = (6 if rays else 0) + (13 if carry == "in" else 0)
+    bytes_moved = walk_bytes(kt, clusters, slots, ft) + (planes + inputs) * n * 4
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
 
     def operations(c):
@@ -1243,6 +1316,171 @@ def phase_ray_cell(dev, results) -> None:
     emit(line)
     if not line["ok"]:
         raise SystemExit("ray cell r failed")
+
+
+def split_plain_check(args, first, second, rays, carry, sh, tris: int, dev) -> dict:
+    """The two launches of a split frame against their plain versions on
+    the same inputs, each timed once: the carry-out launch (``args``, one
+    bounce) and the carry-in launch on its re-binned rays and carry. Above
+    PLAIN_FULL_MAX_TRIS triangles on a band of CHECK_BAND_ROWS image rows
+    of the carry-out launch (``band_args``) and on as many rays, the first
+    rows of the carry-in launch, whose live rows the re-bin put first (a
+    ray-mode ray's planes depend on its inputs alone)."""
+    from clraytracer_tpu_torch.ops import render_fused as rf
+
+    _kt, _ft, _cr, w, h, trows, rows_total, _b = args
+    pargs, p_first, what = args, first, f"{w}x{h}"
+    rows2 = rows_total
+    if tris > PLAIN_FULL_MAX_TRIS:
+        y0 = (h - CHECK_BAND_ROWS) // 2
+        pargs = band_args(args, y0, CHECK_BAND_ROWS)
+        p_first = first[:, band_index(w, trows, y0, CHECK_BAND_ROWS, dev)]
+        rows2 = min(rows_total, CHECK_BAND_ROWS * -(-w // 128))
+        what = (f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-{y0 + CHECK_BAND_ROWS - 1}); "
+                f"carry-in on its first {rows2} rows")
+    keep = []
+    out_ms, _ = event_ms(lambda: keep.append(
+        rf.render_fused_plain(*pargs, dev, carry_out=True, shadows=sh)), 1, 0)
+    out_check = compare_options(p_first, keep.pop(), 0, False)
+    n2 = rows2 * 128
+    r2, c2 = rays[:, :n2].contiguous(), carry[:, :n2].contiguous()
+    args2 = args[:6] + (rows2, 1)
+    in_ms, _ = event_ms(lambda: keep.append(rf.render_fused_plain(
+        *args2, dev, rays=r2, carry=c2, start_bounce=1)), 1, 0)
+    in_check = compare_options(second[:, :n2], keep.pop(), 0, False)
+    return {"checked": what, "carry_out": {"plain_ms": out_ms, **out_check},
+            "carry_in": {"plain_ms": in_ms, "rays": n2, **in_check},
+            "ok": out_check["ok"] and in_check["ok"]}
+
+
+def phase_split_cell(dev, results) -> None:
+    """(s) ``render_fused_camera(split_rebin=True)`` at 1920x1080, 2
+    bounces, on SPLIT_CELLS: per scene the split frame's main-path run
+    (counts from zero: per frame one carry-out and one carry-in launch, no
+    K2.1), the split and the unsplit frame timed in turns (unsplit, split,
+    split, unsplit), each launch's call ms and device ms, the re-bin glue's
+    ms (``rebin_rows`` and the inverse row gather; in the first cell
+    torch.profiler over 5 re-bins), the second launch's six
+    counters beside the unsplit frame's bounce-1 share (its counts less
+    its bounce 0 alone), the rays of the split frame that differ from the
+    unsplit frame's (at most FRAME_MISMATCH_MAX over 1e-5), a finite image,
+    both launches against their plain versions (``split_plain_check``) and
+    their bounds."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+    from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
+
+    results["split_cells"] = []
+    for tag, spec, tris, w, h, sh in SPLIT_CELLS:
+        scene = option_scene(spec, tris, device=dev)
+        frame = option_frame(spec, w, h)
+        frame_fn = lambda split: (lambda: rf.render_fused_camera(
+            scene, frame, w, h, 2, enable_shadows=sh, split_rebin=split)[0])
+        split, unsplit = frame_fn(True), frame_fn(False)
+        img = split()  # first frame: tables upload
+        unsplit()
+        torch.cuda.synchronize()
+        # ---- the main path's own run: counts from zero
+        reset_counts()
+        ms, times = event_ms(split, FRAMES, WARMUP)
+        frames = FRAMES + WARMUP
+        counts = read_counts()
+        variants = dict(rf.render_cuda.variant_launches)
+        turns = {}
+        for k, (name, fn) in enumerate((("unsplit", unsplit), ("split", split),
+                                        ("split", split), ("unsplit", unsplit))):
+            turns[f"{k}_{name}_ms"] = event_ms(fn, 10, 2)[0]
+        # ---- the two launches, the glue between them, their counts
+        args1 = option_args(scene, frame, w, h, bounces=1)
+        rows_total = args1[6]
+        n = rows_total * 128
+        c_first = torch.zeros(6, dtype=torch.int64, device=dev)
+        c_second = torch.zeros(6, dtype=torch.int64, device=dev)
+        first = rf.render_cuda(*args1, c_first, carry_out=True, shadows=sh)
+        rays, carry, inv = rf.rebin_rows(first, rows_total)
+        kw2 = dict(rays=rays, carry=carry, start_bounce=1)
+        second = rf.render_cuda(*args1, c_second, **kw2)
+        launch1 = lambda: rf.render_cuda(*args1, carry_out=True, shadows=sh)
+        launch2 = lambda: rf.render_cuda(*args1, **kw2)
+        put_back = lambda: second.reshape(9, rows_total, 128)[:, inv]
+        launches = {
+            "carry_out_ms": event_ms(launch1, 10, 2)[0],
+            "carry_out_device_ms": device_ms(launch1),
+            "carry_in_ms": event_ms(launch2, 10, 2)[0],
+            "carry_in_device_ms": device_ms(launch2),
+            "glue_rebin_ms": event_ms(lambda: rf.rebin_rows(first, rows_total), 10, 2)[0],
+            "glue_put_back_ms": event_ms(put_back, 10, 2)[0],
+        }
+        launches["glue_ms"] = launches["glue_rebin_ms"] + launches["glue_put_back_ms"]
+        glue_profile = None
+        if tag == SPLIT_CELLS[0][0]:  # where the glue's time goes, once
+            glue_profile = device_profile(lambda: rf.rebin_rows(first, rows_total), 5,
+                                          launches["glue_rebin_ms"])
+        # ---- the unsplit launch and its bounce 0 alone: the bounce-1 share
+        args2 = args1[:7] + (2,)
+        c_whole = torch.zeros(6, dtype=torch.int64, device=dev)
+        c_b0 = torch.zeros(6, dtype=torch.int64, device=dev)
+        whole = rf.render_cuda(*args2, c_whole, shadows=sh)
+        rf.render_cuda(*args1, c_b0, shadows=sh)
+        launches["unsplit_ms"] = event_ms(lambda: rf.render_cuda(*args2, shadows=sh), 10, 2)[0]
+        launches["unsplit_device_ms"] = device_ms(lambda: rf.render_cuda(*args2, shadows=sh))
+        split9 = put_back().reshape(9, -1)
+        vs_unsplit = compare_options(split9, whole, 0, False)
+        cw, cb0 = c_whole.cpu().tolist(), c_b0.cpu().tolist()
+        cnt1, cnt2 = c_first.cpu().tolist(), c_second.cpu().tolist()
+        counters = {
+            "carry_out": dict(zip(COUNTER_NAMES, cnt1)),
+            "carry_in": dict(zip(COUNTER_NAMES, cnt2)),
+            "unsplit": dict(zip(COUNTER_NAMES, cw)),
+            "unsplit_bounce0": dict(zip(COUNTER_NAMES, cb0)),
+            "unsplit_bounce1_share": dict(zip(COUNTER_NAMES, (a - b for a, b in zip(cw, cb0)))),
+        }
+        del whole, split9
+        # ---- bounds: bounce 0's winners for the carry-out launch, those of
+        # the carried live rays for the carry-in launch
+        kt, ft = args1[0], args1[1]
+        cam_rays, _cam = camera_rays(w, h, dev, frame)
+        cl1, sl1 = winners(tr.trace_cuda(kt, cam_rays))
+        del cam_rays
+        cl2, sl2 = winners(tr.trace_cuda(kt, rays, (carry[12] > 0.5).float()))
+        bound1 = variant_bound(kt, ft, cnt1, cl1, sl1, n, 1, 0, False, carry="out")
+        bound2 = variant_bound(kt, ft, cnt2, cl2, sl2, n, 1, 0, False, rays=True, carry="in")
+        plain = split_plain_check(args1, first, second, rays, carry, sh,
+                                  int(scene.tris.count), dev)
+        live_rays = int((carry[12] > 0.5).sum())
+        live_rows = int((carry[12].reshape(rows_total, 128).amax(dim=1) > 0.5).sum())
+        del first, second, rays, carry, inv
+        finite = bool(torch.isfinite(img).all()) and tuple(img.shape) == (3, rows_total, 128)
+        torch.cuda.synchronize()
+        out_name = rf.variant(0, sh, False, carry="out")
+        in_name = rf.variant(0, False, False, True, "in")
+        line = {
+            "phase": "split_cell", "config": f"s{tag}", "entry":
+            "ops.render_fused.render_fused_camera(split_rebin=True)", "scene": spec,
+            "triangles": int(scene.tris.count), "width": w, "height": h, "bounces": 2,
+            "shadows": sh, "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
+            "turns": turns, "launches": counts, "frames": frames,
+            "k22_variant_launches": variants, "kernels": launches,
+            "glue_profile": glue_profile, "counters": counters,
+            "live_rows_after_bounce0": live_rows, "live_rays_after_bounce0": live_rays,
+            "vs_unsplit": vs_unsplit, "plain": plain,
+            "carry_out_bound": bound1, "carry_in_bound": bound2,
+            "carry_out_variant": out_name, "carry_in_variant": in_name,
+            "finite": finite, "mean": float(img.mean()),
+        }
+        line["ok"] = (
+            finite and vs_unsplit["ok"] and plain["ok"]
+            and counts == {"K2.1": 0, "K2.2": 2 * frames, "K2.3": 0, "K2.4": 0}
+            and variants == {out_name: frames, in_name: frames}
+        )
+        results["split_cells"].append(line)
+        results["fused_err"] = max(results["fused_err"], plain["carry_out"]["max_abs_err_within"],
+                                   plain["carry_in"]["max_abs_err_within"])
+        emit(line)
+        if not line["ok"]:
+            raise SystemExit(f"split cell s{tag} failed")
 
 
 def check_config(scene, w, h, dev) -> dict:
@@ -1917,6 +2155,7 @@ def phase_kernels(dev, results) -> None:
         },
         *option_kernel_entries(results),
         *twophase_kernel_entries(results),
+        *split_kernel_entries(results),
         *diff_kernel_entries(results),
     ]})
 
@@ -1966,6 +2205,43 @@ def twophase_kernel_entries(results) -> list:
             "shape": f"{r['rays']} rays x2 bounces, {r['scene']} {r['triangles']} tris",
         },
     ]
+
+
+def split_kernel_entries(results) -> list:
+    """The kernels-line entries of the carry instantiations, from (s):
+    carry-out (camera mode, bounce 0) and carry-in (ray mode, from global
+    bounce 1) timed at (sa)'s shapes, carry-out with shadows at (sk)'s;
+    each one's launches in every split cell's main-path run, its error the
+    worst of its plain checks (phase options and (s))."""
+    cells = {c["config"]: c for c in results["split_cells"]}
+    out = []
+    for name, tag, which in (("carry_out", "sa", "carry_out"),
+                             ("carry_out+shadows", "sk", "carry_out"),
+                             ("rays+carry_in", "sa", "carry_in")):
+        c = cells[tag]
+        errs = [o["max_abs_err_within"] for o in results["options"] if o["variant"] == name]
+        errs += [x["plain"][which]["max_abs_err_within"] for x in cells.values()
+                 if x[f"{which}_variant"] == name]
+        b = c[f"{which}_bound"]
+        out.append({
+            "name": f"K2.2 fused frame, {name}", "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/render.cu",
+            "replaces": "clraytracer_tpu/ops/render_pallas.py:109",
+            "entry": ("render_fused_camera(split_rebin=True) "
+                      "(clraytracer_tpu/ops/render_pallas.py:1204, carry :121-123)"),
+            "launches": sum(x["k22_variant_launches"].get(name, 0) for x in cells.values()),
+            "path": "(s) ops.render_fused.render_fused_camera(split_rebin=True)",
+            "max_abs_err": max(errs),
+            "tolerance": f"within 1e-5 on all but {FRAME_MISMATCH_MAX} rays",
+            "ms": c["kernels"][f"{which}_ms"], "device_ms": c["kernels"][f"{which}_device_ms"],
+            "plain_ms": c["plain"][which]["plain_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+            "shape": (f"{c['width']}x{c['height']}, 1 bounce "
+                      f"({'bounce 0' if which == 'carry_out' else 'bounce 1'}), "
+                      f"{c['scene']} {c['triangles']} tris"),
+            "plain_shape": c["plain"]["checked"],
+        })
+    return out
 
 
 def option_kernel_entries(results) -> list:
@@ -2050,7 +2326,8 @@ def main() -> int:
     results["ptxas"] = regs
     # K2.2's default instantiation (atlas mode 0, no GI, no shadows)
     k22_default = [e for e in regs.get("render.cu", [])
-                   if "render_kernelILi0ELb0ELb0EE" in e["kernel"]]
+                   if "render_kernelILi0ELb0ELb0ELi0EE" in e["kernel"]]
+
     emit({
         "phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -2065,6 +2342,7 @@ def main() -> int:
     phase_option_cells(dev, results)
     phase_twophase_cells(dev, results)
     phase_ray_cell(dev, results)
+    phase_split_cell(dev, results)
     phase_profile(dev, results)
     phase_diff(dev, results)
     phase_kernels(dev, results)

@@ -5,7 +5,7 @@
 // Replaces clraytracer_tpu/ops/render_pallas.py:_make_render_kernel
 // (launched by _render_tiles, entries render_fused_camera and
 // render_fused) in both its ray sources, with its options as template
-// parameters (atlas_mode, shadows, gi, rays):
+// parameters (atlas_mode, shadows, gi, rays, carry):
 //  * camera mode: each lane unprojects its pixel (the in-kernel raygen);
 //  * ray mode (the template parameter RAYS, RenderParams::rays given): each
 //    lane reads its origin and direction from six f32 planes [n], ray i
@@ -27,8 +27,18 @@
 //    hit loses dif, spec_s and spec_light (render_pallas.py:476-515);
 //  * gi: Monte-Carlo continuation in a uniform hemisphere direction with
 //    throughput colour * 2 cos(theta) (render_pallas.py:542-604), from a
-//    per-ray Wang-hash/xorshift32 stream seeded by the ray's strip index.
-// Not ported: the split-rebin carry. Every shading formula
+//    per-ray Wang-hash/xorshift32 stream seeded by the ray's strip index;
+//  * carry (render_fused_camera's split_rebin, render_pallas.py:121-123,
+//    :284-309, :707-715; atlas mode 0 without GI only): a CARRY_OUT launch
+//    (camera mode) appends the continuation state after its last bounce,
+//    o(3) | d(3) | energy(3) | alive(1) at planes 9..18; a CARRY_IN launch
+//    (ray mode) starts from RenderParams::carry, [13, n] result(3) |
+//    men(3) | mdir(3) | energy(3) | alive(1), at global bounce
+//    start_bounce >= 1 instead of fresh: its lanes dead on entry keep their
+//    miss planes and skip the walk as dead lanes, the live ones take
+//    light = d (the bounce epilogue set both). Shadows are gated to global
+//    bounce 0, so a carry-in launch has no shadow walk and no shadow twin.
+// Every shading formula
 // keeps the JAX kernel's expression tree (which replicates ops/shade.py);
 // the equirect sky stays outside the kernel: each ray's throughput and
 // direction at its first miss are recorded.
@@ -46,7 +56,8 @@
 //
 // Bound on the H100: its least time is the output bytes in a small scene
 // (36 B/ray, plus 4 K B bytes a ray in the atlas modes, plus the 24 B/ray
-// of input planes in ray mode) and the walk's
+// of input planes in ray mode; carry-out 40 B/ray more out, carry-in 52
+// B/ray more in) and the walk's
 // operations in a large one; shading is a few hundred FP32 operations per
 // hit ray, GI about 80 more. What holds it above both is the traversal's
 // latency (traverse.cuh). Design here: a block of 128 threads is four
@@ -97,7 +108,13 @@ struct RenderParams {
   int gi;                   // Monte-Carlo GI continuation
   unsigned int gi_base;     // GI seed base of bounce 0 (+1237 per bounce)
   const float* rays;        // ray mode: [6, n_rays] origin xyz | direction xyz
+  const float* carry;       // carry-in: [13, n_rays], see the header
+  int start_bounce;         // carry-in: global index of the first bounce (>= 1)
+  int carry_out;            // carry-out: 10 continuation planes after the 9
 };
+
+// The carry mode of an instantiation (template parameter CARRY)
+enum { CARRY_NONE = 0, CARRY_OUT = 1, CARRY_IN = 2 };
 
 // procedural_tex.descriptor_row columns
 enum {
@@ -213,12 +230,17 @@ __device__ __forceinline__ float gi_sample(uint32_t sg, const float (&n)[3],
 
 // The frame, one thread per ray; render_kernel and render_shadow_kernel
 // inline it under their own register bounds.
-template <int ATLAS, bool SHADOWS, bool GI, bool RAYS>
+template <int ATLAS, bool SHADOWS, bool GI, bool RAYS, int CARRY>
 __device__ __forceinline__ void render_frame(const SceneTables& s,
                                              const RenderParams& p,
                                              float* __restrict__ out,
                                              unsigned long long* counters,
                                              unsigned long long* shadow_counters) {
+  static_assert(CARRY == CARRY_NONE || (ATLAS == 0 && !GI),
+                "the carry is gated to atlas mode 0 without GI");
+  static_assert(CARRY != CARRY_OUT || !RAYS, "carry-out is camera mode");
+  static_assert(CARRY != CARRY_IN || (RAYS && !SHADOWS),
+                "carry-in is ray mode, past the shadowed bounce 0");
   constexpr int K = Defer<ATLAS, GI>::K;
   __shared__ WarpStage stage[4];
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
@@ -274,12 +296,30 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
 
   // Only the state that later bounces read stays in registers across the
   // walk: the miss planes are written at the first miss, and the light
-  // direction is the sun's at bounce 0 (shade.initial_bounce_state) and the
-  // ray's own direction after every continuation.
+  // direction is the sun's at global bounce 0 (shade.initial_bounce_state)
+  // and the ray's own direction after every continuation.
   bool alive = valid;  // no miss yet
   bool missed = false;
+  if constexpr (CARRY == CARRY_IN) {
+    // resume from the carried state; a lane dead on entry missed before:
+    // its miss planes go out as they came, and it walks as a dead lane
+    if (valid) {
+      const float* cin = p.carry;
+      for (int c = 0; c < 3; ++c) {
+        result[c] = cin[c * N + i];
+        out[(3 + c) * N + i] = cin[(3 + c) * N + i];
+        out[(6 + c) * N + i] = cin[(6 + c) * N + i];
+        energy[c] = cin[(9 + c) * N + i];
+      }
+      alive = cin[12 * N + i] > 0.5f;
+    }
+    missed = true;  // the miss planes hold the carry's: no zeroing below
+  }
   int b = 0;
   for (; b < p.bounces; ++b) {
+    // the global bounce: shadows, the sun as the light and the atmospheric
+    // chain (the host offsets p.atm) are keyed by it
+    const int gb = CARRY == CARRY_IN ? b + p.start_bounce : b;
     if (!__any_sync(CLRT_FULL, alive)) break;
     const bool was_alive = alive;
     Hit h;
@@ -331,7 +371,7 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
     // their own: the warp's counts so far first, then the walk's to both
     // counter sets.
     float shadow = 1.0f;
-    if (SHADOWS && b == 0) {
+    if (SHADOWS && gb == 0) {
       if (counters != nullptr) add_counts_warp(counters, cnt);
       cnt = TestCount{0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
       Hit sh;
@@ -390,8 +430,8 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
       }
 
       // ---- Phong, reference-parity overrides (kernel_main.cl:248-271)
-      const float light[3] = {b == 0 ? 0.0f : d[0], b == 0 ? p.sun_sin : d[1],
-                              b == 0 ? p.sun_cos : d[2]};
+      const float light[3] = {gb == 0 ? 0.0f : d[0], gb == 0 ? p.sun_sin : d[1],
+                              gb == 0 ? p.sun_cos : d[2]};
       const float ndl_raw =
           n[0] * (-light[0]) + n[1] * (-light[1]) + n[2] * (-light[2]);
       const float amb_m = nan_max(-ndl_raw, (float)0.1);
@@ -471,6 +511,15 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
         out[(6 + c) * N + i] = 0.0f;
       }
     }
+    if constexpr (CARRY == CARRY_OUT) {
+      // the continuation state of the re-binned second launch
+      for (int c = 0; c < 3; ++c) {
+        out[(9 + c) * N + i] = o[c];
+        out[(12 + c) * N + i] = d[c];
+        out[(15 + c) * N + i] = energy[c];
+      }
+      out[18 * N + i] = alive ? 1.0f : 0.0f;
+    }
   }
   if (counters != nullptr) add_counts(counters, cnt);
 }
@@ -481,32 +530,36 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
 // shadows the two walks' state overlaps on bounce 0, and the same bound
 // made ptxas cap them at 96 registers and spill 170-182 bytes; a floor of
 // one resident block lets them take what they need (a floor of 4, capping
-// them at 128 registers, was slower: PERF.md). Ray mode keeps the bound of
-// the camera mode it shares its options with.
-template <int ATLAS, bool GI, bool RAYS>
-__global__ void __launch_bounds__(128)
+// them at 128 registers, was slower: PERF.md). Ray mode and carry-in keep
+// the bound of the camera mode they share their options with. Carry-out
+// holds the continuation state to the end: under the same bound ptxas
+// capped it at 96 registers and spilled 186 bytes, so it too takes a floor
+// of one resident block (118 registers, none spilled); the minimum 0 of the
+// others sets no floor, as before.
+template <int ATLAS, bool GI, bool RAYS, int CARRY>
+__global__ void __launch_bounds__(128, CARRY == CARRY_OUT ? 1 : 0)
 render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
               unsigned long long* counters) {
-  render_frame<ATLAS, false, GI, RAYS>(s, p, out, counters, nullptr);
+  render_frame<ATLAS, false, GI, RAYS, CARRY>(s, p, out, counters, nullptr);
 }
 
-template <int ATLAS, bool GI, bool RAYS>
+template <int ATLAS, bool GI, bool RAYS, int CARRY>
 __global__ void __launch_bounds__(128, 1)
 render_shadow_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
                      unsigned long long* counters,
                      unsigned long long* shadow_counters) {
-  render_frame<ATLAS, true, GI, RAYS>(s, p, out, counters, shadow_counters);
+  render_frame<ATLAS, true, GI, RAYS, CARRY>(s, p, out, counters, shadow_counters);
 }
 
-template <int ATLAS, bool SHADOWS, bool GI, bool RAYS>
+template <int ATLAS, bool SHADOWS, bool GI, bool RAYS, int CARRY = CARRY_NONE>
 static int launch(const SceneTables* s, const RenderParams* p, float* out,
                   unsigned long long* counters, unsigned long long* shadow_counters,
                   cudaStream_t stream, int blocks) {
   if constexpr (SHADOWS) {
-    render_shadow_kernel<ATLAS, GI, RAYS><<<blocks, 128, 0, stream>>>(
+    render_shadow_kernel<ATLAS, GI, RAYS, CARRY><<<blocks, 128, 0, stream>>>(
         *s, *p, out, counters, shadow_counters);
   } else {
-    render_kernel<ATLAS, GI, RAYS><<<blocks, 128, 0, stream>>>(*s, *p, out, counters);
+    render_kernel<ATLAS, GI, RAYS, CARRY><<<blocks, 128, 0, stream>>>(*s, *p, out, counters);
   }
   return (int)cudaGetLastError();
 }
@@ -535,7 +588,9 @@ static int dispatch(int sel, const SceneTables* s, const RenderParams* p, float*
 
 // shadow_counters: optional int64[6], the shadow walk's counts alone (it
 // needs p->shadows; counters, when given, count both walks as before).
-// p->rays selects ray mode.
+// p->rays selects ray mode; p->carry_out (camera mode) and p->carry (ray
+// mode, with start_bounce >= 1 and p->shadows off) the carry
+// instantiations, which take atlas mode 0 without GI.
 extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
                            float* out, unsigned long long* counters,
                            unsigned long long* shadow_counters, void* stream) {
@@ -544,6 +599,22 @@ extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
   const int rows = (p->n_rays + 127) / 128;
   const int blocks = (rows + 3) / 4 * 4;  // four blocks per 4 strip rows
   cudaStream_t st = (cudaStream_t)stream;
+  if (p->carry != nullptr || p->carry_out || p->start_bounce != 0) {
+    const bool plain_opts = p->atlas_mode == 0 && !p->gi;
+    if (p->carry != nullptr && plain_opts && p->rays != nullptr && !p->carry_out &&
+        !p->shadows && p->start_bounce >= 1) {
+      return launch<0, false, false, true, CARRY_IN>(s, p, out, counters, nullptr, st,
+                                                     blocks);
+    }
+    if (p->carry == nullptr && plain_opts && p->rays == nullptr && p->carry_out &&
+        p->start_bounce == 0) {
+      return p->shadows ? launch<0, true, false, false, CARRY_OUT>(
+                              s, p, out, counters, shadow_counters, st, blocks)
+                        : launch<0, false, false, false, CARRY_OUT>(
+                              s, p, out, counters, nullptr, st, blocks);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   const int sel = p->atlas_mode * 4 + (p->shadows ? 2 : 0) + (p->gi ? 1 : 0);
   if (p->rays != nullptr) {
     return dispatch<true>(sel, s, p, out, counters, shadow_counters, st, blocks);

@@ -117,10 +117,14 @@ struct Hit {
 
 // Work a launch did. The first four count what the rays' own walks needed,
 // for the operation bound: (ray, box) slab tests, (ray, triangle) plane
-// tests (32 per cluster a ray reached), per-instance ray transforms of live
-// rays, and interpolated hits. The last two count the warps' steps: child
-// tests of a node (32 boxes against the warp's rays) and clusters staged
-// into shared memory.
+// tests (the real, non-padding slots of each cluster a ray reached),
+// per-instance ray transforms of live rays, and interpolated hits. The last
+// two count the warps' steps: child tests of a node (32 boxes against the
+// warp's rays) and clusters staged into shared memory. Every walk counts,
+// given counters or not: the kernels add them out only where given. A
+// runtime flag around the triangle count's ballot took render.cu's GI
+// instantiation from 128 registers and 18 bytes spilled to 96 and 178
+// (PERF.md).
 struct TestCount {
   unsigned long long boxes, tris, xforms, hits, steps, staged;
 };
@@ -445,7 +449,14 @@ struct Walk {
       m_cur &= __ballot_sync(CLRT_FULL, alive && h.t >= k_cur);
       if (m_cur) {
         const int np = __popc(m_cur);
-        if (lane == 0) cnt.tris += (unsigned long long)(CLRT_CLUSTER * np);
+        {
+          // both leaf tests skip padding slots (all-zero N): count the
+          // staged cluster's real slots, lane k reading slot k
+          const float4 N = ws.tri[slot][3 * lane];
+          const int real =
+              __popc(__ballot_sync(CLRT_FULL, !(N.x == 0.0f && N.y == 0.0f && N.z == 0.0f)));
+          if (lane == 0) cnt.tris += (unsigned long long)(real * np);
+        }
         if (np > CLRT_LEAF_RAYS_OUTER) {
           test_leaf(c0 + cur, slot);
         } else {

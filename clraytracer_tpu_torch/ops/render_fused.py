@@ -4,9 +4,9 @@
   port of the TPU kernel ``clraytracer_tpu/ops/render_pallas.py``
   (``_make_render_kernel``) with its options: atlas modes 0 (every
   texture procedural), 1 and 2 (imported textures, deferred texels), sun
-  shadows on bounce 0, Monte-Carlo GI, and its two ray sources: camera
-  mode (in-kernel raygen) and ray mode (given rays). The split-rebin
-  carry is not ported.
+  shadows on bounce 0, Monte-Carlo GI, its two ray sources: camera
+  mode (in-kernel raygen) and ray mode (given rays), and the split-rebin
+  carry (``carry_out`` / ``carry`` and ``start_bounce``).
 * ``render_fused_plain`` is the plain PyTorch version: the same raygen (or
   the given rays), ``trace_plain`` per bounce (and for the shadow ray)
   and the same shading expressions. The tests use it, and the frame
@@ -14,7 +14,11 @@
 * ``render_fused_camera`` (render_pallas.py:1204) and ``render_fused``
   (render_pallas.py:1115, ray mode) are the frame entries: one kernel
   launch, then ``_finish_frame``: the deferred sky add, and in the atlas
-  modes the one combined texel gather of every bounce.
+  modes the one combined texel gather of every bounce. With
+  ``split_rebin`` the camera entry makes two: bounce 0 in camera mode with
+  the continuation state carried out, whole 128-ray rows re-binned by
+  ``rebin_key`` (``rebin_rows``), the remaining bounces in ray mode resumed
+  from the carried state.
 """
 
 from __future__ import annotations
@@ -99,12 +103,15 @@ def deferred_planes(mode: int, gi: bool) -> int:
     return (7 if mode == 1 else 6) + (3 if gi else 0)
 
 
-def variant(mode: int, shadows: bool, gi: bool, rays: bool = False) -> str:
+def variant(mode: int, shadows: bool, gi: bool, rays: bool = False,
+            carry: str | None = None) -> str:
     """Name of a K2.2 instantiation, as ``render_cuda.variant_launches``
     counts them: "default", or its options joined by "+" ("rays" first in
-    ray mode)."""
-    parts = (["rays"] if rays else []) + ([f"atlas{mode}"] if mode else []) + (
-        ["shadows"] if shadows else []) + (["gi"] if gi else [])
+    ray mode, then "carry_out" or "carry_in" for ``carry`` "out" or
+    "in")."""
+    parts = (["rays"] if rays else []) + ([f"carry_{carry}"] if carry else []) + (
+        [f"atlas{mode}"] if mode else []) + (["shadows"] if shadows else []) + (
+        ["gi"] if gi else [])
     return "+".join(parts) or "default"
 
 
@@ -177,15 +184,16 @@ def ray_row(sun_angle) -> CameraRow:
     return CameraRow(cam=(0.0,) * 36, sun=_sun(sun_angle))
 
 
-def camera_row(frame) -> CameraRow:
+def camera_row(frame, row0=None) -> CameraRow:
+    """The camera row of ``frame``; ``row0``: the first global pixel row of
+    a row window (cam[35], 0 for a whole frame; render_pallas.py:1270-1280)."""
     cam = torch.cat(
         [
-            torch.as_tensor(frame.inverse_projection, dtype=torch.float32).reshape(-1),
-            torch.as_tensor(frame.inverse_view, dtype=torch.float32).reshape(-1),
-            torch.as_tensor(frame.camera_position, dtype=torch.float32).reshape(-1),
-            torch.zeros(1),
+            torch.as_tensor(x, dtype=torch.float32).reshape(-1).cpu()
+            for x in (frame.inverse_projection, frame.inverse_view,
+                      frame.camera_position, 0.0 if row0 is None else row0)
         ]
-    ).cpu()
+    )
     return CameraRow(cam=tuple(cam.tolist()), sun=_sun(frame.sun_angle))
 
 
@@ -200,6 +208,34 @@ def check_rays(rays: torch.Tensor, rows_total: int) -> int:
     if n == 0 or -(-n // 128) != rows_total:
         raise ValueError(f"{n} rays do not fill {rows_total} rows of 128")
     return n
+
+
+#: the carry-in state's planes, [13, n]: result rgb | miss energy rgb |
+#: miss dir xyz | energy rgb | alive (render_pallas.py:284-296)
+CARRY_PLANES = 13
+
+
+def check_carry(n: int, atlas_mode: int, gi: bool, rays, carry_out: bool, carry,
+                start_bounce: int) -> None:
+    """The carry's arguments (render_pallas.py:121-123): ``carry_out`` in
+    camera mode at bounce 0; ``carry`` [13, n] in ray mode at global bounce
+    ``start_bounce`` >= 1; both in atlas mode 0 without GI, the split's
+    gate (render_pallas.py:1290-1291) and the kernel's instantiations."""
+    if not (carry_out or carry is not None or start_bounce):
+        return
+    if atlas_mode != 0 or gi:
+        raise ValueError("the carry takes atlas mode 0 without GI")
+    if carry is None:
+        if start_bounce != 0 or rays is not None:
+            raise ValueError("carry_out is camera mode from bounce 0; "
+                             "start_bounce needs a carry")
+        return
+    if carry_out or rays is None or start_bounce < 1:
+        raise ValueError("a carry resumes in ray mode at start_bounce >= 1")
+    if carry.dtype != torch.float32 or tuple(carry.shape) != (CARRY_PLANES, n) or (
+            not carry.is_contiguous()) or carry.device != rays.device:
+        raise ValueError(f"carry must be a contiguous [{CARRY_PLANES}, {n}] f32 tensor "
+                         "beside the rays")
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +269,19 @@ def render_fused_plain(
     shadows: bool = False,
     gi_seed: int | None = None,
     rays: torch.Tensor | None = None,
+    carry_out: bool = False,
+    carry: torch.Tensor | None = None,
+    start_bounce: int = 0,
 ) -> torch.Tensor:
     """The plain version of K2.2 → [9 + K*bounces, n] f32 (result rgb |
     miss energy rgb | miss dir xyz | K deferred planes per bounce,
     csrc/render.cu's layout), op for op the kernel's expressions. Camera
     mode: n = rows_total*128 rays of the camera row's raygen. Ray mode
     (``rays`` [6, n], ``check_rays``): the given rays; of ``cr`` only the
-    sun is read."""
+    sun is read. ``carry_out`` appends the continuation state, o xyz | d
+    xyz | energy rgb | alive: [19, n]. ``carry`` ([13, n], ``CARRY_PLANES``)
+    replaces the fresh start, at global bounce ``start_bounce``
+    (``check_carry``)."""
     gi = gi_seed is not None
     if rays is None:
         n = rows_total * 128
@@ -254,21 +296,32 @@ def render_fused_plain(
         n = check_rays(rays, rows_total)
         o = [rays[c] for c in range(3)]
         d = [rays[3 + c] for c in range(3)]
+    check_carry(n, atlas_mode, gi, rays, carry_out, carry, start_bounce)
     zero = torch.zeros(n, device=device)
-    light = [zero, zero + cr.sun[0], zero + cr.sun[1]]
-    result = [zero, zero, zero]
-    energy = [zero + 1.0, zero + 1.0, zero + 1.0]
-    men = [zero, zero, zero]
-    mdir = [zero, zero, zero]
+    if carry is None:
+        light = [zero, zero + cr.sun[0], zero + cr.sun[1]]
+        result = [zero, zero, zero]
+        energy = [zero + 1.0, zero + 1.0, zero + 1.0]
+        men = [zero, zero, zero]
+        mdir = [zero, zero, zero]
+        alive = torch.ones(n, dtype=torch.bool, device=device)
+    else:
+        # resume from the carried state; alive lanes left the previous
+        # bounce with light == direction
+        result, men, mdir, energy = ([carry[k + c] for c in range(3)] for k in (0, 3, 6, 9))
+        alive = carry[12] > 0.5
+        light = list(d)
     deferred = []
-    alive = torch.ones(n, dtype=torch.bool, device=device)
-    atm = atm_table(bounces)
+    # the global bounce's atmospheric constants: the chain's iterated f32
+    # multiplies from bounce 0 (render_pallas.py:304-310)
+    atm = atm_table(start_bounce + bounces)[start_bounce:]
     seeds = rng.gi_seed_rows(gi_seed, bounces) if gi else None
     ray_index = torch.arange(n, device=device)
     n_mat = ft.mat_rows.shape[0]
     for b in range(bounces):
+        gb = b + start_bounce  # the global bounce
         hs = trace_plain(kt, torch.stack(o + d).contiguous(),
-                         None if b == 0 else alive.float())
+                         None if gb == 0 else alive.float())
         t = hs[0]
         binst = hs[4].view(torch.int32).long()
         n_obj = hs[5:8]
@@ -293,7 +346,7 @@ def render_fused_plain(
         # sun shadow on bounce 0: the shadow ray from the next origin
         # toward the sun, traced for the shaded rays only
         shadow = None
-        if shadows and b == 0:
+        if shadows and gb == 0:
             srays = torch.stack(new_o + [zero, zero - cr.sun[0], zero - cr.sun[1]])
             occ = trace_plain(kt, srays.contiguous(), live.float())[0] < BIG
             shadow = torch.where(live & occ, zero, zero + 1.0)
@@ -382,7 +435,10 @@ def render_fused_plain(
             d[c] = torch.where(live, new_d, d[c])
             light[c] = torch.where(live, new_d, light[c])
         alive = live
-    return torch.stack(result + men + mdir + deferred)
+    planes = result + men + mdir + deferred
+    if carry_out:
+        planes += o + d + energy + [alive.float()]
+    return torch.stack(planes)
 
 
 # ---------------------------------------------------------------------------
@@ -406,12 +462,18 @@ def render_cuda(
     gi_seed: int | None = None,
     shadow_counters: torch.Tensor | None = None,
     rays: torch.Tensor | None = None,
+    carry_out: bool = False,
+    carry: torch.Tensor | None = None,
+    start_bounce: int = 0,
 ) -> torch.Tensor:
     """Launch K2.2 (csrc/render.cu) → [9 + K*bounces, n] f32 on the
     tables' CUDA device (K = ``deferred_planes(atlas_mode, gi)``). Camera
     mode: n = rows_total*128 rays of the in-kernel raygen. Ray mode
     (``rays`` [6, n] on the device, ``check_rays``): the given rays, and
-    of ``cr`` only the sun is read.
+    of ``cr`` only the sun is read. ``carry_out``, ``carry`` and
+    ``start_bounce`` as ``render_fused_plain``'s: the carry-out launch
+    ([19, n]) and the carry-in launch, which has no shadow walk (shadows
+    are gated to global bounce 0), so ``shadows`` is dropped there.
     ``gi_seed`` None turns GI off; the seed is a launch parameter, so every
     seed runs the same compiled instantiation. ``counters``: optional int64
     [6] device tensor the launch adds its work to, in
@@ -438,13 +500,20 @@ def render_cuda(
         n = check_rays(rays, rows_total)
         if rays.device != dev:
             raise ValueError("rays must lie on the tables' device")
-    lib = kernels.build_all()["render.cu"]
     gi = gi_seed is not None
+    check_carry(n, atlas_mode, gi, rays, carry_out, carry, start_bounce)
+    if carry is not None:
+        if shadow_counters is not None:
+            raise ValueError("a carry-in launch walks no shadow ray")
+        shadows = False
+    lib = kernels.build_all()["render.cu"]
     out = torch.empty(
-        (9 + deferred_planes(atlas_mode, gi) * bounces, n),
+        (9 + deferred_planes(atlas_mode, gi) * bounces + (10 if carry_out else 0), n),
         dtype=torch.float32, device=dev,
     )
-    atm = _atm_tensor(bounces, str(dev))
+    # the kernel indexes the constants by its own bounce: start at the
+    # global bounce's
+    atm = _atm_tensor(start_bounce + bounces, str(dev))[start_bounce:]
     params = kernels.RenderParamsC(
         (ctypes.c_float * 36)(*cr.cam), cr.sun[0], cr.sun[1],
         atm.data_ptr(), ft.mat_rows.data_ptr(), ft.tex.data_ptr(),
@@ -452,6 +521,7 @@ def render_cuda(
         trows, -(-width // 128), width, height, n, bounces,
         atlas_mode, int(shadows), int(gi),
         rng.gi_seed_rows(gi_seed, 1)[0] if gi else 0, kernels.ptr(rays),
+        kernels.ptr(carry), start_bounce, int(carry_out),
     )
     tables = kt.as_c()
     code = lib.clrt_render(
@@ -460,7 +530,8 @@ def render_cuda(
     )
     kernels.check(code, "clrt_render")
     render_cuda.launches += 1
-    name = variant(atlas_mode, shadows, gi, rays is not None)
+    name = variant(atlas_mode, shadows, gi, rays is not None,
+                   "in" if carry is not None else "out" if carry_out else None)
     render_cuda.variant_launches[name] = render_cuda.variant_launches.get(name, 0) + 1
     return out
 
@@ -549,6 +620,54 @@ def _finish_frame(
     return res + sky * men
 
 
+def rebin_key(dm: torch.Tensor, om: torch.Tensor) -> torch.Tensor:
+    """i32 row re-bin sort key (render_pallas.py:850): direction octant in
+    bits 18-20, then three 6-bit wrapped coarse origin cells
+    ``floor(om * 0.25) & 63``, x highest. ``dm``, ``om``: per-row means of
+    sign(d) and of o, [3, rows]. Built in integers, so large |origin| can
+    neither cross octant strata nor lose exactness."""
+    up = (dm > 0).to(torch.int32)
+    cell = torch.floor(om * 0.25).to(torch.int32) & 63
+    return ((up[0] << 20) | (up[1] << 19) | (up[2] << 18)
+            | (cell[0] << 12) | (cell[1] << 6) | cell[2])
+
+
+def split_rebin_preferred(scene: Scene) -> bool:
+    """The default of ``render_fused_camera``'s ``split_rebin``
+    (render_pallas.py:889): off for every scene, as in the JAX package."""
+    del scene
+    return False
+
+
+def rebin_rows(first: torch.Tensor, rows_total: int):
+    """The re-bin between the split's launches (render_pallas.py:1325-1364)
+    on the carry-out launch's [19, n] output → (rays [6, n], carry [13, n],
+    inv [rows_total]). Whole 128-ray rows are sorted (stably) by
+    ``rebin_key`` of their mean sign(d) and mean o; rows with no live lane
+    key last (0x7FFFFFFF), so that whole warps of them skip the walk. The
+    rays and the carried state are gathered in that order; ``inv`` puts
+    the second launch's rows back."""
+    st = first.reshape(-1, rows_total, 128)
+    key = torch.where(st[18].amax(dim=1) > 0.5,
+                      rebin_key(torch.sign(st[12:15]).mean(dim=2), st[9:12].mean(dim=2)),
+                      0x7FFFFFFF)
+    perm = torch.argsort(key, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(rows_total, device=perm.device)
+    g = st.index_select(1, perm)
+    rays = g[9:15].reshape(6, -1)
+    carry = torch.cat([g[0:9], g[15:19]]).reshape(CARRY_PLANES, -1)
+    return rays, carry, inv
+
+
+def _launch(dev: torch.device, *args, **opts) -> torch.Tensor:
+    """One K2.2 launch: the kernel for tables on a CUDA device, its plain
+    version for tables on the CPU."""
+    if dev.type == "cuda":
+        return render_cuda(*args, **opts)
+    return render_fused_plain(*args, dev, **opts)
+
+
 def render_fused_camera(
     scene: Scene,
     frame,  # render.FrameInputs
@@ -557,28 +676,48 @@ def render_fused_camera(
     bounces: int,
     enable_shadows: bool = False,
     gi_seed: int | None = None,
+    row0=None,
+    local_height: int | None = None,
+    split_rebin: bool | None = None,
 ) -> tuple[torch.Tensor, tuple[int, int, int]]:
     """Fused frame with in-kernel raygen → ([3, rows_total, 128] radiance in
     trows x 128 screen-strip order, (trows, tiles_x, tiles_y)): one kernel
     launch, then ``_finish_frame``. ``gi_seed`` None turns GI off. Callers
-    check ``fused_path_available`` first."""
-    trows = tile_rows(width * height)
+    check ``fused_path_available`` first.
+
+    ``row0``/``local_height``: only the ``local_height``-row window from
+    global pixel row ``row0`` (render_pallas.py:1227-1231); the
+    unprojection keeps the whole ``height``, so the window's pixels equal
+    the whole frame's.
+
+    ``split_rebin`` (None: ``split_rebin_preferred``; taken only for
+    ``bounces >= 2`` in atlas mode 0 without GI, render_pallas.py:1288-1291):
+    bounce 0 as one camera-mode launch that carries its state out,
+    ``rebin_rows``, the remaining bounces as one ray-mode launch resumed
+    from the carried state at global bounce 1, the rows put back in order."""
+    win_height = local_height if local_height is not None else height
+    trows = tile_rows(width * win_height)
     tiles_x = -(-width // 128)
-    tiles_y = -(-height // trows)
+    tiles_y = -(-win_height // trows)
     rows_total = tiles_y * tiles_x * trows
     kt = kernel_tables(scene)
     ft = frame_tables(scene)
-    cr = camera_row(frame)
     dev = kt.planes.device
     mode = atlas_mode_of(scene)
+    if split_rebin is None:
+        split_rebin = split_rebin_preferred(scene)
+    split_rebin = split_rebin and bounces >= 2 and mode == 0 and gi_seed is None
+    args = (kt, ft, camera_row(frame, row0), width, height, trows, rows_total)
     opts = dict(atlas_mode=mode, shadows=enable_shadows, gi_seed=gi_seed)
-    if dev.type == "cuda":
-        out = render_cuda(kt, ft, cr, width, height, trows, rows_total, bounces, **opts)
+    if split_rebin:
+        first = _launch(dev, *args, 1, carry_out=True, **opts)
+        rays, carry, inv = rebin_rows(first, rows_total)
+        del first
+        second = _launch(dev, *args, bounces - 1, rays=rays, carry=carry, start_bounce=1,
+                         **opts)
+        out = second.reshape(9, rows_total, 128)[:, inv]
     else:
-        out = render_fused_plain(
-            kt, ft, cr, width, height, trows, rows_total, bounces, dev, **opts
-        )
-    out = out.reshape(-1, rows_total, 128)
+        out = _launch(dev, *args, bounces, **opts).reshape(-1, rows_total, 128)
     img = _finish_frame(scene, out, mode, gi_seed is not None)
     return img, (trows, tiles_x, tiles_y)
 
@@ -608,9 +747,5 @@ def render_fused(
     # ray mode reads no camera: the strip geometry below is the rays' own
     # grid (width 128, one strip of rows_total rows) and is not read
     args = (kt, ft, ray_row(sun_angle), 128, rows_total, rows_total, rows_total, bounces)
-    if dev.type == "cuda":
-        out = render_cuda(*args, **opts)
-    else:
-        out = render_fused_plain(*args, dev, **opts)
-    out = out.reshape(-1, rows_total, 128)
+    out = _launch(dev, *args, **opts).reshape(-1, rows_total, 128)
     return _finish_frame(scene, out, mode, gi_seed is not None)

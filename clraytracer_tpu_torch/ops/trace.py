@@ -29,9 +29,9 @@ from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
 
 BIG = 1e30  # rounds to the f32 miss sentinel of the kernels
 #: the kernels' optional int64 counters (csrc/traverse.cuh TestCount): work
-#: the rays' own walks needed (box tests, triangle tests, per-instance ray
-#: transforms, interpolated hits), then the warps' steps (32-child node
-#: tests, clusters staged into shared memory)
+#: the rays' own walks needed (box tests, triangle tests of real, non-padding
+#: slots, per-instance ray transforms, interpolated hits), then the warps'
+#: steps (32-child node tests, clusters staged into shared memory)
 COUNTER_NAMES = (
     "boxes", "triangles", "ray_transforms", "hits", "node_steps", "staged_clusters",
 )

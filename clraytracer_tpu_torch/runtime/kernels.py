@@ -54,7 +54,7 @@ class SceneTablesC(ctypes.Structure):
 
 
 class RenderParamsC(ctypes.Structure):
-    """csrc/render.cu ``RenderParams``."""
+    """csrc/render.cu ``RenderParams``, field for field in its order."""
 
     _fields_ = [
         ("cam", ctypes.c_float * 36),
@@ -76,6 +76,9 @@ class RenderParamsC(ctypes.Structure):
         ("gi", ctypes.c_int),
         ("gi_base", ctypes.c_uint),
         ("rays", ctypes.c_void_p),
+        ("carry", ctypes.c_void_p),
+        ("start_bounce", ctypes.c_int),
+        ("carry_out", ctypes.c_int),
     ]
 
 

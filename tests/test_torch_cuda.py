@@ -184,13 +184,28 @@ def test_render_kernel_matches_plain_on_card(spec, tris):
     assert int(bad.sum()) <= FRAME_MISMATCH_MAX, int(bad.sum())
 
 
+def _quad_scene(device):
+    """One 8 x 8 ground quad (2 triangles, one cluster) at y = 0."""
+    from clraytracer_tpu_torch.scene import SceneBuilder
+    from clraytracer_tpu_torch.scene import procedural_tex as ptex
+    from clraytracer_tpu_torch.scene.procedural import quad
+
+    b = SceneBuilder()
+    b.import_procedural(ptex.sky_gradient(32, 16))
+    b.add_instance(b.add_mesh(quad(8.0, y=0.0),
+                              materials_start=b.create_material(albedo=(0.8, 0.8, 0.8))))
+    return b.build(device=device)
+
+
 @pytest.mark.cuda
 def test_kernel_counters_on_card():
     """The optional int64[6] counters (``ops.trace.COUNTER_NAMES``): boxes,
-    triangles (32 per cluster a ray reached), ray transforms (one per live
-    ray per instance per traversal), hits, the warps' 32-child node tests
-    and staged clusters; a launch without them counts nothing, and a
-    counters tensor of another shape is refused."""
+    triangles (the real, non-padding slots of each cluster a ray reached:
+    on a lone quad, whose one cluster holds 2 triangles, 2 a ray, in K2.1
+    and in K2.2's bounce 0, its reflected rays passing no box), ray
+    transforms (one per live ray per instance per traversal), hits, the
+    warps' 32-child node tests and staged clusters; a launch without them
+    counts nothing, and a counters tensor of another shape is refused."""
     dev = _card()
     scene = build_scene("two", device=dev)
     kt = tr.kernel_tables(scene)
@@ -201,9 +216,27 @@ def test_kernel_counters_on_card():
     boxes, tris, xforms, hits, steps, staged = cnt.tolist()
     assert xforms == n * kt.n_inst
     assert hits == int((out[0].abs() < tr.BIG).sum())
-    assert tris % 32 == 0 and boxes >= xforms and tris > 0
-    # a staged cluster's test serves at most the warp's 32 rays
-    assert 0 < staged and tris <= 32 * 32 * staged
+    assert boxes >= xforms and tris > 0
+    # a staged cluster's test serves at most the warp's 32 rays, each
+    # against at most its real slots
+    real = (kt.planes[:, :3] != 0).any(dim=1).reshape(-1, 32).sum(dim=1)
+    assert int(real.min()) < 32  # partial clusters: the cube's, the sphere's last
+    assert 0 < staged and tris <= 32 * int(real.max()) * staged
+    quad = _quad_scene(dev)
+    qkt = tr.kernel_tables(quad)
+    g = torch.Generator().manual_seed(5)
+    m = 4096
+    qrays = torch.cat([torch.rand(3, m, generator=g) * 6.0 - 3.0, torch.zeros(3, m)])
+    qrays[1], qrays[4] = 5.0, -1.0  # from y = 5 straight down onto the quad
+    qrays = qrays.contiguous().to(dev)
+    qc = torch.zeros(6, dtype=torch.int64, device=dev)
+    tr.trace_cuda(qkt, qrays, None, qc)
+    assert qc[1].item() == 2 * m and qc[3].item() == m
+    qc.zero_()
+    qargs = (qkt, rf.frame_tables(quad), rf.ray_row(torch.tensor(-1.96)), 128, m // 128,
+             m // 128, m // 128, 2)
+    rf.render_cuda(*qargs, qc, rays=qrays)
+    assert qc[1].item() == 2 * m and qc[3].item() == m
     assert steps >= -(-n // 32) * kt.n_inst
     cnt2 = torch.zeros(6, dtype=torch.int64, device=dev)
     args = _frame_args(scene)
@@ -707,3 +740,111 @@ def test_render_frame_two_phase_on_card_matches_cpu():
             0, k21), spec
         close = ((img_g.cpu() - img_c).abs() <= 1e-5).all(dim=-1).double().mean()
         assert close >= 0.99, (spec, float(close))
+
+
+CARRY_CASES = [("sphere", False, 2), ("ground", False, 1), ("ground", True, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,shadows,rest", CARRY_CASES)
+def test_carry_instantiations_match_plain_on_card(spec, shadows, rest):
+    """The split-rebin carry's three instantiations against their plain
+    versions at 320x240, to the frame rule: the carry-out launch (camera
+    mode, bounce 0, 19 planes) without and with shadows, and the carry-in
+    launch (ray mode from global bounce 1, over ``rest`` bounces) on the
+    rows that ``rebin_rows`` re-bins from the plain carry-out's output."""
+    from chip_smoke import compare_options, option_args, option_frame, option_scene
+
+    dev = _card()
+    w, h = 320, 240
+    scene = option_scene(spec, device=dev)
+    args = option_args(scene, option_frame(spec, w, h), w, h, bounces=1)
+    before = dict(rf.render_cuda.variant_launches)
+    got = rf.render_cuda(*args, carry_out=True, shadows=shadows)
+    ref = rf.render_fused_plain(*args, dev, carry_out=True, shadows=shadows)
+    torch.cuda.synchronize()
+    assert got.shape == (19, args[6] * 128)
+    case = compare_options(got, ref, 0, False)
+    assert case["ok"], case
+    rays, carry, _inv = rf.rebin_rows(ref, args[6])
+    assert 0 < int((carry[12] > 0.5).sum()) < carry.shape[1]
+    kw = dict(rays=rays, carry=carry, start_bounce=1, shadows=shadows)
+    got = rf.render_cuda(*args[:7], rest, **kw)
+    ref = rf.render_fused_plain(*args[:7], rest, dev, **kw)
+    torch.cuda.synchronize()
+    case = compare_options(got, ref, 0, False)
+    assert case["ok"], case
+    out_name = rf.variant(0, shadows, False, carry="out")
+    in_name = rf.variant(0, False, False, True, "in")
+    after = rf.render_cuda.variant_launches
+    assert after[out_name] == before.get(out_name, 0) + 1
+    assert after[in_name] == before.get(in_name, 0) + 1
+    with pytest.raises(ValueError):  # the carry-in launch walks no shadow ray
+        rf.render_cuda(*args[:7], rest, shadow_counters=torch.zeros(
+            6, dtype=torch.int64, device=dev), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,shadows", [("sphere", False), ("two", False),
+                                          ("ground", False), ("ground", True)])
+def test_split_frame_matches_unsplit_on_card(spec, shadows):
+    """render_fused_camera(split_rebin=True) on the card: exactly two K2.2
+    launches (carry-out in camera mode, then carry-in in ray mode) and no
+    K2.1 nor any plain version; its image within the frame rule of the
+    unsplit frame's (a re-binned warp holds other rays, and a
+    triangles-outer leaf tests lanes whose own boxes culled it)."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    w, h = 320, 240
+    scene = option_scene(spec, device=dev)
+    frame = option_frame(spec, w, h)
+    one, lay1 = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=shadows)
+    plain = rf.render_fused_plain
+    rf.render_fused_plain = None  # the card never reaches the plain version
+    try:
+        before = (rf.render_cuda.launches, tr.trace_cuda.launches,
+                  dict(rf.render_cuda.variant_launches))
+        split, lay2 = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=shadows,
+                                             split_rebin=True)
+        torch.cuda.synchronize()
+    finally:
+        rf.render_fused_plain = plain
+    after = rf.render_cuda.variant_launches
+    assert (rf.render_cuda.launches - before[0], tr.trace_cuda.launches - before[1]) == (2, 0)
+    for name in (rf.variant(0, shadows, False, carry="out"), rf.variant(0, False, False, True, "in")):
+        assert after[name] == before[2].get(name, 0) + 1
+    assert lay1 == lay2 and torch.isfinite(split).all()
+    bad = ((split - one).abs() > 1e-5).any(dim=0)
+    print(f"{spec}: {int(bad.sum())} rays differ from the unsplit frame")
+    assert int(bad.sum()) <= FRAME_MISMATCH_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+def test_row_windows_stack_to_the_full_frame_on_card(split):
+    """row0/local_height on the card: rows 0-79, 80-159 and 160-239 of a
+    320x240 frame, each rendered alone and untiled, stack to the full
+    frame: bit for bit unsplit (a window's warps hold the full frame's 8x4
+    pixel tiles), within the frame rule split (the re-bin groups rows
+    otherwise)."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    w, h, win = 320, 240, 80
+    scene = option_scene("ground", device=dev)
+    frame = option_frame("ground", w, h)
+    full, lay = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=True,
+                                       split_rebin=split)
+    want = trender._untile(full, ("strip",) + lay, h, w)
+    parts = []
+    for y0 in range(0, h, win):
+        img, wlay = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=True,
+                                           row0=y0, local_height=win, split_rebin=split)
+        parts.append(trender._untile(img, ("strip",) + wlay, win, w))
+    got = torch.cat(parts, dim=1)
+    torch.cuda.synchronize()
+    if not split:
+        assert torch.equal(got, want)
+    bad = ((got - want).abs() > 1e-5).any(dim=0)
+    assert int(bad.sum()) <= FRAME_MISMATCH_MAX
