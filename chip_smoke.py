@@ -101,6 +101,25 @@ JSON line per phase:
    bytes out a ray), carry-out with shadows and carry-in (112 bytes a ray:
    rays and carry in, 9 planes out) instantiations at (s)'s shapes
 
+Between 4 and 5, (t) imported: a museum-class scene written as files
+(``write_museum``: three OBJ/MTL meshes of 161,360 triangles from the
+port's procedural meshes, quad faces and usemtl groups, 42 materials with
+45 PNG maps of 512x512, written with every row filter), one mesh through
+``save_clm`` and one through the ``.clmz`` cache, placed as the JAX
+``museum`` scene places its three: the CLI's ``render --scene <obj>``,
+``snapshot`` and ``render --scene <.clsnap.npz>`` (byte-equal PNGs), then
+``render.render_frame`` at 1920x1080 with the default RenderConfig (one
+K2.2 atlas-1 launch a frame, no K2.1, counts from zero); the host's import
+seconds by step (OBJ parser and image decoder named), the hit share of the
+camera rays (at least half), frame ms, the host's issue ms, K2.2's ms and
+bound, its ``_finish_frame`` tail, the idle share, K2.2 against its plain
+version on a 16-row band of its own launch, the snapshot's seconds, bytes
+and bit-equal frame; the reference tracers on the card: ``render_frame``
+through ``trace_wavefront`` at 320x240, ``trace_wavefront``, ``trace_bvh``
+and ``trace_brute`` on 4096 seeded camera rays against K2.1 (rays that
+differ counted; brute within FRAME_MISMATCH_MAX). The kernels line adds
+(t)'s launches to the atlas-1 instantiation's entry.
+
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
 Imports no JAX and nothing of the JAX package.
@@ -2251,16 +2270,24 @@ def option_kernel_entries(results) -> list:
     phase options), its ms at the cell's shapes beside the plain version's
     and its bound."""
     out = []
+    imported = results["imported"]
     for line, (tag, spec, _tris, w, h, cfg_kw) in zip(results["option_cells"], OPTION_CELLS):
         errs = [c["max_abs_err_within"] for c in results["options"]
                 if c["variant"] == line["variant"]]
         errs += [line["check"]["max_abs_err_within"], line["check_full"]["max_abs_err_within"]]
+        launches = line["launches"]["K2.2_variants"].get(line["variant"], 0)
+        path = f"({tag}) render.render_frame, {spec}, {cfg_kw or 'defaults'}"
+        if line["variant"] == imported["variant"]:
+            # (t)'s imported scene runs the same instantiation on its main path
+            launches += imported["launches"]["K2.2_variants"].get(line["variant"], 0)
+            path += "; (t) render.render_frame, the imported museum-class scene, defaults"
+            errs.append(imported["band_check"]["max_abs_err_within"])
         out.append({
             "name": f"K2.2 fused frame, {line['variant']}", "route": "cuda",
             "source": "clraytracer_tpu_torch/csrc/render.cu",
             "replaces": "clraytracer_tpu/ops/render_pallas.py:109",
-            "launches": line["launches"]["K2.2_variants"].get(line["variant"], 0),
-            "path": f"({tag}) render.render_frame, {spec}, {cfg_kw or 'defaults'}",
+            "launches": launches,
+            "path": path,
             "max_abs_err": max(errs),
             "tolerance": (f"pool indices exact; other planes within 1e-5 on all but "
                           f"{FRAME_MISMATCH_MAX} rays"),
@@ -2300,6 +2327,507 @@ def diff_kernel_entries(results) -> list:
             "shape": k["shape"],
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# (t) a museum-class imported scene: OBJ/MTL, .clm and .clmz files with PNG
+# maps, written from the port's procedural meshes
+# ---------------------------------------------------------------------------
+
+# the JAX ``museum`` scene (cli.py:75-94): three imported meshes, ~160k
+# triangles, ~45 textures in a 64-texture pool, the second mesh at
+# translation(0, 25, 0) and the third at translation(0, 0, 3)
+MUSEUM_TEX = 512  # texture side: 45 maps of 512x512, ~11.8M texels
+MUSEUM_WH = (1920, 1080)
+MUSEUM_CAMERA = dict(position=(0.0, 3.0, 14.0), pitch_deg=-8.0)
+MUSEUM_REF_WH = (320, 240)  # the reference tracers' frame (trace_wavefront)
+
+
+def png_bytes(rgb8, filters=(0, 1, 2, 3, 4)) -> bytes:
+    """An 8-bit RGB PNG of ``rgb8`` [H, W, 3], image row y filtered with
+    ``filters[y % len(filters)]`` (PNG spec section 9: none, Sub, Up,
+    Average, Paeth), so a decoder meets every filter type."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    x = np.ascontiguousarray(rgb8, np.uint8)
+    h, w, _ = x.shape
+    cur = x.reshape(h, w * 3).astype(np.int16)
+    zrow, zcol = np.zeros((1, w * 3), np.int16), np.zeros((h, 3), np.int16)
+    up = np.vstack([zrow, cur[:-1]])
+    left = np.hstack([zcol, cur[:, :-3]])
+    upleft = np.hstack([zcol, up[:, :-3]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(cur), left, up, (left + up) >> 1, paeth])
+    ft = np.asarray(filters, np.int64)[np.arange(h) % len(filters)]
+    rows = ((cur - preds[ft, np.arange(h)]) % 256).astype(np.uint8)
+    raw = np.hstack([ft[:, None].astype(np.uint8), rows]).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def museum_texture(seed: int, size: int):
+    """A [size, size, 3] u8 map: a seeded checker of two colours over a
+    diagonal ramp, with noise (at most 199 + 47 + 7, so no clipping)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i = np.arange(size)
+    cells = int(rng.integers(4, 17))
+    c0, c1 = rng.integers(0, 200, (2, 3), dtype=np.uint8)
+    cell = i * cells // size
+    chk = (cell[:, None] + cell[None, :]) % 2 == 1
+    ramp = ((i[:, None] + i[None, :]) * 48 // (2 * size)).astype(np.uint8)
+    img = np.where(chk[..., None], c0, c1) + ramp[..., None]
+    return img + rng.integers(0, 8, (size, size, 3), dtype=np.uint8)
+
+
+def obj_text(groups, mtllib: str) -> str:
+    """OBJ text of ``groups`` [(material name, corners)], each corners
+    (pos [F, k, 3], uv [F, k, 2], normal [F, k, 3]) for F faces of k
+    corners: v/vt/vn records deduplicated, then per group its ``usemtl``
+    and ``f v/vt/vn ...`` faces."""
+    import io
+
+    import numpy as np
+
+    out = io.StringIO()
+    out.write(f"# museum-class test mesh\nmtllib {mtllib}\n")
+    refs = []
+    for a, tag in enumerate(("v", "vt", "vn")):
+        flat = np.concatenate([c[a].reshape(-1, c[a].shape[-1]) for _, c in groups])
+        uniq, inv = np.unique(flat.astype(np.float32), axis=0, return_inverse=True)
+        np.savetxt(out, uniq, fmt=tag + " %.6f" * uniq.shape[1])
+        refs.append(inv.reshape(-1) + 1)
+    at = 0
+    for name, (pos, _uv, _n) in groups:
+        f, k = pos.shape[:2]
+        idx = np.stack([r[at:at + f * k] for r in refs], axis=-1).reshape(f, k * 3)
+        at += f * k
+        out.write(f"usemtl {name}\n")
+        np.savetxt(out, idx, fmt="f" + " %d/%d/%d" * k)
+    return out.getvalue()
+
+
+def _soup(mesh):
+    """A MeshData soup → triangle corners (pos, uv, normal) [F, 3, *]."""
+    import numpy as np
+
+    st = lambda a, b, c: np.stack([a, b, c], axis=1)
+    return (st(mesh.v0, mesh.v1, mesh.v2), st(mesh.uv0, mesh.uv1, mesh.uv2),
+            st(mesh.n0, mesh.n1, mesh.n2))
+
+
+def _quad_grid(n: int, corner, du, dv, normal, uv_scale: float):
+    """An n x n grid of quads (4-corner faces) spanning corner + [0,1]^2 of
+    (du, dv), uvs tiling ``uv_scale`` times."""
+    import numpy as np
+
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    i, j = i.reshape(-1, 1), j.reshape(-1, 1)
+    a = np.array([[0, 0], [1, 0], [1, 1], [0, 1]])  # corner order
+    s = (i + a[None, :, 0]) / n
+    t = (j + a[None, :, 1]) / n
+    c, du, dv = (np.asarray(x, np.float32) for x in (corner, du, dv))
+    pos = c + s[..., None] * du + t[..., None] * dv
+    uv = np.stack([s, t], axis=-1) * uv_scale
+    nrm = np.broadcast_to(np.asarray(normal, np.float32), pos.shape)
+    return pos.astype(np.float32), uv.astype(np.float32), nrm.copy()
+
+
+def museum_meshes():
+    """The three meshes of (t) as OBJ groups: {name: [(material, corners)]}.
+    atrium (the sponza role): a hall of 64 spheres on a quad-grid floor
+    with back and side walls, 20 materials; gallery (sibenik, placed 25
+    up): 36 larger spheres, 14 materials; figure (nanosuit, placed 3
+    forward): one dense sphere in 8 latitude bands. 161,360 triangles."""
+    import numpy as np
+
+    from clraytracer_tpu_torch.scene.procedural import sphere_field, uv_sphere
+
+    out = {}
+    field = _soup(sphere_field(n_side=8, spacing=3.0, n_lat=16, n_lon=32))
+    per = field[0].shape[0] // 64
+    groups = []
+    for m in range(18):  # spheres k with k % 18 == m share material m
+        take = np.concatenate([np.arange(k * per, (k + 1) * per)
+                               for k in range(64) if k % 18 == m])
+        groups.append((f"atrium_{m:02d}", tuple(c[take] for c in field)))
+    groups.append(("atrium_floor", _quad_grid(40, (-30, 0, -30), (60, 0, 0), (0, 0, 60),
+                                              (0, 1, 0), 12.0)))
+    walls = [_quad_grid(20, (-30, 0, -20), (60, 0, 0), (0, 30, 0), (0, 0, 1), 6.0),
+             _quad_grid(20, (-30, 0, 30), (0, 0, -60), (0, 30, 0), (1, 0, 0), 6.0),
+             _quad_grid(20, (30, 0, -30), (0, 0, 60), (0, 30, 0), (-1, 0, 0), 6.0)]
+    groups.append(("atrium_walls", tuple(np.concatenate(p) for p in zip(*walls))))
+    out["atrium"] = groups
+
+    field = _soup(sphere_field(n_side=6, spacing=5.0, n_lat=20, n_lon=40))
+    per = field[0].shape[0] // 36
+    out["gallery"] = [
+        (f"gallery_{m:02d}", tuple(
+            c[np.concatenate([np.arange(k * per, (k + 1) * per) for k in range(36)
+                              if k % 14 == m])] for c in field))
+        for m in range(14)
+    ]
+    fig = _soup(uv_sphere(1.5, 100, 200))
+    band = np.minimum((fig[0][:, :, 1].mean(axis=1) + 1.5) / 3.0 * 8, 7).astype(int)
+    out["figure"] = [(f"figure_{m}", tuple(c[band == m] for c in fig)) for m in range(8)]
+    return out
+
+
+def write_museum(root, tex: int = MUSEUM_TEX) -> dict:
+    """Write (t)'s three meshes as ``<root>/<name>/<name>.obj`` + ``.mtl``
+    with one ``map_Kd`` PNG per material (42) and a ``map_Ks`` for every
+    fourteenth (3), each written with the five row filters in turn.
+    Returns {name: obj path}, and under "_stats" the counts."""
+    from pathlib import Path
+
+    root = Path(root)
+    paths, n_tex, n_tris, n_quads = {}, 0, 0, 0
+    seed = 0
+    for name, groups in museum_meshes().items():
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        mtl = []
+        for mat, corners in groups:
+            seed += 1
+            (d / f"{mat}.png").write_bytes(png_bytes(museum_texture(seed, tex)))
+            n_tex += 1
+            mtl += [f"newmtl {mat}", f"Kd {0.5 + 0.5 * (seed % 3) / 2:.3f} 0.9 0.8",
+                    "Ks 0.5 0.5 0.5", f"Ns {20 + seed % 60}", "d 0.6", f"map_Kd {mat}.png"]
+            if seed % 14 == 0:
+                (d / f"{mat}_spec.png").write_bytes(
+                    png_bytes(museum_texture(1000 + seed, tex), filters=(4, 3, 1)))
+                mtl.append(f"map_Ks {mat}_spec.png")
+                n_tex += 1
+            k = corners[0].shape[1]
+            n_tris += corners[0].shape[0] * (k - 2)
+            n_quads += corners[0].shape[0] if k == 4 else 0
+        (d / f"{name}.mtl").write_text("\n".join(mtl) + "\n")
+        (d / f"{name}.obj").write_text(obj_text(groups, f"{name}.mtl"))
+        paths[name] = d / f"{name}.obj"
+    paths["_stats"] = {"textures": n_tex, "triangles": n_tris, "quad_faces": n_quads}
+    return paths
+
+
+MUSEUM_RAYS = 4096  # seeded camera rays of the reference tracers' hit check
+
+
+class StepTimer:
+    """Host seconds and calls of named steps, by standing a timing wrapper
+    in for a module attribute while a ``with`` block runs."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.calls: dict = {}
+        self._undo: list = []
+
+    def wrap(self, module, attr: str, step: str):
+        real = getattr(module, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.seconds[step] = self.seconds.get(step, 0.0) + time.perf_counter() - t0
+                self.calls[step] = self.calls.get(step, 0) + 1
+
+        setattr(module, attr, timed)
+        self._undo.append((module, attr, real))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, real in reversed(self._undo):
+            setattr(module, attr, real)
+        self._undo.clear()
+
+
+def museum_frame(w: int, h: int):
+    from clraytracer_tpu_torch.camera import Camera
+    from clraytracer_tpu_torch.config import CameraConfig
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera
+
+    return frame_inputs_from_camera(Camera.create(CameraConfig(**MUSEUM_CAMERA), w, h), SUN)
+
+
+def build_museum(paths, dev, timer: StepTimer):
+    """(t)'s scene as the JAX ``museum`` scene builds its own (cli.py:75-94):
+    a 64-texture pool, the procedural sky, the three meshes (atrium from
+    its OBJ, gallery through its ``.clmz`` cache, figure from its
+    ``.clm``), the second placed 25 up and the third 3 forward. Host
+    seconds by step go to ``timer``; returns (scene on ``dev``, build s,
+    upload s)."""
+    import torch
+
+    from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.config import PoolConfig
+    from clraytracer_tpu_torch.runtime import fastobj
+    from clraytracer_tpu_torch.scene import SceneBuilder
+    from clraytracer_tpu_torch.scene import builder as builder_mod
+    from clraytracer_tpu_torch.scene import cache, clm, textures
+    from clraytracer_tpu_torch.scene import procedural_tex as ptex
+
+    timer.wrap(cache, "load_obj", "obj_parse")
+    timer.wrap(cache, "load_mesh_cache", "clmz_load")
+    timer.wrap(clm, "load_clm", "clm_load")
+    timer.wrap(textures, "decode_rgb8", "image_decode")
+    timer.wrap(fastobj, "build_bvh_native", "bvh_build")
+    timer.wrap(builder_mod, "build_clusters", "cluster_tables")
+    with timer:
+        t0 = time.perf_counter()
+        b = SceneBuilder(PoolConfig(max_textures=64))
+        b.import_procedural(ptex.sky_gradient(512, 256))
+        atrium = b.import_mesh(paths["atrium"], use_cache=False)
+        gallery = b.import_mesh(paths["gallery"])
+        figure = b.import_mesh(paths["figure"].with_suffix(".clm"))
+        b.add_instance(atrium)
+        b.add_instance(gallery, math3d.translation(0.0, 25.0, 0.0))
+        b.add_instance(figure, math3d.translation(0.0, 0.0, 3.0))
+        scene = b.build(device="cpu")
+        build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = scene.to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return scene, build_s, time.perf_counter() - t0
+
+
+def compare_hits(ref, got) -> dict:
+    """Two SceneHits over the same rays: rays whose hit, triangle or
+    instance differ, and the largest t difference where they agree."""
+    same = (ref.hit == got.hit) & (ref.tri == got.tri) & (ref.instance == got.instance)
+    both = same & ref.hit
+    dt = (ref.t - got.t)[both].abs()
+    return {"rays_differing": int((~same).sum()), "hits": int(ref.hit.sum()),
+            "max_abs_t_err": float(dt.max()) if dt.numel() else 0.0}
+
+
+def phase_imported(dev, results) -> None:
+    """(t): a museum-class imported scene on the main path. Writes three
+    OBJ/MTL meshes with PNG maps (``write_museum``), one through
+    ``save_clm`` and one through the ``.clmz`` cache; drives the CLI's
+    ``render --scene <obj>``, ``snapshot`` and ``render --scene
+    <.clsnap.npz>`` (the two PNGs byte-equal), then ``render.render_frame``
+    on the three-instance scene at MUSEUM_WH with the default RenderConfig
+    (counts from zero: one K2.2 atlas-1 launch a frame, no K2.1); K2.2
+    against its plain version on a band of its own launch; the port's own
+    image decoder on every map against the build's decode (PIL's where it
+    imports); the snapshot round trip (frame bit-equal); the reference tracers on the card
+    (``trace_wavefront`` through render_frame at MUSEUM_REF_WH;
+    ``trace_bvh``, ``trace_brute`` and ``trace_wavefront`` on MUSEUM_RAYS
+    seeded camera rays against K2.1, the rays that differ counted; brute
+    within FRAME_MISMATCH_MAX)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from clraytracer_tpu_torch import cli
+    from clraytracer_tpu_torch.config import RenderConfig
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+    from clraytracer_tpu_torch.ops.trace_ref import trace_brute, trace_bvh
+    from clraytracer_tpu_torch.ops.trace_wavefront import trace_wavefront
+    from clraytracer_tpu_torch.render import render_frame
+    from clraytracer_tpu_torch.runtime.build import native_lib
+    from clraytracer_tpu_torch.scene import cache, clm, obj
+    from clraytracer_tpu_torch.scene import imagefile
+    from clraytracer_tpu_torch.scene.checkpoint import load_scene, save_scene
+    from clraytracer_tpu_torch.scene.textures import decode_rgb8, image_decoder
+
+    t_phase = time.perf_counter()
+    w, h = MUSEUM_WH
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        paths = write_museum(root)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clm.save_clm(paths["figure"].with_suffix(".clm"), obj.load_obj(paths["figure"]))
+        save_clm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cache.import_mesh(paths["gallery"])  # parses the OBJ, writes gallery.clmz
+        clmz_write_s = time.perf_counter() - t0
+        timer = StepTimer()
+        scene, build_s, upload_s = build_museum(paths, dev, timer)
+        tris = int(scene.tris.count)
+        # the port's own decoder on every map, against the decode the build
+        # took (PIL's where it imports): the same bytes
+        maps = sorted(root.glob("*/*.png"))
+        t0 = time.perf_counter()
+        own = [imagefile.decode_image(m) for m in maps]
+        own_s = time.perf_counter() - t0
+        own_equal = all(np.array_equal(a, decode_rgb8(m)) for a, m in zip(own, maps))
+        del own
+        import_steps = {
+            "write_files_s": write_s, "save_clm_s": save_clm_s,
+            "clmz_first_import_s": clmz_write_s,
+            "obj_parser": "native" if native_lib() is not None else "python",
+            "image_decoder": image_decoder(), **{f"{k}_s": v for k, v in timer.seconds.items()},
+            "port_decoder": {"maps": len(maps), "seconds": own_s, "equal": own_equal,
+                             "unfilter": "native" if native_lib() is not None else "python"},
+            "calls": dict(timer.calls), "build_total_s": build_s, "upload_s": upload_s,
+        }
+        # ---- the CLI: render an OBJ, snapshot it, render the snapshot
+        cam = ["--camera-pos", *(str(c) for c in MUSEUM_CAMERA["position"]),
+               "--pitch", str(MUSEUM_CAMERA["pitch_deg"]), "--sun-angle", str(SUN),
+               "--width", str(w), "--height", str(h), "--device", dev.type]
+        snap = root / "atrium.clsnap.npz"
+        cli_s = {}
+        for step, argv in (
+            ("render_obj", ["render", "--scene", str(paths["atrium"]), *cam,
+                            "-o", str(root / "obj.png")]),
+            ("snapshot", ["snapshot", "--scene", str(paths["atrium"]), "--device", dev.type,
+                          "-o", str(snap)]),
+            ("render_snapshot", ["render", "--scene", str(snap), *cam,
+                                 "-o", str(root / "snap.png")]),
+        ):
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise SystemExit(f"imported cell: cli {step} failed")
+            cli_s[step] = time.perf_counter() - t0
+        cli_png_equal = (root / "obj.png").read_bytes() == (root / "snap.png").read_bytes()
+
+        # ---- the hit share of the camera rays (K2.1)
+        cfg = RenderConfig(width=w, height=h)
+        frame = museum_frame(w, h)
+        rays, _ = camera_rays(w, h, dev, frame)
+        kt = tr.kernel_tables(scene)
+        k21 = tr.trace_cuda(kt, rays)
+        hit0 = k21[0].abs() < tr.BIG
+        hit_share = float(hit0.float().mean())
+        clusters, slots = winners(k21)
+        del k21
+
+        # ---- the main path's own run: counts from zero
+        img = render_frame(scene, frame, cfg)  # first frame: tables upload
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
+        frames = FRAMES + WARMUP
+        launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
+                    "K2.2_variants": dict(rf.render_cuda.variant_launches)}
+        frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
+        mode = rf.atlas_mode_of(scene)
+        name = rf.variant(mode, False, False)
+        opts = dict(atlas_mode=mode, shadows=False, gi_seed=None)
+        args = option_args(scene, frame, w, h, cfg.bounces)
+        ft, trows, rows_total = args[1], args[5], args[6]
+        n = rows_total * 128
+        counters = torch.zeros(6, dtype=torch.int64, device=dev)
+        out = rf.render_cuda(*args, counters, **opts)
+        kms, _ = event_ms(lambda: rf.render_cuda(*args, **opts), 10, 2)
+        kdev = device_ms(lambda: rf.render_cuda(*args, **opts))
+        cnt = counters.cpu().tolist()
+        kb = variant_bound(kt, ft, cnt, clusters, slots, n, cfg.bounces, mode, False)
+        # K2.2 against its plain version on a band of its own launch,
+        # centred on the camera rays' hits
+        y0 = band_start(hit0, w, h, trows, CHECK_BAND_ROWS)
+        pargs = band_args(args, y0, CHECK_BAND_ROWS)
+        band = band_index(w, trows, y0, CHECK_BAND_ROWS, dev)
+        keep = []
+        plain_ms, _ = event_ms(
+            lambda: keep.append(rf.render_fused_plain(*pargs, dev, **opts)), 1, 0)
+        band_check = compare_options(out[:, band], keep.pop(), mode, False)
+        band_hits = int(hit0[band].sum())
+        out3 = out.reshape(-1, rows_total, 128)
+        finish_ms = event_ms(lambda: rf._finish_frame(scene, out3, mode, False), 10, 2)[0]
+        del out, out3
+        prof = device_profile(lambda: render_frame(scene, frame, cfg), 5, ms)
+        img = render_frame(scene, frame, cfg)
+        finite = bool(torch.isfinite(img).all())
+
+        # ---- the snapshot round trip
+        t0 = time.perf_counter()
+        save_scene(scene, root / "museum.clsnap.npz")
+        snap_save_s = time.perf_counter() - t0
+        snap_bytes = os.path.getsize(root / "museum.clsnap.npz")
+        t0 = time.perf_counter()
+        restored, _ = load_scene(root / "museum.clsnap.npz", device=dev)
+        torch.cuda.synchronize()
+        snap_load_s = time.perf_counter() - t0
+        snap_equal = bool(torch.equal(render_frame(restored, frame, cfg), img))
+        del restored
+
+        # ---- the reference tracers (plain torch) on the card
+        rw, rh = MUSEUM_REF_WH
+        rframe = museum_frame(rw, rh)
+        rcfg = RenderConfig(width=rw, height=rh)
+        before = (rf.render_cuda.launches, tr.trace_cuda.launches)
+        keep = []
+        wave_ms, _ = event_ms(lambda: keep.append(
+            render_frame(scene, rframe, rcfg, tracer=trace_wavefront)), 2, 1)
+        wave_img = keep.pop()
+        wave_launches = (rf.render_cuda.launches - before[0], tr.trace_cuda.launches - before[1])
+        k22_small = render_frame(scene, rframe, rcfg)
+        wave_px = int(((wave_img - k22_small).abs() > 1e-5).any(dim=-1).sum())
+        g = torch.Generator(device="cpu").manual_seed(0)
+        pick = torch.randperm(rays.shape[1], generator=g)[:MUSEUM_RAYS].to(dev)
+        sub = rays[:, pick].contiguous()
+        ref = tr.trace(scene, sub[:3], sub[3:])
+        tracers = {}
+        for tname, fn in (("wavefront", trace_wavefront), ("bvh", trace_bvh),
+                          ("brute", trace_brute)):
+            keep = []
+            t_ms, _ = event_ms(lambda: keep.append(fn(scene, sub[:3], sub[3:])), 1, 1)
+            tracers[tname] = {"ms": t_ms, **compare_hits(ref, keep.pop())}
+        torch.cuda.synchronize()
+    line = {
+        "phase": "imported", "config": "t", "scene": "museum-class OBJ/.clm/.clmz",
+        "files": paths["_stats"], "triangles": tris, "materials": int(scene.materials.count),
+        "textures": int(scene.atlas.num_textures), "texels": int(scene.atlas.texels.shape[0]),
+        "instances": int(scene.instances.count), "atlas_mode": mode, "variant": name,
+        "width": w, "height": h, "bounces": cfg.bounces, "camera": MUSEUM_CAMERA,
+        "import": import_steps, "cli_s": cli_s, "cli_png_equal": cli_png_equal,
+        "hit_share": hit_share,
+        "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
+        "frame_host_ms": frame_host_ms, "mrays_per_s": w * h * cfg.bounces / (ms * 1e-3) / 1e6,
+        "kernel_ms": kms, "kernel_device_ms": kdev, "plain_ms": plain_ms,
+        "kernel_bound_ms": kb["bound_ms"], "kernel_bound_by": kb["bound_by"],
+        "kernel_bound": kb, "finish_ms": finish_ms, "launches": launches, "frames": frames,
+        "band_check": {"frame": f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-"
+                       f"{y0 + CHECK_BAND_ROWS - 1}) of {w}x{h}", "band_hits": band_hits,
+                       **band_check},
+        "profile": prof, "finite": finite, "mean": float(img.mean()),
+        "snapshot": {"save_s": snap_save_s, "load_s": snap_load_s, "bytes": snap_bytes,
+                     "frame_bit_equal": snap_equal},
+        "reference_tracers": {
+            "render_frame_wavefront": {"frame": f"{rw}x{rh}", "ms": wave_ms,
+                                       "kernel_launches": wave_launches,
+                                       "pixels_differing_from_k22_frame": wave_px},
+            "rays": MUSEUM_RAYS, "against": "K2.1 (ops.trace.trace)", **tracers,
+        },
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    line["ok"] = (
+        finite and band_check["ok"] and band_hits > 0 and snap_equal and cli_png_equal
+        and own_equal and len(maps) == paths["_stats"]["textures"]
+        and hit_share >= 0.5 and mode == 1 and tris >= 160_000
+        and 40 <= line["materials"] - 1 <= 48
+        and launches["K2.2"] == frames and launches["K2.2_variants"] == {name: frames}
+        and launches["K2.1"] == 0 and wave_launches == (0, 0)
+        and tracers["brute"]["rays_differing"] <= FRAME_MISMATCH_MAX
+    )
+    results["imported"] = line
+    results["fused_err"] = max(results["fused_err"], band_check["max_abs_err_within"])
+    emit(line)
+    if not line["ok"]:
+        raise SystemExit("imported cell (t) failed")
 
 
 def main() -> int:
@@ -2343,6 +2871,7 @@ def main() -> int:
     phase_twophase_cells(dev, results)
     phase_ray_cell(dev, results)
     phase_split_cell(dev, results)
+    phase_imported(dev, results)
     phase_profile(dev, results)
     phase_diff(dev, results)
     phase_kernels(dev, results)

@@ -13,7 +13,11 @@ on all-procedural scenes is one launch of the fused frame kernel
 traces with the hit-record kernel and gathers each hit's triangle row with
 csrc/gather.cu, whose scatter-add is its backward. Public entry points run
 on the CUDA card unless the caller passes ``device="cpu"``, where the
-kernels' plain PyTorch versions run instead.
+kernels' plain PyTorch versions run instead. Scenes come from the named
+procedural recipes or from files (OBJ/MTL, ``.clm``, ``.clsnap.npz``;
+``scene/``); the reference tracers (``ops/trace_ref.py``,
+``ops/trace_wavefront.py``) are plain torch, chosen by name in
+``render.TRACERS`` and taken for scenes without cluster tables.
 """
 
 __version__ = "0.1.0"

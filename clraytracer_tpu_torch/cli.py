@@ -1,18 +1,26 @@
-"""Command line: render a named procedural scene to PNG, report its
-gradients, or fit its parameters to a target image.
+"""Command line: render a scene to PNG, report its gradients, fit its
+parameters to a target image, print its statistics or save it as a
+snapshot.
 
 Usage:
   python -m clraytracer_tpu_torch render --scene two --width 1024 --height 768 -o out.png
   python -m clraytracer_tpu_torch render --scene sphere --tris 1000000 --device cuda
   python -m clraytracer_tpu_torch render --scene two --shadows --gi --spp 4 --fxaa
   python -m clraytracer_tpu_torch render --scene glass --refraction --ior 1.45
+  python -m clraytracer_tpu_torch render --scene path/to/mesh.obj --tracer wavefront
   python -m clraytracer_tpu_torch grads  --scene sphere --width 1920 --height 1080
-  python -m clraytracer_tpu_torch fit    --scene two --steps 100 --lr 0.05
+  python -m clraytracer_tpu_torch fit    --scene two --steps 100 --lr 0.05 --save-snapshot fit.clsnap.npz
+  python -m clraytracer_tpu_torch inspect  --scene path/to/mesh.clm
+  python -m clraytracer_tpu_torch snapshot --scene path/to/mesh.obj -o scene.clsnap.npz
 
 Scenes: ``sphere`` (``--tris`` sets the triangle count), ``two``,
-``glass`` and ``field`` — the JAX package's named scenes (cli.py:28-74),
-whose textures are all procedural. The other commands and scene sources of the JAX CLI
-come with later parts of the port.
+``glass``, ``field`` and ``museum`` (the reference's three ``.clm``
+scenes under ``$CLRT_REFERENCE_ASSETS``) — the JAX package's named scenes
+(cli.py:28-94) — or a path: an OBJ (with its MTL and textures), a
+``.clm`` or a ``.clsnap.npz`` snapshot. ``--tracer`` picks the tracer by
+name (``render.TRACERS``): best, brute, bvh, wavefront or pallas (the
+port's K2.1). The JAX CLI's ``bench`` and ``sweep`` come with a later
+part of the port.
 """
 
 from __future__ import annotations
@@ -20,12 +28,20 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import time
+from pathlib import Path
+
+#: where the ``museum`` scene's reference assets lie (its ``sponza``,
+#: ``sibenik`` and ``nanosuit`` folders)
+ASSETS_ENV = "CLRT_REFERENCE_ASSETS"
 
 
 def build_scene(spec: str, tris: int = 4096, device=None):
-    """Named procedural scenes, as the JAX package's ``build_scene``."""
+    """Named scenes or a scene file, as the JAX package's ``build_scene``:
+    an OBJ or ``.clm`` is imported as one instance under the procedural
+    sky, a ``.clsnap.npz`` restored as saved."""
     from clraytracer_tpu_torch import math3d
     from clraytracer_tpu_torch.scene import SceneBuilder
     from clraytracer_tpu_torch.scene import procedural_tex as ptex
@@ -69,12 +85,45 @@ def build_scene(spec: str, tris: int = 4096, device=None):
             sphere_field(n_side=6, n_lat=16, n_lon=32), materials_start=mat
         )
         b.add_instance(mesh)
+    elif spec == "museum":
+        # the three reference .clm scenes as one multi-instance scene (~160k
+        # tris, ~45 textures: a pool past the reference's 32-texture cap)
+        from clraytracer_tpu_torch.config import PoolConfig
+
+        ref = Path(os.environ.get(ASSETS_ENV, "reference/CLRayTracer/Assets"))
+        if not ref.exists():
+            raise SystemExit("error: museum scene needs the reference assets")
+        b = SceneBuilder(PoolConfig(max_textures=64))
+        b.import_procedural(ptex.sky_gradient(512, 256))
+        sponza = b.import_mesh(ref / "sponza/sponza.clm")
+        sibenik = b.import_mesh(ref / "sibenik/sibenik.clm")
+        nanosuit = b.import_mesh(ref / "nanosuit/nanosuit.clm")
+        b.add_instance(sponza)
+        b.add_instance(sibenik, math3d.translation(0.0, 25.0, 0.0))
+        b.add_instance(nanosuit, math3d.translation(0.0, 0.0, 3.0))
+    elif spec.endswith(".clsnap.npz"):
+        # the full runtime state as saved: no re-import or rebuild
+        from clraytracer_tpu_torch.scene.checkpoint import load_scene
+
+        scene, _ = load_scene(spec, device=device)
+        return scene
     else:
-        raise SystemExit(
-            f"error: scene '{spec}' is not one of the named scenes "
-            "(sphere, two, glass, field)"
-        )
+        path = Path(spec)
+        if not path.exists():
+            raise SystemExit(
+                f"error: scene '{spec}' is neither a named scene "
+                f"(sphere, two, field) nor an existing OBJ/.clsnap path"
+            )
+        b.add_instance(b.import_mesh(path))
     return b.build(device=device)
+
+
+def _tracer(name: str):
+    from clraytracer_tpu_torch.render import TRACERS
+
+    if name not in TRACERS:
+        raise SystemExit(f"error: tracer '{name}' is not one of {', '.join(TRACERS)}")
+    return TRACERS[name]
 
 
 def _camera(args):
@@ -97,6 +146,7 @@ def cmd_render(args) -> int:
     from clraytracer_tpu_torch.render import render, save_png
 
     log = logging.getLogger("clraytracer_tpu_torch")
+    tracer = _tracer(args.tracer)
     scene = build_scene(args.scene, args.tris, device=args.device)
     cfg = RenderConfig(
         width=args.width,
@@ -113,7 +163,7 @@ def cmd_render(args) -> int:
         gi_seed=args.gi_seed,
     )
     t0 = time.perf_counter()
-    img = render(scene, _camera(args), cfg, device=args.device)
+    img = render(scene, _camera(args), cfg, device=args.device, tracer=tracer)
     if scene.device.type == "cuda":
         torch.cuda.synchronize()
     log.info("rendered %dx%d in %.1f ms (first frame, incl. set-up)",
@@ -248,11 +298,37 @@ def cmd_fit(args) -> int:
     )
     report.pop("losses")
     print(json.dumps(report, indent=2))
+    log = logging.getLogger("clraytracer_tpu_torch")
     if args.output:
         img = render_image_diff(fitted, frame, args.width, args.height,
                                 bounces=args.bounces, device=args.device)
         save_png(args.output, img.detach().cpu().numpy())
-        logging.getLogger("clraytracer_tpu_torch").info("wrote %s", args.output)
+        log.info("wrote %s", args.output)
+    if args.save_snapshot:
+        from clraytracer_tpu_torch.scene.checkpoint import save_scene
+
+        save_scene(fitted, args.save_snapshot, extras={"fit": report})
+        log.info("wrote %s", args.save_snapshot)
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    """The scene's table counts as JSON (cli.py:469 of the JAX package)."""
+    from clraytracer_tpu_torch.scene.types import scene_summary
+
+    scene = build_scene(args.scene, args.tris, device=args.device)
+    print(json.dumps(scene_summary(scene), indent=2))
+    return 0
+
+
+def cmd_snapshot(args) -> int:
+    """Save the scene's full state as a ``.clsnap.npz`` (cli.py:129 of the
+    JAX package)."""
+    from clraytracer_tpu_torch.scene.checkpoint import save_scene
+
+    scene = build_scene(args.scene, args.tris, device=args.device)
+    save_scene(scene, args.output)
+    logging.getLogger("clraytracer_tpu_torch").info("wrote %s", args.output)
     return 0
 
 
@@ -262,7 +338,9 @@ def main(argv: list[str] | None = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def common(p):
-        p.add_argument("--scene", default="sphere", help="sphere | two | glass | field")
+        p.add_argument("--scene", default="sphere",
+                       help="sphere | two | glass | field | museum | path "
+                       "(.obj/.clm/.clsnap.npz)")
         p.add_argument("--width", type=int, default=1024)
         p.add_argument("--height", type=int, default=768)
         p.add_argument("--tris", type=int, default=4096)
@@ -274,6 +352,9 @@ def main(argv: list[str] | None = None) -> int:
         p.add_argument("--pitch", type=float, default=0.0)
         p.add_argument("--device", default=None,
                        help="cuda (default) | cpu (the kernels' plain versions)")
+        p.add_argument("--tracer", default="best",
+                       help="best (K2.1 when the scene has cluster tables, else "
+                       "wavefront) | pallas (K2.1) | wavefront | bvh | brute")
 
     p = sub.add_parser("render", help="render a frame to PNG")
     common(p)
@@ -316,7 +397,21 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("-o", "--output", default=None,
                    help="write the render of the fitted scene here, and the "
                    "initial guess's beside it as <name>_init.png")
+    p.add_argument("--save-snapshot", default=None,
+                   help="write the fitted scene as a .clsnap.npz")
     p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("inspect", help="scene statistics")
+    common(p)
+    p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser(
+        "snapshot",
+        help="save a scene's full runtime state to a .clsnap.npz checkpoint",
+    )
+    common(p)
+    p.add_argument("-o", "--output", default="scene.clsnap.npz")
+    p.set_defaults(fn=cmd_snapshot)
     args = ap.parse_args(argv)
     return args.fn(args)
 

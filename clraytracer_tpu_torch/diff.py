@@ -4,14 +4,16 @@ texels.
 
 Strategy: **no-grad traversal + differentiable recompute**.
 
-1. K2.1 (``ops.trace.trace``) finds which triangle and instance each ray
-   hits, under ``torch.no_grad()``: the discrete choice is piecewise
-   constant and carries no gradient.
+1. A base tracer finds which triangle and instance each ray hits, under
+   ``torch.no_grad()``: the discrete choice is piecewise constant and
+   carries no gradient. K2.1 (``ops.trace.trace``) where the scene has
+   cluster tables, else ``trace_wavefront``, or the one given.
 2. (t, u, v) are recomputed by Möller–Trumbore from the hit triangle's
    vertices and the object-space ray, and autograd flows through it, the
    attribute interpolation, shading, texel gathers and the reflection
-   bounce. The per-triangle data rides one wide row gather of a [S, 25]
-   slot-ordered table: K2.3 forward, K2.4 backward (``ops/gather_rows.py``).
+   bounce. The per-triangle data rides one wide row gather of a [T, 25]
+   table (slot-ordered [S, 25] behind K2.1, which returns cluster slots):
+   K2.3 forward, K2.4 backward (``ops/gather_rows.py``).
 
 Interior pixels get exact gradients; silhouettes are not differentiated
 (the usual almost-everywhere convention).
@@ -31,7 +33,8 @@ from clraytracer_tpu_torch.ops.gather import wide_rows_diff
 from clraytracer_tpu_torch.ops.post import post_process
 from clraytracer_tpu_torch.ops.shade import object_space_rays
 from clraytracer_tpu_torch.ops.trace import SceneHit, trace
-from clraytracer_tpu_torch.render import FrameInputs, Tracer, trace_planar
+from clraytracer_tpu_torch.ops.trace_wavefront import trace_wavefront
+from clraytracer_tpu_torch.render import FrameInputs, Tracer, resolve_tracer, trace_planar
 from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
 
 #: the scene groups the step reads with gradients; the others (bvh,
@@ -40,10 +43,10 @@ from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
 DIFF_GROUPS = ("tris", "materials", "atlas", "instances")
 
 
-def make_differentiable_tracer() -> Tracer:
-    """A tracer whose hit records are differentiable w.r.t. the scene's
-    geometry, attributes and instance transforms (diff.py:42 of the JAX
-    package)."""
+def make_differentiable_tracer(base_tracer: Tracer = trace_wavefront) -> Tracer:
+    """Wrap ``base_tracer`` so its hit records are differentiable w.r.t. the
+    scene's geometry, attributes and instance transforms (diff.py:42 of the
+    JAX package)."""
 
     def traced(
         scene: Scene,
@@ -51,11 +54,16 @@ def make_differentiable_tracer() -> Tracer:
         direction: torch.Tensor,
         live: torch.Tensor | None = None,
     ) -> SceneHit:
+        tracer_fn = resolve_tracer(base_tracer, scene)
+        # K2.1 returns raw cluster slots, and the table below is re-ordered
+        # to slot order once per call; every other tracer returns arena
+        # triangle ids, which index the table as it is
+        slots = tracer_fn is trace
+        kw = {"return_slots": True} if slots else {}
         with torch.no_grad():
-            hit = trace(
+            hit = tracer_fn(
                 scene, origin.detach(), direction.detach(),
-                live=None if live is None else live.detach(),
-                return_slots=True,
+                live=None if live is None else live.detach(), **kw,
             )
         # miss and dead lanes carry no triangle: pin them to row 0 (their
         # values are discarded below and their cotangents are zero)
@@ -72,10 +80,10 @@ def make_differentiable_tracer() -> Tracer:
             ],
             dim=1,
         )  # [T, 25]
-        # slot order: the tracer returns cluster slots, so the table is
-        # re-ordered once per call (its gradient scatters back to T rows)
-        gid = scene.clusters.tri_gid.long().clamp(0, vt.shape[0] - 1)
-        vt = vt.index_select(0, gid)  # [S, 25]
+        if slots:
+            # slot order (the gradient scatters back to the T rows)
+            gid = scene.clusters.tri_gid.long().clamp(0, vt.shape[0] - 1)
+            vt = vt.index_select(0, gid)  # [S, 25]
         rows = wide_rows_diff(vt, tri)  # [25, ...]
         v0, v1, v2 = rows[0:3], rows[3:6], rows[6:9]
         e1 = v1 - v0
@@ -119,6 +127,7 @@ def render_image_diff(
     width: int,
     height: int,
     bounces: int = 2,
+    base_tracer: Tracer | None = None,
     reference_parity: bool = True,
     enable_post: bool = False,
     device: str | torch.device | None = None,
@@ -126,8 +135,10 @@ def render_image_diff(
     """Differentiable [H, W, 3] render on the float colour path
     (diff.py:177 of the JAX package): reference-parity shading, or the
     materials' own with ``reference_parity=False``; ``enable_post``
-    applies the post chain (``ops.post.post_process``). ``device`` (None =
-    the CUDA card) must be where the scene lies."""
+    applies the post chain (``ops.post.post_process``). ``base_tracer``
+    finds the hits; None takes K2.1 where the scene has cluster tables,
+    else ``trace_wavefront``. ``device`` (None = the CUDA card) must be
+    where the scene lies."""
     dev = resolve_device(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene is on {scene.device}, render asked for {dev}")
@@ -136,9 +147,11 @@ def render_image_diff(
         f32(frame.inverse_view), f32(frame.inverse_projection), width, height
     )  # [3, H, W]
     origin = f32(frame.camera_position)[:, None, None].expand(dirs.shape)
+    if base_tracer is None:
+        base_tracer = trace if scene.clusters is not None else trace_wavefront
     result = trace_planar(
         scene, origin, dirs, f32(frame.sun_angle), bounces,
-        make_differentiable_tracer(), reference_parity, integer_colors=False,
+        make_differentiable_tracer(base_tracer), reference_parity, integer_colors=False,
     )
     img = planar.to_last(result, (height, width))
     if enable_post:

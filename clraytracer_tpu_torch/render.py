@@ -15,6 +15,12 @@ through K2.1 too. On a CPU scene the kernels are their plain versions.
 take any tracer: given K2.1's, a frame the fused kernel covers is one
 launch of K2.2 in ray mode (``render_fused.render_fused``);
 ``diff.render_image_diff`` passes its differentiable tracer.
+
+The frame entries take a ``tracer`` (``TRACERS`` by name, as the JAX
+CLI's ``--tracer``). The default, ``trace_best``, takes the kernels
+whenever the scene has cluster tables, and the reference tracers'
+``trace_wavefront`` (plain torch) on a scene without them. Any other
+tracer renders the two-phase path with it.
 """
 
 from __future__ import annotations
@@ -34,12 +40,45 @@ from clraytracer_tpu_torch.ops import render_fused as rf
 from clraytracer_tpu_torch.ops.post import post_process, post_process_tiled
 from clraytracer_tpu_torch.ops.shade import initial_bounce_state, shade_hits
 from clraytracer_tpu_torch.ops.trace import SceneHit, trace
+from clraytracer_tpu_torch.ops.trace_ref import trace_brute, trace_bvh
+from clraytracer_tpu_torch.ops.trace_wavefront import trace_wavefront
 from clraytracer_tpu_torch.scene.types import Scene
 
 #: A tracer maps (scene, origins [3, ...], directions [3, ...], live=None)
 #: → SceneHit with [...]-shaped fields; ``live`` is a [...] bool mask of the
 #: rays still bouncing, or None on bounce 0.
 Tracer = Callable[..., SceneHit]
+
+
+def trace_best(scene: Scene, origin, direction, **kw) -> SceneHit:
+    """The tracer for this scene (``resolve_tracer``): K2.1 when the scene
+    has cluster tables, else ``trace_wavefront``. The default everywhere."""
+    return resolve_tracer(trace_best, scene)(scene, origin, direction, **kw)
+
+
+def resolve_tracer(tracer: Tracer, scene: Scene) -> Tracer:
+    """``trace_best`` resolved against the scene (its cluster tables are a
+    static property of a built scene, as in render.py:55-61 of the JAX
+    package); any other tracer as given."""
+    if tracer is trace_best:
+        return trace if scene.clusters is not None else trace_wavefront
+    return tracer
+
+
+#: tracers by name, the JAX CLI's ``--tracer`` choices; ``"pallas"`` names
+#: the port's K2.1 (``ops.trace.trace``), so a JAX command line carries over
+TRACERS: dict[str, Tracer] = {
+    "best": trace_best,
+    "brute": trace_brute,
+    "bvh": trace_bvh,
+    "wavefront": trace_wavefront,
+    "pallas": trace,
+}
+
+
+def register_tracer(name: str, fn: Tracer) -> None:
+    TRACERS[name] = fn
+
 
 #: test hook: False makes the float path of imported-texture scenes gather
 #: its texels in every bounce instead of once after the loop
@@ -66,21 +105,13 @@ def frame_inputs_from_camera(camera: Camera, sun_angle: float) -> FrameInputs:
     )
 
 
-def _unsupported(scene: Scene) -> str | None:
-    """Why the port cannot render the scene yet, or None: both paths read
-    the cluster and packed tables (the JAX package's tracers without them
-    are not ported)."""
-    if scene.packed is None or scene.clusters is None:
-        return "scene without cluster or packed tables"
-    return None
-
-
 def _trace_tiled(
     scene: Scene,
     frame: FrameInputs,
     width: int,
     height: int,
     bounces: int,
+    tracer: Tracer = trace_best,
     reference_parity: bool = True,
     integer_colors: bool = True,
     enable_shadows: bool = False,
@@ -91,10 +122,11 @@ def _trace_tiled(
 ) -> tuple[torch.Tensor, tuple]:
     """The JAX ``_trace_tiled`` (render.py:409): raw ``[3, rows, 128]``
     radiance in screen-tile order plus its ``("strip", trows, tiles_x,
-    tiles_y)`` layout, from the fused kernel's in-kernel raygen where it
-    covers the frame, else from the tiled camera rays through
-    ``bounce_loop``."""
-    if not enable_refraction and rf.fused_path_available(
+    tiles_y)`` layout, from the fused kernel's in-kernel raygen where the
+    tracer is K2.1's and the kernel covers the frame, else from the tiled
+    camera rays through ``bounce_loop``."""
+    tracer = resolve_tracer(tracer, scene)
+    if tracer is trace and not enable_refraction and rf.fused_path_available(
         scene, reference_parity, integer_colors
     ):
         result, (trows, tiles_x, tiles_y) = rf.render_fused_camera(
@@ -112,7 +144,7 @@ def _trace_tiled(
     )  # [3, tiles_y * tiles_x * trows, 128]
     origin = f32(frame.camera_position)[:, None, None].expand(dirs.shape)
     result = bounce_loop(
-        scene, origin, dirs, f32(frame.sun_angle), bounces, trace,
+        scene, origin, dirs, f32(frame.sun_angle), bounces, tracer,
         reference_parity, integer_colors, enable_shadows, enable_refraction,
         refraction_ior, enable_gi, gi_seed,
     )
@@ -125,6 +157,7 @@ def trace_image(
     width: int,
     height: int,
     bounces: int = 2,
+    tracer: Tracer = trace_best,
     reference_parity: bool = True,
     integer_colors: bool = True,
     enable_shadows: bool = False,
@@ -136,7 +169,7 @@ def trace_image(
     """Linear [H, W, 3] radiance before post-processing (render.py:373 of
     the JAX package)."""
     result, layout = _trace_tiled(
-        scene, frame, width, height, bounces, reference_parity, integer_colors,
+        scene, frame, width, height, bounces, tracer, reference_parity, integer_colors,
         enable_shadows, enable_refraction, refraction_ior, enable_gi, gi_seed,
     )
     return _untile(result, layout, height, width).permute(1, 2, 0)
@@ -187,6 +220,7 @@ def render_frame(
     frame: FrameInputs,
     config: RenderConfig,
     device: str | torch.device | None = None,
+    tracer: Tracer = trace_best,
 ) -> torch.Tensor:
     """Full frame: trace + post chain → [H, W, 3] on the scene's device
     (render.py:503 of the JAX package, its three branches). ``device``
@@ -194,11 +228,9 @@ def render_frame(
     dev = resolve_device(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene is on {scene.device}, frame asked for {dev}")
-    why = _unsupported(scene)
-    if why is not None:
-        raise NotImplementedError(f"render_frame: {why} is not ported yet")
     opts = dict(
         bounces=config.bounces,
+        tracer=tracer,
         reference_parity=config.reference_parity_shading,
         integer_colors=config.integer_colors,
         enable_shadows=config.enable_shadows,
@@ -305,6 +337,7 @@ def bounce_loop(
     tracer. The float path of imported-texture scenes (reference parity,
     no refraction) gathers every bounce's texels in one combined gather
     after the loop (render.py:306-325)."""
+    tracer = resolve_tracer(tracer, scene)
     if tracer is trace and not enable_refraction and rf.fused_path_available(
         scene, reference_parity, integer_colors
     ):
@@ -362,10 +395,11 @@ def render(
     camera: Camera,
     config: RenderConfig,
     device: str | torch.device | None = None,
+    tracer: Tracer = trace_best,
 ) -> np.ndarray:
     """Convenience entry: an [H, W, 3] float numpy image."""
     frame = frame_inputs_from_camera(camera, config.sun_angle)
-    return render_frame(scene, frame, config, device).cpu().numpy()
+    return render_frame(scene, frame, config, device, tracer).cpu().numpy()
 
 
 def to_srgb_u8(img: np.ndarray) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""Native-backed BVH building (returns None when the library is missing,
-and the builder then takes the numpy version, as the JAX package does)."""
+"""Native-backed OBJ parsing and BVH building. Each returns None when the
+library is missing, and the caller then takes its Python version, as the
+JAX package does."""
 
 from __future__ import annotations
 
@@ -20,6 +21,39 @@ def _i32p(a: np.ndarray):
 
 def _longp(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_long))
+
+
+def parse_obj_arrays(text: str):
+    """Native OBJ tokenize/triangulate.
+
+    Returns (positions [V,3], uvs [T,2], normals [N,3], tri_pos [F,3],
+    tri_uv [F,3], tri_n [F,3], tri_stmt [F]): resolved 0-based indices,
+    -1 for absent attributes, tri_stmt = usemtl statement index per face.
+    Returns None when the native library is unavailable.
+    """
+    lib = native_lib()
+    if lib is None:
+        return None
+    raw = text.encode("utf-8", errors="replace")
+    counts = np.zeros(5, np.int64)
+    lib.clrt_obj_count(raw, len(raw), _longp(counts))
+    nv, nt, nn, ntri, _ = (int(x) for x in counts)
+    positions = np.zeros((max(nv, 1), 3), np.float32)
+    uvs = np.zeros((max(nt, 1), 2), np.float32)
+    normals = np.zeros((max(nn, 1), 3), np.float32)
+    tri_pos = np.zeros((max(ntri, 1), 3), np.int32)
+    tri_uv = np.zeros((max(ntri, 1), 3), np.int32)
+    tri_n = np.zeros((max(ntri, 1), 3), np.int32)
+    tri_stmt = np.zeros(max(ntri, 1), np.int32)
+    lib.clrt_obj_parse(
+        raw, len(raw),
+        _f32p(positions), _f32p(uvs), _f32p(normals),
+        _i32p(tri_pos), _i32p(tri_uv), _i32p(tri_n), _i32p(tri_stmt),
+    )
+    return (
+        positions[:nv], uvs[:nt], normals[:nn],
+        tri_pos[:ntri], tri_uv[:ntri], tri_n[:ntri], tri_stmt[:ntri],
+    )
 
 
 def build_bvh_native(

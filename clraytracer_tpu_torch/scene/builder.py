@@ -6,13 +6,15 @@ Material 0 is the reference's prepared default (ResourceManager.cpp:224-232);
 (Renderer.cpp:231-233). ``build`` makes the BVH forest (native builder
 first, numpy fallback, selected as the JAX builder does), the cluster
 tables, the texel pool and the packed shading tables, and returns an
-immutable ``Scene`` whose leaves equal the JAX builder's. OBJ and ``.clm``
-import are not ported yet.
+immutable ``Scene`` whose leaves equal the JAX builder's. ``import_mesh``
+reads OBJ/MTL, ``.clm`` and ``.clmz`` files with their textures.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,7 +29,9 @@ from clraytracer_tpu_torch.ops.clusters import (
     subtree_cluster_ranges,
 )
 from clraytracer_tpu_torch.ops.shade import _OFF_MASK, _OFF_SHIFT
+from clraytracer_tpu_torch.scene import cache as mesh_cache
 from clraytracer_tpu_torch.scene import procedural_tex as ptex
+from clraytracer_tpu_torch.scene.clm import resolve_asset_path
 from clraytracer_tpu_torch.scene.procedural import MeshData
 from clraytracer_tpu_torch.scene.textures import AtlasBuilder
 from clraytracer_tpu_torch.scene.types import (
@@ -140,13 +144,15 @@ class SceneBuilder:
         )
         return len(self._materials) - 1
 
-    def import_texture(self, rgb8: np.ndarray) -> int:
-        """Append an [H, W, 3] u8 image to the texel pool; returns its
-        handle. Scenes with such textures render on a path this package
-        does not port yet (``render.render_frame`` raises)."""
+    def import_texture(self, source: str | Path | np.ndarray) -> int:
+        """Append an [H, W, 3] u8 image, or decode an image file
+        (``AtlasBuilder.load_image``), to the texel pool; returns its
+        handle."""
         if len(self.atlas._width) >= self.pools.max_textures:
             raise MemoryError("texture pool overflow (reference MaxTextures)")
-        return self.atlas.add_image(rgb8)
+        if isinstance(source, np.ndarray):
+            return self.atlas.add_image(source)
+        return self.atlas.load_image(source)
 
     def import_procedural(self, desc: ptex.ProceduralTexture) -> int:
         """Register a procedural texture: baked into the pool like any image
@@ -165,6 +171,42 @@ class SceneBuilder:
             0 if materials_start is None else materials_start
         )
         return len(self._meshes) - 1
+
+    def import_mesh(self, path: str | Path, use_cache: bool = True) -> int:
+        """Import an OBJ, ``.clm`` or cached mesh (``cache.import_mesh``)
+        and register its materials and their diffuse and specular maps
+        (reference ImportMesh, ResourceManager.cpp:241-276); returns the
+        mesh handle. A map that cannot be found stays ``WHITE_TEXTURE``,
+        with a warning for a diffuse map."""
+        path = Path(path)
+        obj = mesh_cache.import_mesh(path, use_cache=use_cache)
+        mat_start = len(self._materials) if obj.materials else 0
+        for om in obj.materials:
+            albedo_tex = WHITE_TEXTURE
+            specular_tex = WHITE_TEXTURE
+            if om.diffuse_map:
+                # .clm/.mtl paths may be project-root relative and in Windows
+                # case ("Assets/sponza/01_ST_KP.JPG"): resolve both forms
+                tex_path = resolve_asset_path(path.parent, om.diffuse_map)
+                if tex_path is not None:
+                    albedo_tex = self.import_texture(tex_path)
+                else:
+                    logging.getLogger(__name__).warning(
+                        "missing diffuse map %s (near %s)", om.diffuse_map, path
+                    )
+            if om.specular_map:
+                tex_path = resolve_asset_path(path.parent, om.specular_map)
+                if tex_path is not None:
+                    specular_tex = self.import_texture(tex_path)
+            self.create_material(
+                albedo=tuple(om.diffuse),
+                specular=tuple(om.specular),
+                albedo_tex=albedo_tex,
+                specular_tex=specular_tex,
+                shininess=om.shininess,
+                roughness=om.roughness,
+            )
+        return self.add_mesh(obj.mesh, materials_start=mat_start)
 
     def add_instance(
         self,

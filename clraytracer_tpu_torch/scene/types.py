@@ -10,6 +10,7 @@ procedural-texture registry, the skybox record) stay Python values.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -180,3 +181,17 @@ class Scene(_TensorData):
     skybox_tex: int = 2
     #: (texture handle, texel-pool offset, ProceduralTexture) triples
     procedural_tex: tuple = ()
+
+
+def scene_summary(scene: Scene) -> dict[str, Any]:
+    """Counts of the scene's tables (the JAX ``scene_summary``, the
+    ``inspect`` command's output)."""
+    return {
+        "triangles": int(scene.tris.count),
+        "bvh_nodes": int(scene.bvh.node_min.shape[0]),
+        "meshes": len(scene.bvh.roots),
+        "materials": int(scene.materials.count),
+        "textures": int(scene.atlas.num_textures),
+        "texels": int(scene.atlas.texels.shape[0]),
+        "instances": int(scene.instances.count),
+    }

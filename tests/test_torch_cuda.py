@@ -848,3 +848,104 @@ def test_row_windows_stack_to_the_full_frame_on_card(split):
         assert torch.equal(got, want)
     bad = ((got - want).abs() > 1e-5).any(dim=0)
     assert int(bad.sum()) <= FRAME_MISMATCH_MAX
+
+
+def _small_obj(tmp_path):
+    """A two-material OBJ (a sphere in two latitude halves and a quad-grid
+    floor) with PNG diffuse maps written with every row filter
+    (chip_smoke's writers)."""
+    import numpy as np
+
+    from chip_smoke import _quad_grid, _soup, museum_texture, obj_text, png_bytes
+    from clraytracer_tpu_torch.scene.procedural import uv_sphere
+
+    s = _soup(uv_sphere(1.5, 12, 24))
+    top = s[0][:, :, 1].mean(axis=1) > 0
+    groups = [("top", tuple(c[top] for c in s)), ("bottom", tuple(c[~top] for c in s)),
+              ("floor", _quad_grid(6, (-4, -1.5, -4), (8, 0, 0), (0, 0, 8), (0, 1, 0), 3.0))]
+    mtl = []
+    for k, (name, _) in enumerate(groups):
+        (tmp_path / f"{name}.png").write_bytes(png_bytes(museum_texture(k, 32)))
+        mtl += [f"newmtl {name}", "Kd 0.8 0.7 0.6", f"map_Kd {name}.png"]
+    (tmp_path / "m.mtl").write_text("\n".join(mtl) + "\n")
+    (tmp_path / "m.obj").write_text(obj_text(groups, "m.mtl"))
+    return tmp_path / "m.obj"
+
+
+@pytest.mark.cuda
+def test_imported_obj_frame_on_card_matches_cpu(tmp_path):
+    """An imported OBJ scene's default frame on the card: one launch of
+    K2.2's atlas-mode-1 instantiation, the image against the CPU frame
+    (plain versions) on at least 99% of pixels within 1e-5."""
+    dev = _card()
+    path = _small_obj(tmp_path)
+    cfg = RenderConfig(width=W, height=H)
+    frame = trender.frame_inputs_from_camera(Camera.create(CAMERA, W, H), -1.96)
+    img_c = trender.render_frame(build_scene(str(path), device="cpu"), frame, cfg,
+                                 device="cpu")
+    scene = build_scene(str(path), device=dev)
+    assert rf.atlas_mode_of(scene) == 1
+    before = (rf.render_cuda.launches, dict(rf.render_cuda.variant_launches),
+              tr.trace_cuda.launches)
+    img_g = trender.render_frame(scene, frame, cfg)
+    torch.cuda.synchronize()
+    assert rf.render_cuda.launches == before[0] + 1
+    assert rf.render_cuda.variant_launches["atlas1"] == before[1].get("atlas1", 0) + 1
+    assert tr.trace_cuda.launches == before[2]
+    assert torch.isfinite(img_g).all()
+    close = ((img_g.cpu() - img_c).abs() <= 1e-5).all(dim=-1).double().mean()
+    assert close >= 0.99, float(close)
+
+
+@pytest.mark.cuda
+def test_reference_tracers_on_card_match_cpu(tmp_path):
+    """trace_wavefront and trace_bvh (plain torch) on CUDA tensors against
+    the same calls on the CPU, with and without a live mask: hit, triangle
+    and instance equal on all but FRAME_MISMATCH_MAX rays (a float sum
+    reduced in another order on the card can flip a grazing hit), t/u/v
+    within 1e-5 where they agree; no kernel launched."""
+    from clraytracer_tpu_torch.ops.trace_ref import trace_bvh
+    from clraytracer_tpu_torch.ops.trace_wavefront import trace_wavefront
+
+    dev = _card()
+    path = _small_obj(tmp_path)
+    cpu, gpu = build_scene(str(path), device="cpu"), build_scene(str(path), device=dev)
+    rays = _camera_rays("cpu")
+    o, d = rays[:3], rays[3:]
+    live = torch.arange(o.shape[1]) % 3 != 0
+    before = (rf.render_cuda.launches, tr.trace_cuda.launches)
+    for fn in (trace_wavefront, trace_bvh):
+        for lv in (None, live):
+            ref = fn(cpu, o, d, live=lv)
+            got = fn(gpu, o.to(dev), d.to(dev), live=None if lv is None else lv.to(dev))
+            same = ((got.hit.cpu() == ref.hit) & (got.tri.cpu() == ref.tri)
+                    & (got.instance.cpu() == ref.instance))
+            assert int((~same).sum()) <= FRAME_MISMATCH_MAX, fn.__name__
+            assert int(ref.hit.sum()) > 1000
+            both = same & ref.hit
+            for f in ("t", "u", "v"):
+                diff = (getattr(got, f).cpu() - getattr(ref, f))[both].abs().max()
+                assert float(diff) <= 1e-5, (fn.__name__, f)
+    assert (rf.render_cuda.launches, tr.trace_cuda.launches) == before
+
+
+def test_png_decoder_without_pil(tmp_path, monkeypatch):
+    """The port's own decoder (PIL hidden, as on a machine without it) reads
+    back what chip_smoke.png_bytes wrote, every row filter in turn, in
+    texture-size images, and refuses a JPEG by name."""
+    import sys
+
+    import numpy as np
+
+    from chip_smoke import museum_texture, png_bytes
+    from clraytracer_tpu_torch.scene import imagefile, textures
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert textures.image_decoder() == "port"
+    for k, filters in enumerate(((0, 1, 2, 3, 4), (4,), (3, 1), (2, 0))):
+        img = museum_texture(k, 256)
+        (tmp_path / f"{k}.png").write_bytes(png_bytes(img, filters))
+        np.testing.assert_array_equal(textures.decode_rgb8(tmp_path / f"{k}.png"), img)
+    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    with pytest.raises(imagefile.UnsupportedImageError, match="JPEG"):
+        textures.decode_rgb8(tmp_path / "x.jpg")

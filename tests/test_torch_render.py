@@ -141,13 +141,26 @@ def test_too_many_materials_raise():
     _assert_close_frames(got, _jax_brute_frame(jscene, 32, 24), "65 materials")
 
 
-def test_scene_without_tables_raises(port_procedural):
-    """Both paths read the cluster and packed tables: a scene built without
-    them is the one frame still refused."""
+def test_scene_without_tables_raises(procedural_scene, port_procedural):
+    """A scene without cluster tables, once refused, renders through
+    ``trace_wavefront`` (``render.trace_best``), as the JAX ``render_frame``
+    does (its ``resolve_tracer``): at least 99% of pixels within 1e-5 of
+    the JAX frame, and no kernel launched."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError):
-        _port_frame(dataclasses.replace(port_procedural, clusters=None), 8, 8)
+    from clraytracer_tpu.ops.trace_ref import trace_brute
+
+    jscene = dataclasses.replace(procedural_scene, clusters=None)
+    scene = dataclasses.replace(port_procedural, clusters=None)
+    assert trender.resolve_tracer(trender.trace_best, scene) is trender.trace_wavefront
+    before = (render_fused.render_cuda.launches, trace.trace_cuda.launches)
+    got = _port_frame(scene, 32, 24).numpy()
+    assert (render_fused.render_cuda.launches, trace.trace_cuda.launches) == before
+    jcam = JCamera.create(JCameraConfig(**CAMERA), 32, 24)
+    ref = np.asarray(j_render_frame(
+        jscene, j_frame_inputs(jcam, -1.96), JRenderConfig(width=32, height=24)))
+    _assert_close_frames(got, ref, "without cluster tables")
+    _assert_close_frames(got, _jax_brute_frame(procedural_scene, 32, 24), "against brute")
 
 
 def test_cpu_frame_launches_no_kernel(port_procedural, two_instance_scene):
@@ -196,6 +209,35 @@ def test_port_imports_no_jax():
         "loss, g = image_loss_and_grads(s, frame_inputs_from_camera(cam, -1.96),\n"
         "                               32, 24, device='cpu')\n"
         "assert g['materials.albedo'].abs().max() > 0, g\n"
+        "import os, tempfile\n"
+        "from clraytracer_tpu_torch.scene import SceneBuilder\n"
+        "from clraytracer_tpu_torch.scene.procedural import cube\n"
+        "from clraytracer_tpu_torch.scene.clm import save_clm\n"
+        "from clraytracer_tpu_torch.scene.obj import load_obj\n"
+        "from clraytracer_tpu_torch.scene.imagefile import decode_image\n"
+        "from clraytracer_tpu_torch.ops.trace_wavefront import trace_wavefront\n"
+        "from clraytracer_tpu_torch.ops.trace_ref import trace_brute, trace_bvh\n"
+        "from clraytracer_tpu_torch.render import TRACERS\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "open(os.path.join(tmp, 'q.obj'), 'w').write('mtllib q.mtl\\nv 0 0 0\\nv 1 0 0\\n'\n"
+        "    'v 1 1 0\\nv 0 1 0\\nvt 0 0\\nvt 1 1\\nusemtl m\\nf 1/1 2/2 3/2 4/1\\n')\n"
+        "open(os.path.join(tmp, 'q.mtl'), 'w').write('newmtl m\\nKd 1 0.5 0\\nmap_Kd t.ppm\\n')\n"
+        "open(os.path.join(tmp, 't.ppm'), 'wb').write(b'P6 2 1 255\\n' + bytes(range(6)))\n"
+        "assert decode_image(os.path.join(tmp, 't.ppm')).shape == (1, 2, 3)\n"
+        "save_clm(os.path.join(tmp, 'c.clm'), load_obj(os.path.join(tmp, 'q.obj')))\n"
+        "for f in ('q.obj', 'c.clm'):\n"
+        "    b = SceneBuilder()\n"
+        "    b.add_instance(b.import_mesh(os.path.join(tmp, f)))\n"
+        "    b.add_instance(b.add_mesh(cube(0.5)))\n"
+        "    s2 = b.build(device='cpu')\n"
+        "    assert render(s2, cam, RenderConfig(width=32, height=24), device='cpu',\n"
+        "                  tracer=TRACERS['wavefront']).shape == (24, 32, 3)\n"
+        "snap = os.path.join(tmp, 's.clsnap.npz')\n"
+        "assert cli.main(['snapshot', '--scene', os.path.join(tmp, 'q.obj'), '--device', 'cpu',\n"
+        "                 '-o', snap]) == 0\n"
+        "s3 = cli.build_scene(snap, device='cpu')\n"
+        "for fn in (trace_wavefront, trace_bvh, trace_brute):\n"
+        "    assert fn(s3, o, d).hit.shape == (300,)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'clraytracer_tpu' or m.startswith('clraytracer_tpu.')]\n"
         "assert not bad, bad\n"
