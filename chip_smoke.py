@@ -120,6 +120,26 @@ and ``trace_brute`` on 4096 seeded camera rays against K2.1 (rays that
 differ counted; brute within FRAME_MISMATCH_MAX). The kernels line adds
 (t)'s launches to the atlas-1 instantiation's entry.
 
+After (t), (u) engine: ``engine.Engine`` on (a)'s scene at 1920x1080,
+``tracer="best"``, the reference's 80 ms frame watchdog armed: each frame
+turns instance 0 (``set_instance_transform``), moves the camera
+(``update_camera``), ``tick``s (instance upload, ``refresh_packed``),
+renders and ends the frame; counts from zero (one K2.2 launch a frame, no
+K2.1); frame ms (CUDA events around the whole frame), the host's issue,
+tick ms; the last frame bit-equal to ``render_frame`` on a scene built
+afresh from the builder's state; a 16-row band of an animated frame's
+launch against its plain version; ticks on (c)'s 1,002,000 triangles with
+the traversal's geometry tables shown to be the same tensors; picking:
+4096 seeded screen points through ``raycast(tracer=trace_best)`` (one K2.1
+launch) and 64 single ``Engine.pick`` calls, counts from zero, the
+raycast against ``trace_brute`` (at most FRAME_MISMATCH_MAX rays
+differing), K2.1 on 1, 3 and 33 of those rays exact against its plain
+version, the pick's ms through K2.1 and through ``trace_bvh``; the bench
+twin's default and ``--grads`` rows at 1920x1080 (JSON lines); the live
+viewer as a process on the card at 480x320 (five ``/frame`` PNGs decoded,
+X-Frame rising, ``/pick`` on the sphere, ``/material``, a frame after the
+edit). The kernels line adds (u)'s launches to the K2.2 and K2.1 entries.
+
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
 Imports no JAX and nothing of the JAX package.
@@ -618,37 +638,20 @@ def option_scene(spec: str, tris: int = 4096, device=None):
     ground quad under a red sphere. Others (``glass`` included):
     ``cli.build_scene``."""
     from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.bench import default_builder
     from clraytracer_tpu_torch.cli import build_scene
     from clraytracer_tpu_torch.scene import SceneBuilder
     from clraytracer_tpu_torch.scene import procedural_tex as ptex
     from clraytracer_tpu_torch.scene.procedural import quad, uv_sphere
-    from clraytracer_tpu_torch.scene.textures import checkerboard, gradient_sky
 
-    b = SceneBuilder()
-    if spec in ("atlas", "atlas65"):
-        n_lat = max(4, int((tris / 4) ** 0.5) + 1)
-        b.import_texture(gradient_sky(512, 256))
-        checker = b.import_texture(checkerboard(128, 8))
-        mat = b.create_material(
-            albedo=(0.9, 0.6, 0.3), albedo_tex=checker, shininess=1.0, roughness=0.4
-        )
-        b.add_instance(b.add_mesh(uv_sphere(2.0, n_lat=n_lat, n_lon=2 * n_lat),
-                                  materials_start=mat))
-        if spec == "atlas65":
+    if spec in ("atlas", "atlas65", "sphere65"):
+        # the bench's sphere (sphere65: its procedural textures)
+        b = default_builder(tris, atlas=spec != "sphere65")
+        if spec.endswith("65"):
             while len(b._materials) < 65:
                 b.create_material(albedo=(0.5, 0.5, 0.5))
-    elif spec == "sphere65":
-        n_lat = max(4, int((tris / 4) ** 0.5) + 1)
-        b.import_procedural(ptex.sky_gradient(512, 256))
-        checker = b.import_procedural(ptex.checker(128, 8))
-        mat = b.create_material(
-            albedo=(0.9, 0.6, 0.3), albedo_tex=checker, shininess=1.0, roughness=0.4
-        )
-        b.add_instance(b.add_mesh(uv_sphere(2.0, n_lat=n_lat, n_lon=2 * n_lat),
-                                  materials_start=mat))
-        while len(b._materials) < 65:
-            b.create_material(albedo=(0.5, 0.5, 0.5))
     elif spec == "ground":
+        b = SceneBuilder()
         b.import_procedural(ptex.sky_gradient(32, 16))
         checker = b.import_procedural(ptex.checker(16, 4))
         ground = b.create_material(albedo=(0.85, 0.85, 0.85), albedo_tex=checker)
@@ -1684,37 +1687,48 @@ def phase_main(dev, results, tris_large: int) -> None:
         raise SystemExit("main path d failed")
 
 
+# a torch.profiler session on the card's machine now and then records no
+# device events (once the first glue profile of cell (s), code that had
+# passed in the runs before): a session that holds none is taken again, up
+# to this many sessions in all, before the run fails
+PROFILE_ATTEMPTS = 3
+
+
 def device_profile(fn, reps: int, step_ms: float) -> dict:
     """torch.profiler over ``reps`` calls of ``fn``: device time by kernel
     (the trace's ``kernel``/``gpu_mem*`` events) and the device's idle
     share, 1 - busy / step, where busy is the union of the device
     intervals per call and ``step_ms`` the call's CUDA-event median taken
     without the profiler (its host-side tracing slows the launches and so
-    stretches the profiled span)."""
+    stretches the profiled span). ``profile_sessions``: the sessions it
+    took (``PROFILE_ATTEMPTS``)."""
     import os
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for sessions in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dev_ev = [
-        e for e in events
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-    ]
-    if not dev_ev:
-        raise SystemExit("profile: the trace holds no device events")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        dev_ev = [
+            e for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+        ]
+        if dev_ev:
+            break
+    else:
+        raise SystemExit(f"profile: {PROFILE_ATTEMPTS} traces hold no device events")
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev_ev)
     busy, end = 0.0, spans[0][0]  # union of the device intervals, in us
     for a, b in spans:
@@ -1736,6 +1750,7 @@ def device_profile(fn, reps: int, step_ms: float) -> dict:
             ops.append((float(us), e.key, int(e.count)))
     ops.sort(reverse=True)
     return {
+        "profile_sessions": sessions,
         "device_busy_ms_per_call": busy / reps / 1e3,
         "device_idle_share": 1.0 - busy / reps / 1e3 / step_ms,
         "profiled_wall_ms_per_call": wall_us / reps / 1e3,
@@ -2151,8 +2166,11 @@ def phase_kernels(dev, results) -> None:
             "name": "K2.1 trace (hit record)", "route": "cuda",
             "source": "clraytracer_tpu_torch/csrc/trace.cu",
             "replaces": "clraytracer_tpu/ops/trace_pallas.py:928",
-            "launches": results["trace_path"]["k21_launches"],
-            "path": f"(d) ops.trace.trace, {w}x{h} camera rays",
+            "launches": (results["trace_path"]["k21_launches"]
+                         + results["engine"]["picks"]["launches"]["K2.1"]),
+            "path": (f"(d) ops.trace.trace, {w}x{h} camera rays; (u) raycast of "
+                     f"{PICK_POINTS} screen points and {PICK_CALLS} Engine.pick calls "
+                     "(tracer=trace_best)"),
             "max_abs_err": max(results["trace_err"], check1["max_abs_err"]),
             "tolerance": (f"hit rule of tests/test_trace.py; <= {FRAME_MISMATCH_MAX} "
                           "rays not exact in (t, slot, instance); attrs rtol 1e-5 atol 1e-6"),
@@ -2164,8 +2182,9 @@ def phase_kernels(dev, results) -> None:
             "name": "K2.2 fused frame", "route": "cuda",
             "source": "clraytracer_tpu_torch/csrc/render.cu",
             "replaces": "clraytracer_tpu/ops/render_pallas.py:109",
-            "launches": sum(m["k22_launches"] for m in results["main"]),
-            "path": "(a)-(c) render.render_frame",
+            "launches": (sum(m["k22_launches"] for m in results["main"])
+                         + results["engine"]["launches"]["K2.2"]),
+            "path": "(a)-(c) render.render_frame; (u) engine.Engine.render",
             "max_abs_err": max(results["fused_err"], check2["max_abs_err_all"]),
             "tolerance": f"<= {FRAME_MISMATCH_MAX} rays over 1e-5 on any of nine planes",
             "ms": r_ms, "device_ms": r_dev, "plain_ms": rp_ms, "bound_ms": kb2["bound_ms"],
@@ -2830,6 +2849,357 @@ def phase_imported(dev, results) -> None:
         raise SystemExit("imported cell (t) failed")
 
 
+# ---------------------------------------------------------------------------
+# (u) the frame loop: engine.Engine, picking, the bench twin, the live viewer
+# ---------------------------------------------------------------------------
+
+# (a)'s scene and size through engine.Engine with the reference's 80 ms
+# frame watchdog (Renderer.cpp:370-371), the instance turning and the camera
+# moving every frame
+ENGINE_CELL = ("u", "sphere", 4096, 1920, 1080)
+ENGINE_WATCHDOG_MS = 80.0
+TICK_TRIALS = 5  # ticks timed on (c)'s million-triangle sphere
+PICK_POINTS = 4096  # seeded screen points through one raycast
+PICK_CALLS = 64  # single picks timed, per tracer
+VIEWER_WH = (480, 320)
+VIEWER_FRAMES = 5
+# the screen point (top-down mouse coordinates) of the centre (-2, 1, 0) of
+# ``two``'s sphere at VIEWER_WH, the viewer's camera unmoved
+VIEWER_PICK = (186, 140)
+
+
+def engine_step(eng, i: int) -> float:
+    """One frame of cell (u): instance 0 turned to 0.05*i rad, the camera
+    looked and moved (the signs alternate, so the view stays on the
+    sphere), ``tick``, ``render``, ``end_frame``. Returns the tick's host
+    ms."""
+    from clraytracer_tpu_torch import math3d
+
+    s = 1.0 if i % 2 else -1.0
+    eng.set_instance_transform(0, math3d.rotation_y(0.05 * i))
+    eng.update_camera(mouse_delta=(2.0 * s, 1.0 * s), move=(0.3 * s, 0.1 * s, 0.2))
+    t0 = time.perf_counter()
+    eng.tick()
+    tick_ms = (time.perf_counter() - t0) * 1e3
+    eng.render()
+    eng.end_frame()
+    return tick_ms
+
+
+def engine_ticks_large(dev, w: int, h: int) -> dict:
+    """Ticks on (c)'s 1,002,000-triangle sphere: host ms and ms with the
+    card drained after it, and whether the traversal's geometry tables
+    (``kernel_tables``) are the same tensors after the ticks."""
+    import torch
+
+    from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.cli import scene_builder
+    from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
+    from clraytracer_tpu_torch.engine import Engine
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+
+    t0 = time.perf_counter()
+    eng = Engine(scene_builder("sphere", TRIS_LARGE), RenderConfig(width=w, height=h),
+                 CameraConfig(position=CAMERA))
+    eng.start()
+    eng.render()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kt0, ft0 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    host, synced = [], []
+    for i in range(TICK_TRIALS):
+        eng.set_instance_transform(0, math3d.rotation_y(0.05 * (i + 1)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.tick()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e3)
+    img = eng.render()
+    kt1, ft1 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    reused = all(getattr(kt1, f).data_ptr() == getattr(kt0, f).data_ptr()
+                 for f in ("planes", "attrs", "hyper_box", "super_box", "cluster_box",
+                           "tri_gid", "ranges")) and ft1.tex.data_ptr() == ft0.tex.data_ptr()
+    return {"triangles": int(eng.scene.tris.count), "build_and_first_frame_s": build_s,
+            "tick_host_ms": sorted(host)[len(host) // 2],
+            "tick_synced_ms": sorted(synced)[len(synced) // 2],
+            "tick_synced_ms_all": synced, "geometry_tables_reused": reused,
+            "new_inst_rows": kt1.inst is not kt0.inst,
+            "finite": bool(torch.isfinite(img).all())}
+
+
+def engine_picks(eng, dev) -> dict:
+    """Picking on the cell's scene and camera: PICK_POINTS seeded screen
+    points through ``raycast(tracer=trace_best)`` (one K2.1 launch) and
+    PICK_CALLS single ``Engine.pick`` calls, counts from zero; then the
+    raycast against ``trace_brute``, K2.1 at 1, 3 and 33 of those rays
+    against its plain version (exact), and single picks through
+    ``trace_bvh`` (plain torch) timed."""
+    import numpy as np
+    import torch
+
+    from clraytracer_tpu_torch.camera import screen_point_to_ray
+    from clraytracer_tpu_torch.ops import trace as tr
+    from clraytracer_tpu_torch.ops.trace_ref import trace_brute, trace_bvh
+    from clraytracer_tpu_torch.raycast import pick, raycast
+    from clraytracer_tpu_torch.render import trace_best
+
+    scene, cam = eng.scene, eng.camera
+    pts = np.random.default_rng(0).uniform(0, 1, (PICK_POINTS, 2)) * (cam.width, cam.height)
+    od = [screen_point_to_ray(cam, float(x), float(y)) for x, y in pts]
+    o = torch.from_numpy(np.stack([a for a, _ in od])).to(dev)
+    d = torch.from_numpy(np.stack([b for _, b in od])).to(dev)
+    raycast(scene, o[:1], d[:1], trace_best)  # tables ready before the count
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = raycast(scene, o, d, trace_best)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    k21_ms = []
+    for x, y in pts[:PICK_CALLS]:
+        t0 = time.perf_counter()
+        eng.pick(float(x), float(y))
+        k21_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    ref = raycast(scene, o, d, trace_brute)
+    same = (rec.hit == ref.hit) & (rec.index == ref.index) & (rec.instance == ref.instance)
+    bvh_ms = []
+    for x, y in pts[:PICK_CALLS]:
+        t0 = time.perf_counter()
+        pick(scene, cam, float(x), float(y), trace_bvh)
+        bvh_ms.append((time.perf_counter() - t0) * 1e3)
+    # K2.1 on a pick's few rays: hits first, then misses
+    kt = tr.kernel_tables(scene)
+    rays = torch.cat([o.T, d.T]).contiguous()
+    hit_i, miss_i = rec.hit.nonzero()[:, 0], (~rec.hit).nonzero()[:, 0]
+    few = {}
+    for n in (1, 3, 33):
+        idx = torch.cat([hit_i[: (n + 1) // 2], miss_i[: n // 2]])
+        sub = rays[:, idx].contiguous()
+        few[str(n)] = compare_trace(tr.trace_cuda(kt, sub), tr.trace_plain(kt, sub))
+    k21_ms.sort()
+    bvh_ms.sort()
+    return {
+        "points": PICK_POINTS, "hits": int(rec.hit.sum()), "raycast_ms": batch_ms,
+        "launches": launches, "calls": PICK_CALLS,
+        "rays_differing_from_brute": int((~same).sum()),
+        "pick_k21_ms": k21_ms[len(k21_ms) // 2], "pick_k21_ms_min": k21_ms[0],
+        "pick_bvh_ms": bvh_ms[len(bvh_ms) // 2], "pick_bvh_ms_min": bvh_ms[0],
+        "k21_few_rays": few,
+        "max_abs_err": max(c["max_abs_err"] for c in few.values()),
+    }
+
+
+def bench_rows(w: int, h: int, tmp) -> list:
+    """The bench twin's default and ``--grads`` rows at w x h, in process
+    (each prints its JSON line)."""
+    import json as _json
+
+    from clraytracer_tpu_torch import bench
+
+    rows = []
+    for extra in ([], ["--grads", "--iters", "4"]):
+        out = f"{tmp}/bench_row.json"
+        if bench.main(["--width", str(w), "--height", str(h), *extra, "--out", out]) != 0:
+            raise SystemExit("engine cell: the bench twin failed")
+        with open(out) as f:
+            rows.append(_json.load(f))
+    return rows
+
+
+def live_viewer_run(tmp) -> dict:
+    """``tools.live_viewer`` as a process on the card at VIEWER_WH:
+    VIEWER_FRAMES frames (each PNG decoded, X-Frame rising), a pick of the
+    sphere, a material edit and a frame after it; ms per request on the
+    host clock (the HTTP round trip and the PNG encode included)."""
+    import os
+    import socket
+    import urllib.request
+    from pathlib import Path
+
+    from clraytracer_tpu_torch.scene.imagefile import decode_image
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    w, h = VIEWER_WH
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "clraytracer_tpu_torch.tools.live_viewer", "--scene", "two",
+         "--width", str(w), "--height", str(h), "--port", str(port)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    )
+    url = f"http://127.0.0.1:{port}"
+
+    def get(path: str):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url + path, timeout=120) as r:
+            body, head = r.read(), dict(r.headers)
+        return body, head, (time.perf_counter() - t0) * 1e3
+
+    try:
+        deadline = time.time() + 180
+        while True:
+            try:
+                get("/")
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    raise SystemExit("live viewer died:\n"
+                                     + proc.stdout.read().decode(errors="replace")[-2000:])
+                if time.time() > deadline:
+                    raise SystemExit("live viewer did not come up")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t_start
+        numbers, frame_ms, shapes = [], [], []
+        for i in range(VIEWER_FRAMES):
+            body, head, ms = get("/frame?mx=0&my=0&r=0&u=0&f=0")
+            p = Path(tmp) / f"viewer_{i}.png"
+            p.write_bytes(body)
+            shapes.append(list(decode_image(p).shape))
+            numbers.append(int(head["X-Frame"]))
+            frame_ms.append(ms)
+        last = body
+        pick_body, _, pick_ms = get(f"/pick?x={VIEWER_PICK[0]}&y={VIEWER_PICK[1]}")
+        hit = json.loads(pick_body)
+        _, _, edit_ms = get("/material?i=1&c=%230000ff")
+        body, head, after_ms = get("/frame?mx=0&my=0&r=0&u=0&f=0")
+        mats = json.loads(get("/materials")[0])
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+    return {
+        "size": [w, h], "up_s": up_s, "x_frame": numbers, "frame_ms": frame_ms,
+        "png_shapes": shapes, "pick": hit, "pick_ms": pick_ms, "material_ms": edit_ms,
+        "frame_after_edit_ms": after_ms, "edit_changed_frame": body != last,
+        "material_1": mats[1],
+        "ok": (all(s == [h, w, 3] for s in shapes) and numbers == sorted(set(numbers))
+               and len(numbers) == VIEWER_FRAMES and hit["hit"] is True
+               and hit["instance"] == 0 and body != last and mats[1] == "#0000ff"),
+    }
+
+
+def phase_engine(dev, results) -> None:
+    """(u): ``engine.Engine`` on (a)'s scene at 1920x1080 with
+    ``tracer="best"`` and the 80 ms watchdog: WARMUP + FRAMES animated
+    frames (``engine_step``), counts from zero (one K2.2 launch a frame, no
+    K2.1), each frame's ms by CUDA events, its tick's host ms; the host's
+    issue of a frame (the watchdog off, the card drained before each); the
+    last frame bit-equal to ``render_frame`` on a scene freshly built from
+    the builder's state; a 16-row band of that frame's launch against
+    ``render_fused_plain``; ticks on (c)'s scene; picking
+    (``engine_picks``); the bench twin's rows; the live viewer."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from clraytracer_tpu_torch.cli import scene_builder
+    from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
+    from clraytracer_tpu_torch.engine import Engine
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera, render_frame
+
+    t_phase = time.perf_counter()
+    tag, spec, tris, w, h = ENGINE_CELL
+    cfg = RenderConfig(width=w, height=h, frame_watchdog_ms=ENGINE_WATCHDOG_MS)
+    builder = scene_builder(spec, tris)
+    eng = Engine(builder, cfg, CameraConfig(position=CAMERA), tracer="best")
+    eng.start()
+    # ---- the main path's own run: counts from zero
+    reset_counts()
+    frame_ms, tick_ms = [], []
+    for i in range(WARMUP + FRAMES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        tick_ms.append(engine_step(eng, i))
+        b.record()
+        b.synchronize()
+        frame_ms.append(a.elapsed_time(b))
+    frames = WARMUP + FRAMES
+    launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
+                "K2.2_variants": dict(rf.render_cuda.variant_launches)}
+    steady = sorted(frame_ms[WARMUP:])
+    ticks = sorted(tick_ms[WARMUP:])
+    # ---- the host's issue of a frame: the watchdog off (it waits for the
+    # frame), the card drained before each frame
+    eng.config = dataclasses.replace(cfg, frame_watchdog_ms=None)
+    issue = []
+    for i in range(FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_step(eng, frames + i)
+        issue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    eng.config = cfg
+    issue.sort()
+    # ---- the last frame against a scene built afresh from the builder
+    engine_step(eng, frames + FRAMES)
+    frame = frame_inputs_from_camera(eng.camera, eng.sun_angle)
+    img = eng.render()
+    eng.end_frame()
+    fresh = builder.build(device=dev)
+    ref_img = render_frame(fresh, frame, RenderConfig(width=w, height=h))
+    bit_equal = bool(torch.equal(img, ref_img))
+    finite = bool(torch.isfinite(img).all())
+    del fresh, ref_img
+    # ---- a band of the animated frame's launch against its plain version
+    args = option_args(eng.scene, frame, w, h, cfg.bounces)
+    kt, trows = args[0], args[5]
+    out = rf.render_cuda(*args)
+    rays, _ = camera_rays(w, h, dev, frame)
+    hit0 = tr.trace_cuda(kt, rays)[0].abs() < tr.BIG
+    y0 = band_start(hit0, w, h, trows, CHECK_BAND_ROWS)
+    band = band_index(w, trows, y0, CHECK_BAND_ROWS, dev)
+    band_check = compare_options(
+        out[:, band], rf.render_fused_plain(*band_args(args, y0, CHECK_BAND_ROWS), dev), 0, False)
+    band_hits = int(hit0[band].sum())
+    del out, rays
+    large = engine_ticks_large(dev, w, h)
+    picks = engine_picks(eng, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = bench_rows(w, h, tmp)
+        viewer = live_viewer_run(tmp)
+    line = {
+        "phase": "engine", "config": tag, "scene": spec,
+        "triangles": int(eng.scene.tris.count), "width": w, "height": h,
+        "bounces": cfg.bounces, "tracer": eng.tracer, "watchdog_ms": ENGINE_WATCHDOG_MS,
+        "frames": frames, "frame_ms": steady[len(steady) // 2], "frame_ms_min": steady[0],
+        "frame_ms_max": steady[-1], "frame_ms_first": frame_ms[:WARMUP],
+        "frame_host_ms": issue[len(issue) // 2],
+        "tick_ms": ticks[len(ticks) // 2], "tick_ms_max": ticks[-1],
+        "launches": launches, "k22_launches_per_frame": launches["K2.2"] / frames,
+        "last_frame_bit_equal_fresh_build": bit_equal, "finite": finite,
+        "band_check": {"frame": f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-"
+                       f"{y0 + CHECK_BAND_ROWS - 1}) of {w}x{h}", "band_hits": band_hits,
+                       **band_check},
+        "ticks_large": large, "picks": picks, "bench_rows": rows, "live_viewer": viewer,
+    }
+    line["phase_s"] = time.perf_counter() - t_phase
+    line["ok"] = (
+        finite and bit_equal and band_check["ok"] and band_hits > 0
+        and launches["K2.2"] == frames and launches["K2.1"] == 0
+        and launches["K2.2_variants"] == {"default": frames}
+        and large["geometry_tables_reused"] and large["new_inst_rows"] and large["finite"]
+        and picks["launches"]["K2.1"] == 1 + PICK_CALLS and picks["launches"]["K2.2"] == 0
+        and picks["hits"] > 0 and picks["rays_differing_from_brute"] <= FRAME_MISMATCH_MAX
+        and all(c["ok"] and c["rays_not_exact"] == 0 for c in picks["k21_few_rays"].values())
+        and len(rows) == 2 and all(r["value"] > 0 for r in rows) and viewer["ok"]
+    )
+    results["engine"] = line
+    results["trace_err"] = max(results["trace_err"], picks["max_abs_err"])
+    results["fused_err"] = max(results["fused_err"], band_check["max_abs_err_within"])
+    emit(line)
+    if not line["ok"]:
+        raise SystemExit("engine cell (u) failed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write every line here (JSON)")
@@ -2872,6 +3242,7 @@ def main() -> int:
     phase_ray_cell(dev, results)
     phase_split_cell(dev, results)
     phase_imported(dev, results)
+    phase_engine(dev, results)
     phase_profile(dev, results)
     phase_diff(dev, results)
     phase_kernels(dev, results)

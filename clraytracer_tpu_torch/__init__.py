@@ -17,7 +17,10 @@ kernels' plain PyTorch versions run instead. Scenes come from the named
 procedural recipes or from files (OBJ/MTL, ``.clm``, ``.clsnap.npz``;
 ``scene/``); the reference tracers (``ops/trace_ref.py``,
 ``ops/trace_wavefront.py``) are plain torch, chosen by name in
-``render.TRACERS`` and taken for scenes without cluster tables.
+``render.TRACERS`` and taken for scenes without cluster tables. Above them
+sit the reference's application layer: ``engine.Engine`` (the frame
+loop), ``raycast`` (picking), ``bench`` (the benchmark, timed by CUDA
+events) and the two viewers in ``tools/``.
 """
 
 __version__ = "0.1.0"

@@ -288,3 +288,27 @@ def build_bvh(
         perm=perm.astype(np.int32),
     )
 
+
+
+def validate_bvh(build: BVHBuild, num_tris: int) -> None:
+    """Structural invariants (bvh.py:291 of the JAX package): every triangle
+    in exactly one leaf, children adjacent, child boxes inside their
+    parent's. Raises ``AssertionError`` naming the first broken one."""
+    seen = np.zeros(num_tris, np.int32)
+    n = len(build.tri_count)
+    eps = 1e-4
+    for node in range(n):
+        tc = build.tri_count[node]
+        lf = build.left_first[node]
+        if tc > 0:
+            seen[lf : lf + tc] += 1
+            continue
+        left, right = lf, lf + 1
+        if not (0 <= left < n and right < n):
+            raise AssertionError(f"node {node}: children {left}, {right} outside {n} nodes")
+        for ch in (left, right):
+            if not (np.all(build.node_min[ch] >= build.node_min[node] - eps)
+                    and np.all(build.node_max[ch] <= build.node_max[node] + eps)):
+                raise AssertionError(f"node {node}: child {ch}'s box is not inside it")
+    if not np.all(seen == 1):
+        raise AssertionError(f"{(seen != 1).sum()} triangles not covered exactly once")

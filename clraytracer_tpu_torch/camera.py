@@ -1,11 +1,15 @@
 """Camera matrices and primary-ray generation.
 
 ``Camera`` is host-side state with numpy matrices (reference
-Math/Camera.hpp). ``ray_directions_tiled`` is the RayGen unprojection
-(kernel_main.cl:277-287) in the render loop's screen-tile order; the fused
-frame kernel computes the same expressions per ray itself, and the plain
-frame uses this function. ``ray_directions_planar`` gives the same rays as
-an ``[3, H, W]`` image grid for the differentiable path.
+Math/Camera.hpp); ``Camera.updated`` applies one tick of mouse-look and fly
+input (Camera.hpp:47-93). ``ray_directions_tiled`` is the RayGen
+unprojection (kernel_main.cl:277-287) in the render loop's screen-tile
+order; the fused frame kernel computes the same expressions per ray
+itself, and the plain frame uses this function. ``ray_directions_planar``
+gives the same rays as an ``[3, H, W]`` image grid for the differentiable
+path, ``ray_directions`` as ``[H, W, 3]``, ``ray_directions_linear`` in
+ray-linear ``[3, rows, 128]`` order; ``screen_point_to_ray`` unprojects
+one mouse position for picking.
 """
 
 from __future__ import annotations
@@ -60,6 +64,16 @@ class Camera:
         return f / np.linalg.norm(f)
 
     @property
+    def right(self) -> np.ndarray:
+        r = np.cross(self.front, np.array([0.0, 1.0, 0.0], np.float32))
+        return r / np.linalg.norm(r)
+
+    @property
+    def up(self) -> np.ndarray:
+        u = np.cross(self.right, self.front)
+        return u / np.linalg.norm(u)
+
+    @property
     def projection(self) -> np.ndarray:
         return math3d.perspective_fov_rh(
             self.config.vertical_fov_deg * _DEG2RAD,
@@ -82,6 +96,29 @@ class Camera:
     @property
     def inverse_view(self) -> np.ndarray:
         return np.linalg.inv(self.view).astype(np.float32)
+
+    def updated(
+        self,
+        mouse_delta: tuple[float, float] = (0.0, 0.0),
+        move: tuple[float, float, float] = (0.0, 0.0, 0.0),
+        dt: float = 1.0 / 60.0,
+        sensitivity: float = 20.0,
+    ) -> "Camera":
+        """One tick of mouse-look and fly movement (reference
+        Camera.hpp:56-94) → a new camera. ``move`` is (right, up, forward)
+        in key units (D-A, E-Q, W-S)."""
+        pitch = self.pitch_deg - mouse_delta[1] * dt * sensitivity
+        yaw = self.yaw_deg + mouse_delta[0] * dt * sensitivity
+        pitch = float(np.clip(pitch, -89.0, 89.0))
+        speed = dt * 2.0
+        cam = dataclasses.replace(self, yaw_deg=yaw, pitch_deg=pitch)
+        pos = (
+            cam.position
+            + cam.right * (move[0] * speed)
+            + cam.up * (move[1] * speed)
+            + cam.front * (move[2] * speed)
+        )
+        return dataclasses.replace(cam, position=pos.astype(np.float32))
 
 
 def unproject(
@@ -129,17 +166,59 @@ def ray_directions_planar(
     inverse_projection: torch.Tensor,
     width: int,
     height: int,
+    row_start: int = 0,
+    num_rows: int | None = None,
 ) -> torch.Tensor:
-    """Planar ``[3, H, W]`` normalized primary-ray directions on the
+    """Planar ``[3, num_rows, W]`` normalized primary-ray directions on the
     matrices' device (the JAX package's ``camera.ray_directions_planar``,
     camera.py:132): ray ``j * W + i`` is pixel (i, j),
-    ``coord = (i/W, j/H) * 2 - 1``."""
+    ``coord = (i/W, j/H) * 2 - 1``; ``row_start``/``num_rows`` select a
+    window of the H rows."""
+    if num_rows is None:
+        num_rows = height
     dev = inverse_view.device
     xs = torch.arange(width, dtype=torch.float32, device=dev)
-    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    ys = row_start + torch.arange(num_rows, dtype=torch.float32, device=dev)
     xs = (xs / const(width, xs)) * 2.0 - 1.0
     ys = (ys / const(height, ys)) * 2.0 - 1.0
-    cx, cy = torch.meshgrid(xs, ys, indexing="xy")  # [H, W]
+    cx, cy = torch.meshgrid(xs, ys, indexing="xy")  # [num_rows, W]
+    return _unproject_grid(inverse_view, inverse_projection, cx, cy)
+
+
+def ray_directions(
+    inverse_view: torch.Tensor,
+    inverse_projection: torch.Tensor,
+    width: int,
+    height: int,
+    row_start: int = 0,
+    num_rows: int | None = None,
+) -> torch.Tensor:
+    """Interleaved ``[num_rows, W, 3]`` form of ``ray_directions_planar``
+    (camera.py:246 of the JAX package)."""
+    p = ray_directions_planar(
+        inverse_view, inverse_projection, width, height, row_start, num_rows
+    )
+    return torch.movedim(p, 0, -1)
+
+
+def ray_directions_linear(
+    inverse_view: torch.Tensor,
+    inverse_projection: torch.Tensor,
+    width: int,
+    height: int,
+    rows: int,
+) -> torch.Tensor:
+    """Ray-linear ``[3, rows, 128]`` directions (camera.py:184 of the JAX
+    package): ray ``r*128 + l`` is pixel ``(n % W, n // W)`` for
+    ``n = r*128 + l``; pad lanes (``n >= W*H``) get valid off-screen
+    directions."""
+    dev = inverse_view.device
+    n = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * 128
+         + torch.arange(128, dtype=torch.int64, device=dev)[None, :])
+    i = (n % width).to(torch.float32)
+    j = torch.div(n, width, rounding_mode="floor").to(torch.float32)
+    cx = (i / const(width, i)) * 2.0 - 1.0
+    cy = (j / const(height, j)) * 2.0 - 1.0
     return _unproject_grid(inverse_view, inverse_projection, cx, cy)
 
 
@@ -175,3 +254,17 @@ def ray_directions_tiled(
     rows = -(-height // tile_rows) * tile_rows * tiles_x
     px, py = tile_pixels(width, tile_rows, rows, inverse_view.device)
     return unproject(inverse_view, inverse_projection, px, py, width, height)
+
+
+def screen_point_to_ray(camera: Camera, x: float, y: float) -> tuple[np.ndarray, np.ndarray]:
+    """Unproject one screen point for picking (reference Camera.hpp:109-135;
+    camera.py:263 of the JAX package) → (origin, direction), numpy f32.
+    Mouse y runs top-down, so the picking path flips y where RayGen does
+    not."""
+    cx = (x / camera.width) * 2.0 - 1.0
+    cy = (1.0 - y / camera.height) * 2.0 - 1.0
+    target = np.array([cx, cy, 1.0, 1.0], np.float32) @ camera.inverse_projection
+    target /= target[3]
+    world = target @ camera.inverse_view
+    d = world[:3] / np.linalg.norm(world[:3])
+    return camera.position.copy(), d.astype(np.float32)

@@ -1,6 +1,6 @@
-"""Command line: render a scene to PNG, report its gradients, fit its
-parameters to a target image, print its statistics or save it as a
-snapshot.
+"""Command line: render a scene to PNG, benchmark it, report its
+gradients, fit its parameters to a target image, print its statistics or
+save it as a snapshot.
 
 Usage:
   python -m clraytracer_tpu_torch render --scene two --width 1024 --height 768 -o out.png
@@ -8,6 +8,7 @@ Usage:
   python -m clraytracer_tpu_torch render --scene two --shadows --gi --spp 4 --fxaa
   python -m clraytracer_tpu_torch render --scene glass --refraction --ior 1.45
   python -m clraytracer_tpu_torch render --scene path/to/mesh.obj --tracer wavefront
+  python -m clraytracer_tpu_torch bench  --width 1920 --height 1080
   python -m clraytracer_tpu_torch grads  --scene sphere --width 1920 --height 1080
   python -m clraytracer_tpu_torch fit    --scene two --steps 100 --lr 0.05 --save-snapshot fit.clsnap.npz
   python -m clraytracer_tpu_torch inspect  --scene path/to/mesh.clm
@@ -19,8 +20,9 @@ scenes under ``$CLRT_REFERENCE_ASSETS``) — the JAX package's named scenes
 (cli.py:28-94) — or a path: an OBJ (with its MTL and textures), a
 ``.clm`` or a ``.clsnap.npz`` snapshot. ``--tracer`` picks the tracer by
 name (``render.TRACERS``): best, brute, bvh, wavefront or pallas (the
-port's K2.1). The JAX CLI's ``bench`` and ``sweep`` come with a later
-part of the port.
+port's K2.1). ``bench`` runs the benchmark twin (``bench.py`` of this
+package) in process. The JAX CLI's ``sweep`` renders through the
+multi-device path and comes with it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,18 @@ def build_scene(spec: str, tris: int = 4096, device=None):
     """Named scenes or a scene file, as the JAX package's ``build_scene``:
     an OBJ or ``.clm`` is imported as one instance under the procedural
     sky, a ``.clsnap.npz`` restored as saved."""
+    if spec.endswith(".clsnap.npz"):
+        # the full runtime state as saved: no re-import or rebuild
+        from clraytracer_tpu_torch.scene.checkpoint import load_scene
+
+        scene, _ = load_scene(spec, device=device)
+        return scene
+    return scene_builder(spec, tris).build(device=device)
+
+
+def scene_builder(spec: str, tris: int = 4096):
+    """The SceneBuilder of a named scene or of an OBJ/``.clm`` file, not yet
+    built (what ``engine.Engine`` animates)."""
     from clraytracer_tpu_torch import math3d
     from clraytracer_tpu_torch.scene import SceneBuilder
     from clraytracer_tpu_torch.scene import procedural_tex as ptex
@@ -101,12 +115,6 @@ def build_scene(spec: str, tris: int = 4096, device=None):
         b.add_instance(sponza)
         b.add_instance(sibenik, math3d.translation(0.0, 25.0, 0.0))
         b.add_instance(nanosuit, math3d.translation(0.0, 0.0, 3.0))
-    elif spec.endswith(".clsnap.npz"):
-        # the full runtime state as saved: no re-import or rebuild
-        from clraytracer_tpu_torch.scene.checkpoint import load_scene
-
-        scene, _ = load_scene(spec, device=device)
-        return scene
     else:
         path = Path(spec)
         if not path.exists():
@@ -115,7 +123,7 @@ def build_scene(spec: str, tris: int = 4096, device=None):
                 f"(sphere, two, field) nor an existing OBJ/.clsnap path"
             )
         b.add_instance(b.import_mesh(path))
-    return b.build(device=device)
+    return b
 
 
 def _tracer(name: str):
@@ -171,6 +179,24 @@ def cmd_render(args) -> int:
     save_png(args.output, img)
     log.info("wrote %s", args.output)
     return 0
+
+
+def cmd_bench(args) -> int:
+    """The benchmark twin in process, with the JAX ``cmd_bench``'s
+    arguments (cli.py:178 of the JAX package) and ``--device``."""
+    from clraytracer_tpu_torch import bench
+
+    argv = [
+        "--width", str(args.width), "--height", str(args.height),
+        "--tris", str(args.tris), "--yaw", str(args.yaw),
+        "--camera-pos", *(str(c) for c in args.camera_pos),
+        "--tracer", args.tracer,
+    ]
+    if args.scene and args.scene != "sphere":
+        argv += ["--scene", args.scene]
+    if args.device:
+        argv += ["--device", args.device]
+    return bench.main(argv)
 
 
 def cmd_grads(args) -> int:
@@ -377,6 +403,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--gi-seed", type=int, default=0,
                    help="base RNG seed for --gi sample streams")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("bench", help="throughput benchmark (CUDA events)")
+    common(p)
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("grads", help="gradient report (L2 against black)")
     common(p)

@@ -50,6 +50,14 @@ class RenderConfig:
     enable_gi: bool = False
     gi_seed: int = 0
 
+    @property
+    def resolution(self) -> Tuple[int, int]:
+        return (self.width, self.height)
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
 
 @dataclasses.dataclass(frozen=True)
 class PoolConfig:

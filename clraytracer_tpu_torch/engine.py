@@ -1,0 +1,181 @@
+"""Engine: the frame loop (the JAX package's ``engine.py``; the
+reference's Engine.cpp/Engine.hpp).
+
+* ``Engine`` owns a SceneBuilder (or a built scene), a Camera and the
+  per-frame state: ``start`` builds the scene on the engine's device
+  (Engine_Start, Engine.cpp:56-80), ``tick`` applies instance-transform
+  edits (Engine_Tick, Engine.cpp:82-128), ``render`` renders the frame
+  through ``render.render_frame``, ``end_frame`` drains the deferred events
+  (Engine_EndFrame, Engine.cpp:130-134) and ``pick`` raycasts a mouse
+  position through the engine's tracer (Engine.cpp:112-126).
+* **End-of-frame events** (Engine_AddEndOfFrameEvent, Engine.cpp:13-20)
+  run after the frame in flight; **exit events** (Engine_AddOnExitEvent,
+  Engine.cpp:22-28) on ``close``.
+* **Instance edits**: ``set_instance_transform`` marks the instance table
+  dirty; the next ``tick`` uploads the instance arrays and refreshes the
+  packed rows (the dirty-range upload, Renderer.cpp:312-320). The
+  traversal's geometry tables stay (``ops.trace.kernel_tables``).
+* **Profiler stats** go to ``utils.timer.profiler_stats``
+  (Engine_UpdateProfilerStats, Engine.cpp:36-51).
+
+The device is the CUDA card unless the caller passes ``device="cpu"``;
+without a card, ``device=None`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from clraytracer_tpu_torch.camera import Camera
+from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
+from clraytracer_tpu_torch.device import resolve_device
+from clraytracer_tpu_torch.ops.shade import refresh_packed
+from clraytracer_tpu_torch.raycast import HitRecord, pick
+from clraytracer_tpu_torch.render import TRACERS, frame_inputs_from_camera, render_frame
+from clraytracer_tpu_torch.scene.builder import SceneBuilder
+from clraytracer_tpu_torch.scene.types import Scene
+from clraytracer_tpu_torch.utils.timer import ScopeTimer, profiler_stats
+
+#: frames exempt from the watchdog: the first two carry the kernels' load
+#: and their first launch (the JAX package's compiles)
+WATCHDOG_WARMUP = 2
+
+
+class FrameWatchdogError(RuntimeError):
+    """A frame past the warm-up took longer than
+    ``RenderConfig.frame_watchdog_ms`` (reference Renderer.cpp:370-371)."""
+
+
+class Engine:
+    """Frame-loop orchestration over a built scene."""
+
+    def __init__(
+        self,
+        builder: SceneBuilder | None = None,
+        config: RenderConfig = RenderConfig(),
+        camera_config: CameraConfig | None = None,
+        tracer: str = "best",
+        scene: Scene | None = None,
+        device: str | torch.device | None = None,
+    ) -> None:
+        """Give a ``builder`` (``start()`` builds and uploads) or a built
+        ``scene`` on ``device``. ``tracer`` names one of
+        ``render.TRACERS``."""
+        if builder is None and scene is None:
+            raise ValueError("Engine needs a builder or a scene")
+        if tracer not in TRACERS:
+            raise ValueError(f"tracer '{tracer}' is not one of {', '.join(TRACERS)}")
+        self.device = resolve_device(device)
+        if scene is not None and scene.device.type != self.device.type:
+            raise ValueError(f"scene is on {scene.device}, the engine on {self.device}")
+        self.builder = builder
+        self.config = config
+        self.tracer = tracer
+        self.camera = Camera.create(
+            camera_config or CameraConfig(), config.width, config.height
+        )
+        self.scene: Scene | None = scene
+        self.sun_angle = float(config.sun_angle)
+        self.frame_index = 0
+        self._end_of_frame: list[Callable[[], None]] = []
+        self._on_exit: list[Callable[[], None]] = []
+        self._instances_dirty = False
+
+    # -- events (Engine.cpp:13-28) -------------------------------------------
+
+    def add_end_of_frame_event(self, fn: Callable[[], None]) -> None:
+        self._end_of_frame.append(fn)
+
+    def add_on_exit_event(self, fn: Callable[[], None]) -> None:
+        self._on_exit.append(fn)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start(self) -> Scene:
+        """Build and upload the scene (Engine_Start → PushMeshesToGPU)."""
+        with ScopeTimer("engine.start"):
+            self.scene = self.builder.build(device=self.device)
+        return self.scene
+
+    def set_instance_transform(self, handle: int, transform: np.ndarray) -> None:
+        """SetMeshMatrix equivalent: takes effect at the next ``tick``."""
+        self.builder.set_instance_transform(handle, transform)
+        self._instances_dirty = True
+
+    def update_camera(self, **kwargs) -> None:
+        self.camera = self.camera.updated(**kwargs)
+
+    def tick(self, dt: float = 1.0 / 60.0) -> None:
+        """Per-frame update: upload the edited instance table and refresh
+        the packed rows that track it."""
+        if self._instances_dirty and self.scene is not None:
+            instances = self.builder.instance_arrays(device=self.device)
+            self.scene = refresh_packed(dataclasses.replace(self.scene, instances=instances))
+            self._instances_dirty = False
+
+    def render(self) -> torch.Tensor:
+        """The current frame, [H, W, 3] on the engine's device
+        (Renderer::Render).
+
+        With ``config.frame_watchdog_ms`` set the frame is timed on the
+        card (CUDA events around it, the stream synchronised after it; the
+        host clock on the CPU), and a frame past the first
+        ``WATCHDOG_WARMUP`` over the budget raises
+        :class:`FrameWatchdogError`: the reference's 80 ms "GPU
+        Bottleneck!" watchdog (Renderer.cpp:370-371), raising instead of
+        ``exit(0)``."""
+        if self.scene is None:
+            raise RuntimeError("call start() first")
+        frame = frame_inputs_from_camera(self.camera, self.sun_angle)
+        budget = self.config.frame_watchdog_ms
+        tracer = TRACERS[self.tracer]
+        cuda = self.device.type == "cuda"
+        with ScopeTimer("engine.render", log=False):
+            if budget is None:
+                img = render_frame(self.scene, frame, self.config, self.device, tracer)
+            elif cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                img = render_frame(self.scene, frame, self.config, self.device, tracer)
+                end.record()
+                end.synchronize()
+                dt_ms = start.elapsed_time(end)
+            else:
+                t0 = time.perf_counter()
+                img = render_frame(self.scene, frame, self.config, self.device, tracer)
+                dt_ms = (time.perf_counter() - t0) * 1e3
+        if budget is not None and self.frame_index >= WATCHDOG_WARMUP and dt_ms > budget:
+            raise FrameWatchdogError(
+                f"frame {self.frame_index} took {dt_ms:.1f} ms (watchdog {budget:.1f} ms)"
+            )
+        self.frame_index += 1
+        return img
+
+    def pick(self, x: float, y: float) -> HitRecord:
+        """Raycast the screen point (x, y) of the current camera through the
+        engine's tracer (Engine.cpp:112-126): host numpy values."""
+        if self.scene is None:
+            raise RuntimeError("call start() first")
+        return pick(self.scene, self.camera, x, y, TRACERS[self.tracer])
+
+    def end_frame(self) -> None:
+        """Drain the deferred events (Engine_EndFrame, Engine.cpp:130-134)."""
+        events, self._end_of_frame = self._end_of_frame, []
+        for fn in events:
+            fn()
+
+    def close(self) -> None:
+        """Run the exit events (Engine_Exit, Engine.cpp:136-140)."""
+        events, self._on_exit = self._on_exit, []
+        for fn in events:
+            fn()
+
+    @property
+    def stats(self) -> dict[str, float]:
+        return dict(profiler_stats)

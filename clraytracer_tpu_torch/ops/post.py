@@ -2,7 +2,9 @@
 vignette (MathAndSTL.cl:143-169), on the render loop's tile layout
 (``post_process_tiled``) or on an [H, W, 3] image (``post_process``), and
 FXAA (kernel_main.cl:294-340), which the untiled chain runs first when
-asked.
+asked. The standalone steps (``saturation``, ``reinhard``,
+``gamma_correct``, ``vignette_mask``) are the JAX package's, over
+``[..., 3]`` images; the chains merge them into one pass.
 
 Plain torch: in the JAX package this chain is XLA code, not a kernel. Its
 array shifts (``jnp.roll``) are ``torch.roll``.
@@ -15,11 +17,59 @@ import torch
 from clraytracer_tpu_torch.device import const
 
 _MAX_WHITE = 0.8
-#: the f32 luma weights
+#: the f32 luma weights: Reinhard's, and FXAA's
+_LUMA_R = tuple(torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32).tolist())
 _FXAA_LUMA = tuple(torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32).tolist())
 _FXAA_SPAN_MAX = 8.0
 _FXAA_REDUCE_MUL = 1.0 / 8.0
 _FXAA_REDUCE_MIN = 1.0 / 128.0
+
+
+def _fma_luma(a: torch.Tensor, weights: tuple) -> torch.Tensor:
+    """``einsum("...c,c->...")`` over [..., 3] as XLA evaluates the JAX
+    package's: fused multiply-adds in channel order, each product and sum
+    rounded once (f64 holds the f32 product exactly)."""
+    acc = a[..., 0] * weights[0]
+    for c in (1, 2):
+        acc = (a[..., c].double() * weights[c] + acc.double()).float()
+    return acc
+
+
+def _luminance(rgb: torch.Tensor) -> torch.Tensor:
+    return _fma_luma(rgb, _LUMA_R)
+
+
+def saturation(rgb: torch.Tensor, change: float = 1.2) -> torch.Tensor:
+    """Luma-sqrt pivot saturation (MathAndSTL.cl:154-158)."""
+    p = torch.sqrt(
+        rgb[..., 0] ** 2 * 0.299 + rgb[..., 1] ** 2 * 0.587 + rgb[..., 2] ** 2 * 0.114
+    )[..., None]
+    return p + (rgb - p) * change
+
+
+def reinhard(rgb: torch.Tensor) -> torch.Tensor:
+    """Extended Reinhard, max white 0.8, then pow(1/1.55)
+    (MathAndSTL.cl:143-152)."""
+    l_old = _luminance(rgb)
+    numerator = l_old * (1.0 + l_old / const(_MAX_WHITE * _MAX_WHITE, l_old))
+    l_new = numerator / (1.0 + l_old)
+    scale = l_new / torch.where(l_old == 0.0, torch.ones_like(l_old), l_old)
+    return torch.pow(torch.clamp(rgb * scale[..., None], min=0.0), 1.0 / 1.55)
+
+
+def gamma_correct(rgb: torch.Tensor) -> torch.Tensor:
+    """pow(1/1.2) (MathAndSTL.cl:160)."""
+    return torch.pow(torch.clamp(rgb, min=0.0), 1.0 / 1.2)
+
+
+def vignette_mask(height: int, width: int, device=None) -> torch.Tensor:
+    """[H, W] multiplicative vignette (MathAndSTL.cl:163-169)."""
+    u = torch.arange(width, dtype=torch.float32, device=device)
+    v = torch.arange(height, dtype=torch.float32, device=device)
+    u, v = u / const(width, u), v / const(height, v)
+    uu, vv = torch.meshgrid(u, v, indexing="xy")
+    vig = uu * (1.0 - uu) * (vv * (1.0 - vv)) * 15.0
+    return torch.pow(torch.clamp(vig, min=0.0), 0.15)
 
 
 def _post_core(p: torch.Tensor, vig: torch.Tensor) -> torch.Tensor:
@@ -90,13 +140,7 @@ def fxaa(img: torch.Tensor) -> torch.Tensor:
         return torch.roll(a, shifts=(-dy, -dx), dims=(0, 1))
 
     def luma(a):
-        # as XLA evaluates the JAX package's einsum: fused multiply-adds in
-        # channel order, each product and sum rounded once (f64 holds the
-        # f32 product exactly)
-        acc = a[..., 0] * _FXAA_LUMA[0]
-        for c in (1, 2):
-            acc = (a[..., c].double() * _FXAA_LUMA[c] + acc.double()).float()
-        return acc
+        return _fma_luma(a, _FXAA_LUMA)
 
     l_nw, l_ne, l_sw, l_se, l_m = (
         luma(a) for a in (shift2(img, -1, -1), shift2(img, -1, 1),

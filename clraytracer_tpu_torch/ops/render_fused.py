@@ -124,21 +124,35 @@ class FrameTables:
     descs: tuple  # ((off_hi, off_lo, ProceduralTexture), ...)
 
 
-def frame_tables(scene: Scene) -> FrameTables:
-    """Built on first use and kept with the scene's ``packed`` object, so
-    scenes that share it share the tables."""
-    cached = scene.packed.__dict__.get("_frame_tables")
-    if cached is not None:
-        return cached
+def _descriptor_table(scene: Scene, dev: torch.device) -> tuple[tuple, torch.Tensor]:
+    """The procedural descriptors ((off_hi, off_lo, desc), ...) and their
+    [D, TEX_COLS] rows on ``dev``, kept with the scene's atlas and keyed by
+    ``scene.procedural_tex``: a material or instance edit does not upload
+    them again."""
+    cached = scene.atlas.__dict__.get("_descriptor_table")
+    if cached is not None and cached[0] == scene.procedural_tex and cached[2].device == dev:
+        return cached[1], cached[2]
     descs = tuple(
         (off >> _OFF_SHIFT, off & ((1 << _OFF_SHIFT) - 1), desc)
         for _h, off, desc in scene.procedural_tex
     )
-    dev = scene.packed.mat_rows.device
     rows = [ptex.descriptor_row(hi, lo, d) for hi, lo, d in descs]
     tex = torch.tensor(
         np.asarray(rows, np.float32).reshape(-1, ptex.TEX_COLS), device=dev
     )
+    scene.atlas.__dict__["_descriptor_table"] = (scene.procedural_tex, descs, tex)
+    return descs, tex
+
+
+def frame_tables(scene: Scene) -> FrameTables:
+    """Built on first use and kept with the scene's ``packed`` object, so
+    scenes that share it share the tables; the material rows are the
+    current ``packed``'s, the descriptor rows ``_descriptor_table``'s."""
+    cached = scene.packed.__dict__.get("_frame_tables")
+    if cached is not None:
+        return cached
+    dev = scene.packed.mat_rows.device
+    descs, tex = _descriptor_table(scene, dev)
     ft = FrameTables(
         mat_rows=scene.packed.mat_rows.float().contiguous(), tex=tex, descs=descs
     )

@@ -21,6 +21,7 @@ refraction.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -193,10 +194,74 @@ def _shading_tables(scene, prefer_packed: bool) -> ShadingTables:
     return build_shading_tables(scene)
 
 
+def refresh_packed(scene):
+    """The packed gather tables recomputed from the (possibly edited)
+    canonical leaves (shade.py:114 of the JAX package; the reference's
+    re-push after a live material edit, ResourceManager.cpp:102-128). The
+    skybox record and the packed texel words are build-time constants and
+    carry over. The traversal's geometry tables stay with the scene's
+    ``clusters`` (``ops.trace.kernel_tables``): only the instance and
+    material rows are new."""
+    if scene.packed is None:
+        return scene
+    tabs = build_shading_tables(scene)
+    packed = dataclasses.replace(
+        scene.packed,
+        tri_attr=tabs.tri_attr,
+        inst_rows=tabs.inst_rows,
+        mat_rows=tabs.mat_rows,
+    )
+    return dataclasses.replace(scene, packed=packed)
+
+
 def sample_pool_planar(atlas, w, h, off, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Point-sample RGB from the texel pool → planar [3, *S]; ``w/h/off``
     per-ray records or ints (shade.py:223 of the JAX package)."""
     return gather.take_rgb(atlas.texels, _pool_index(w, h, off, u, v))
+
+
+def _texture_record(atlas, tex_idx: torch.Tensor):
+    """(width, height, offset) of each texture index, clamped to the
+    atlas's textures as ``jnp.take(..., mode="clip")`` clamps."""
+    k = torch.as_tensor(tex_idx, device=atlas.width.device).long().clamp(
+        0, atlas.num_textures - 1)
+    return atlas.width[k], atlas.height[k], atlas.offset[k]
+
+
+def sample_texture_planar(atlas, tex_idx: torch.Tensor, u: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Point samples of per-ray textures → planar [3, *S] (shade.py:264 of
+    the JAX package)."""
+    w, h, off = _texture_record(atlas, tex_idx)
+    return sample_pool_planar(atlas, w, h, off, u, v)
+
+
+def sample_texture(atlas, tex_idx: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Point samples at ``uv`` [..., 2] → [..., 3] (shade.py:255 of the JAX
+    package)."""
+    out = sample_texture_planar(atlas, tex_idx, uv[..., 0], uv[..., 1])
+    return planar.to_last(out, tuple(uv.shape[:-1]))
+
+
+def sample_skybox_static(atlas, w: int, h: int, off: int, d: torch.Tensor) -> torch.Tensor:
+    """Equirect skybox sample with a fixed texture record, planar
+    directions ``d`` [3, *S] → [3, *S] (MathAndSTL.cl:253-258)."""
+    return gather.take_rgb(atlas.texels, _skybox_index(w, h, off, d))
+
+
+def sample_skybox_planar(atlas, tex_idx: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Equirect skybox sample with a per-ray texture index → [3, *S]."""
+    w, h, off = _texture_record(atlas, tex_idx)
+    return gather.take_rgb(atlas.texels, _skybox_index(w, h, off, d))
+
+
+def sample_skybox(atlas, tex_idx, direction: torch.Tensor) -> torch.Tensor:
+    """Equirect skybox sample of directions [..., 3] → [..., 3]
+    (shade.py:275 of the JAX package)."""
+    shape = tuple(direction.shape[:-1])
+    idx = torch.as_tensor(tex_idx, device=direction.device).expand(shape)
+    out = sample_skybox_planar(atlas, idx, planar.from_last(direction))
+    return planar.to_last(out, shape)
 
 
 def _modulate_bytes(texel: torch.Tensor, mat_rgb: torch.Tensor) -> torch.Tensor:

@@ -100,34 +100,62 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _geometry(cl) -> dict:
+    """The traversal's geometry tables of a ``clusters`` object (boxes,
+    plane and attribute rows, slot → triangle), re-laid on first use and
+    kept with it: the instance and material edits of a running scene
+    (``refresh_packed``) leave them as they are."""
+    geo = cl.__dict__.get("_kernel_geometry")
+    if geo is None:
+        geo = dict(
+            hyper_box=_aligned(cl.hyper_aabb.reshape(-1, 8)),
+            super_box=_aligned(cl.super_aabb.reshape(-1, 8)),
+            cluster_box=_aligned(cl.cluster_aabb.reshape(-1, 8)),
+            planes=_aligned(_per_slot(cl.tri_a, cl.tri_b, cl.tri_c)),
+            attrs=_per_slot(cl.at_a, cl.at_b, cl.at_c, cl.at_d),
+            tri_gid=cl.tri_gid.long(),
+        )
+        cl.__dict__["_kernel_geometry"] = geo
+    return geo
+
+
+def _ranges(cl, mesh_index: tuple[int, ...]):
+    """Each instance's (super start/count, cluster start/count), host and
+    device, kept with ``clusters`` for the last ``mesh_index`` asked."""
+    cached = cl.__dict__.get("_kernel_ranges")
+    if cached is None or cached[0] != mesh_index:
+        host = tuple(cl.mesh_ranges[m] for m in mesh_index)
+        dev = torch.tensor(host, dtype=torch.int32, device=cl.tri_a.device).reshape(-1, 4)
+        cached = (mesh_index, host, dev)
+        cl.__dict__["_kernel_ranges"] = cached
+    return cached[1], cached[2]
+
+
 def kernel_tables(scene: Scene) -> KernelTables:
-    """The scene's traversal tables, built on first use and kept with its
-    ``clusters`` object, keyed by its ``packed`` object and instance meshes
-    (a scene's tensors never change after build): scenes that share them,
-    as a ``dataclasses.replace`` of the materials does, share the tables."""
+    """The scene's traversal tables, kept with its ``packed`` object and
+    keyed by its ``clusters`` object and instance meshes (a scene's tensors
+    never change after build): scenes that share them, as a
+    ``dataclasses.replace`` of the materials does, share the tables. The
+    geometry tables are kept with ``clusters`` alone, so a scene whose
+    packed instance or material rows were refreshed (``refresh_packed``)
+    takes the same geometry tensors with its new instance rows."""
     cl, pk = scene.clusters, scene.packed
     if cl is None or pk is None or cl.hyper_aabb is None:
         raise NotImplementedError(
             "scene built without cluster, hypercluster or packed tables"
         )
     mesh_index = scene.instances.mesh_index
-    cached = cl.__dict__.get("_kernel_tables")
-    if cached is not None and cached[0] is pk and cached[1] == mesh_index:
+    cached = pk.__dict__.get("_kernel_tables")
+    if cached is not None and cached[0] is cl and cached[1] == mesh_index:
         return cached[2]
-    ranges = tuple(cl.mesh_ranges[m] for m in mesh_index)
-    dev = cl.tri_a.device
+    ranges_host, ranges = _ranges(cl, mesh_index)
     kt = KernelTables(
         inst=pk.inst_rows.float().contiguous(),
-        ranges=torch.tensor(ranges, dtype=torch.int32, device=dev).reshape(-1, 4),
-        hyper_box=_aligned(cl.hyper_aabb.reshape(-1, 8)),
-        super_box=_aligned(cl.super_aabb.reshape(-1, 8)),
-        cluster_box=_aligned(cl.cluster_aabb.reshape(-1, 8)),
-        planes=_aligned(_per_slot(cl.tri_a, cl.tri_b, cl.tri_c)),
-        attrs=_per_slot(cl.at_a, cl.at_b, cl.at_c, cl.at_d),
-        tri_gid=cl.tri_gid.long(),
-        ranges_host=ranges,
+        ranges=ranges,
+        ranges_host=ranges_host,
+        **_geometry(cl),
     )
-    cl.__dict__["_kernel_tables"] = (pk, mesh_index, kt)
+    pk.__dict__["_kernel_tables"] = (cl, mesh_index, kt)
     return kt
 
 

@@ -406,11 +406,10 @@ def to_srgb_u8(img: np.ndarray) -> np.ndarray:
     return (np.clip(np.asarray(img), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
-def save_png(path: str, img: np.ndarray) -> None:
-    """Write the frame as an 8-bit RGB PNG (zlib + struct only), row-flipped
-    for display: the frame buffer is bottom-up like the reference's
-    (kernel_main.cl:280-281), PNG row 0 is the top."""
-    px = to_srgb_u8(img)[::-1]
+def png_bytes(rgb8: np.ndarray) -> bytes:
+    """An [H, W, 3] uint8 image as 8-bit RGB PNG bytes (zlib + struct
+    only), row 0 at the top."""
+    px = np.ascontiguousarray(rgb8, dtype=np.uint8)
     h, w, _ = px.shape
     raw = b"".join(b"\x00" + px[y].tobytes() for y in range(h))
 
@@ -421,11 +420,22 @@ def save_png(path: str, img: np.ndarray) -> None:
             + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
         )
 
-    png = (
+    return (
         b"\x89PNG\r\n\x1a\n"
         + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(raw, 6))
         + chunk(b"IEND", b"")
     )
+
+
+def frame_png(img: np.ndarray) -> bytes:
+    """A frame [H, W, 3] as PNG bytes, row-flipped for display: the frame
+    buffer is bottom-up like the reference's (kernel_main.cl:280-281), PNG
+    row 0 is the top."""
+    return png_bytes(to_srgb_u8(img)[::-1])
+
+
+def save_png(path: str, img: np.ndarray) -> None:
+    """Write the frame as an 8-bit RGB PNG (``frame_png``)."""
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(frame_png(img))

@@ -144,6 +144,16 @@ class SceneBuilder:
         )
         return len(self._materials) - 1
 
+    def edit_material(self, handle: int, **updates: object) -> None:
+        """Live material editing (reference EditMaterial +
+        PushMaterialsToGPU, ResourceManager.cpp:102-143): the next build
+        carries the updated record."""
+        rec = self._materials[handle]
+        for k, v in updates.items():
+            if not hasattr(rec, k):
+                raise AttributeError(k)
+            setattr(rec, k, np.asarray(v, np.float32) if k in ("albedo", "specular") else v)
+
     def import_texture(self, source: str | Path | np.ndarray) -> int:
         """Append an [H, W, 3] u8 image, or decode an image file
         (``AtlasBuilder.load_image``), to the texel pool; returns its
@@ -226,6 +236,42 @@ class SceneBuilder:
             _InstanceRec(mesh=mesh, material_start=material, transform=m)
         )
         return len(self._instances) - 1
+
+    def set_instance_transform(self, handle: int, transform: np.ndarray) -> None:
+        """SetMeshMatrix equivalent (Renderer.cpp:288-298): the next
+        ``instance_arrays`` carries it."""
+        self._instances[handle].transform = np.asarray(transform, np.float32)
+
+    def _instance_host(self) -> tuple[np.ndarray, np.ndarray]:
+        """The instances' inverse transforms [I, 4, 4] and material starts
+        [I], on the host."""
+        if not self._instances:
+            return np.zeros((0, 4, 4), np.float32), np.zeros(0, np.int32)
+        inv = np.stack(
+            [np.linalg.inv(r.transform).astype(np.float32) for r in self._instances]
+        )
+        mat_start = np.array([r.material_start for r in self._instances], np.int32)
+        return inv, mat_start
+
+    def instance_arrays(self, device: str | torch.device | None = None) -> Instances:
+        """The instance table on ``device`` (None = the CUDA card): the
+        analogue of the reference's dirty-range upload (Renderer.cpp:312-
+        320). A copy to the card leaves from pinned memory without waiting
+        for the frames queued before it."""
+        dev = resolve_device(device)
+        inv, mat_start = self._instance_host()
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            t = _t(a)
+            if dev.type == "cuda":
+                return t.pin_memory().to(dev, non_blocking=True)
+            return t
+
+        return Instances(
+            inverse_transform=up(inv),
+            material_start=up(mat_start),
+            mesh_index=tuple(int(r.mesh) for r in self._instances),
+        )
 
     def build(
         self,
@@ -314,17 +360,7 @@ class SceneBuilder:
         )
 
         skybox = 2 if self.atlas.num_textures > 2 else WHITE_TEXTURE
-        if self._instances:
-            inv = np.stack(
-                [np.linalg.inv(r.transform).astype(np.float32)
-                 for r in self._instances]
-            )
-            mat_start = np.array(
-                [r.material_start for r in self._instances], np.int32
-            )
-        else:
-            inv = np.zeros((0, 4, 4), np.float32)
-            mat_start = np.zeros(0, np.int32)
+        inv, mat_start = self._instance_host()
         instances = Instances(
             inverse_transform=_t(inv),
             material_start=_t(mat_start),

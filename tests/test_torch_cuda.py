@@ -949,3 +949,90 @@ def test_png_decoder_without_pil(tmp_path, monkeypatch):
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
     with pytest.raises(imagefile.UnsupportedImageError, match="JPEG"):
         textures.decode_rgb8(tmp_path / "x.jpg")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 33])
+def test_trace_kernel_few_rays_on_card(n):
+    """A pick's launch: K2.1 on 1, 3 and 33 rays (one warp partly empty,
+    two warps), exact against trace_plain; the lanes past n stay in the
+    warp's walk."""
+    dev = _card()
+    kt = tr.kernel_tables(build_scene("sphere", device=dev))
+    rays = _camera_rays(dev)
+    hit = (tr.trace_plain(kt, rays)[0].abs() < tr.BIG).nonzero()[:, 0]
+    pick = torch.cat([hit[: (n + 1) // 2], torch.arange(n // 2, device=dev)])
+    sub = rays[:, pick].contiguous()
+    before = tr.trace_cuda.launches
+    got = tr.trace_cuda(kt, sub)
+    ref = tr.trace_plain(kt, sub)
+    torch.cuda.synchronize()
+    assert tr.trace_cuda.launches == before + 1
+    _assert_trace_exact(got, ref, min_hits=0)
+    assert int((got[0].abs() < tr.BIG).sum()) == (n + 1) // 2
+
+
+@pytest.mark.cuda
+def test_pick_through_k21_on_card_matches_cpu():
+    """``pick`` with ``tracer=trace_best`` on the card: one K2.1 launch, the
+    CPU's record (K2.1's plain version) within 1e-5."""
+    import numpy as np
+
+    from clraytracer_tpu_torch.raycast import pick
+
+    dev = _card()
+    cam = Camera.create(CAMERA, W, H)
+    gpu, cpu = build_scene("two", device=dev), build_scene("two", device="cpu")
+    for x, y in ((55.0, 50.0), (110.0, 62.0), (2.0, 2.0)):
+        before = tr.trace_cuda.launches
+        got = pick(gpu, cam, x, y, trender.trace_best)
+        assert tr.trace_cuda.launches == before + 1
+        ref = pick(cpu, cam, x, y, trender.trace_best)
+        for f in ("hit", "index", "instance"):
+            assert getattr(got, f) == getattr(ref, f), f
+        for f in ("distance", "normal", "uv", "color"):
+            np.testing.assert_allclose(getattr(got, f), getattr(ref, f), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_engine_frame_equals_render_frame_on_card():
+    """``Engine.render`` with the default tracer is ``render_frame``: one
+    K2.2 launch a frame, the image bit-equal to ``render_frame`` on a scene
+    built from the same builder state, before and after an instance move;
+    the geometry tables survive the tick."""
+    from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.engine import Engine
+    from clraytracer_tpu_torch.scene import SceneBuilder
+    from clraytracer_tpu_torch.scene import procedural_tex as ptex
+    from clraytracer_tpu_torch.scene.procedural import cube, uv_sphere
+
+    dev = _card()
+    b = SceneBuilder()
+    b.import_procedural(ptex.sky_gradient(256, 128))
+    checker = b.import_procedural(ptex.checker(64, 8))
+    m1 = b.create_material(albedo=(0.9, 0.2, 0.2), albedo_tex=checker)
+    m2 = b.create_material(albedo=(0.2, 0.9, 0.2))
+    b.add_instance(b.add_mesh(uv_sphere(1.5, 24, 48), materials_start=m1),
+                   math3d.translation(-2.0, 1.0, 0.0))
+    b.add_instance(b.add_mesh(cube(1.0), materials_start=m2), math3d.translation(2.5, 0.5, -1.0))
+    cfg = RenderConfig(width=W, height=H, frame_watchdog_ms=80.0)
+    eng = Engine(b, cfg, CAMERA)
+    eng.start()
+    for step in range(3):
+        if step:
+            eng.set_instance_transform(1, math3d.rotation_y(0.3 * step)
+                                       @ math3d.translation(2.5, 0.5, -1.0))
+            eng.tick()
+        kt = tr.kernel_tables(eng.scene)
+        before = rf.render_cuda.launches
+        img = eng.render()
+        eng.end_frame()
+        assert rf.render_cuda.launches == before + 1 and img.device.type == "cuda"
+        fresh = b.build(device=dev)
+        frame = trender.frame_inputs_from_camera(eng.camera, eng.sun_angle)
+        ref = trender.render_frame(fresh, frame, RenderConfig(width=W, height=H))
+        assert torch.equal(img, ref), step
+        if step:
+            for f in ("planes", "attrs", "cluster_box", "tri_gid"):
+                assert getattr(kt, f).data_ptr() == getattr(kt0, f).data_ptr(), f
+        kt0 = kt

@@ -1,0 +1,173 @@
+"""The port's ``Engine`` against the JAX ``Engine`` on the CPU:
+tests/test_engine.py's scene at 24x16 through ``tracer="wavefront"``, the
+frame before and after ``set_instance_transform`` + ``tick`` and after
+``update_camera`` (the frame rule: at least 99% of pixels within 1e-5);
+the port's ``tracer="best"`` frames (K2.2's plain version) against its
+own ``"wavefront"`` frames by the same rule; events, ``close``, ``stats``
+and the frame watchdog; and that a tick keeps the traversal's geometry
+tables (the same tensors) with the new instance rows."""
+
+import numpy as np
+import pytest
+import torch
+
+from clraytracer_tpu import math3d as jm
+from clraytracer_tpu.config import CameraConfig as JCameraConfig
+from clraytracer_tpu.config import RenderConfig as JRenderConfig
+from clraytracer_tpu.engine import Engine as JEngine
+from clraytracer_tpu.scene import SceneBuilder as JSceneBuilder
+from clraytracer_tpu.scene.procedural import uv_sphere as j_uv_sphere
+from clraytracer_tpu.scene.textures import gradient_sky as j_gradient_sky
+from clraytracer_tpu_torch import math3d as tm
+from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
+from clraytracer_tpu_torch.engine import Engine, FrameWatchdogError
+from clraytracer_tpu_torch.ops import render_fused as rf
+from clraytracer_tpu_torch.ops import trace as tr
+from clraytracer_tpu_torch.ops.shade import build_shading_tables
+from clraytracer_tpu_torch.scene import SceneBuilder
+from clraytracer_tpu_torch.scene.bridge import scene_from_numpy
+from clraytracer_tpu_torch.scene.procedural import uv_sphere
+from clraytracer_tpu_torch.scene.textures import gradient_sky
+from test_torch_scene import flatten
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+W, H = 24, 16
+MOVE = dict(mouse_delta=(40.0, 10.0), move=(0.5, 0.0, 0.0))
+
+
+def _recipe(builder_cls, sphere, sky):
+    """tests/test_engine.py::_engine's scene."""
+    b = builder_cls()
+    b.import_texture(sky(32, 16))
+    mat = b.create_material(albedo=(0.8, 0.3, 0.2))
+    b.add_instance(b.add_mesh(sphere(1.5, n_lat=7, n_lon=14), materials_start=mat))
+    return b
+
+
+def _port_engine(tracer="wavefront"):
+    return Engine(_recipe(SceneBuilder, uv_sphere, gradient_sky),
+                  RenderConfig(width=W, height=H), CameraConfig(position=(0.0, 0.0, 8.0)),
+                  tracer=tracer, device="cpu")
+
+
+def _run(eng, np_img, transform):
+    """The three frames: as started, after an instance move and tick, after
+    a camera update."""
+    eng.start()
+    frames = [np_img(eng.render())]
+    eng.set_instance_transform(0, transform)
+    eng.tick()
+    frames.append(np_img(eng.render()))
+    eng.update_camera(**MOVE)
+    frames.append(np_img(eng.render()))
+    return frames
+
+
+def _assert_frame_rule(got, ref, label):
+    assert got.shape == ref.shape == (H, W, 3) and np.isfinite(got).all()
+    bad = (np.abs(got - ref) > 1e-5).any(axis=-1)
+    assert bad.mean() <= 0.01, f"{label}: {int(bad.sum())} of {bad.size} pixels"
+
+
+@pytest.fixture(scope="module")
+def frames():
+    jeng = JEngine(_recipe(JSceneBuilder, j_uv_sphere, j_gradient_sky),
+                   JRenderConfig(width=W, height=H), JCameraConfig(position=(0.0, 0.0, 8.0)),
+                   tracer="wavefront")
+    ref = _run(jeng, np.asarray, jm.rotation_y(0.8) @ jm.translation(1.2, 0.0, 0.0))
+    move = tm.rotation_y(0.8) @ tm.translation(1.2, 0.0, 0.0)
+    wave = _run(_port_engine("wavefront"), lambda t: t.numpy(), move)
+    best = _run(_port_engine("best"), lambda t: t.numpy(), move)
+    return ref, wave, best
+
+
+@pytest.mark.parametrize("i", [0, 1, 2], ids=["start", "after_tick", "after_camera"])
+def test_engine_frames_match_jax(frames, i):
+    ref, wave, _ = frames
+    _assert_frame_rule(wave[i], ref[i], "port wavefront vs JAX wavefront")
+
+
+@pytest.mark.parametrize("i", [0, 1, 2], ids=["start", "after_tick", "after_camera"])
+def test_engine_best_matches_wavefront(frames, i):
+    _, wave, best = frames
+    _assert_frame_rule(best[i], wave[i], "port best vs port wavefront")
+
+
+def test_edits_change_the_frame(frames):
+    _, wave, best = frames
+    for seq in (wave, best):
+        assert np.abs(seq[1] - seq[0]).max() > 0.05  # the sphere moved
+        assert np.abs(seq[2] - seq[1]).max() > 0.01  # the camera turned
+
+
+def test_frame_loop_and_events():
+    eng = _port_engine()
+    eng.start()
+    fired = []
+    eng.add_end_of_frame_event(lambda: fired.append("eof"))
+    eng.add_on_exit_event(lambda: fired.append("exit"))
+    img = eng.render()
+    assert isinstance(img, torch.Tensor) and img.device.type == "cpu"
+    assert img.shape == (H, W, 3) and torch.isfinite(img).all()
+    assert eng.frame_index == 1 and fired == []  # deferred until end_frame
+    eng.end_frame()
+    assert fired == ["eof"]
+    eng.end_frame()  # drained: no second call
+    assert fired == ["eof"]
+    eng.close()
+    assert fired == ["eof", "exit"]
+    eng.close()
+    assert fired == ["eof", "exit"]
+    assert "engine.render" in eng.stats and "engine.start" in eng.stats
+
+
+def test_frame_watchdog(sphere_scene):
+    """tests/test_engine.py::test_frame_watchdog on the port: a generous
+    budget never raises; at 1e-6 ms the first two frames are exempt and
+    the third raises."""
+    scene = scene_from_numpy(*flatten(sphere_scene), device="cpu")
+    eng = Engine(scene=scene, config=RenderConfig(width=16, height=12, frame_watchdog_ms=1e9),
+                 tracer="bvh", device="cpu")
+    for _ in range(3):
+        eng.render()
+    eng2 = Engine(scene=scene, config=RenderConfig(width=16, height=12, frame_watchdog_ms=1e-6),
+                  tracer="bvh", device="cpu")
+    eng2.render()
+    eng2.render()
+    with pytest.raises(FrameWatchdogError):
+        eng2.render()
+
+
+def test_tick_keeps_geometry_tables():
+    """After a tick the packed instance rows track the canonical instance
+    table (``build_shading_tables``), and ``kernel_tables`` hands the same
+    geometry tensors with the new instance rows; the frame tables keep
+    their descriptor rows."""
+    eng = _port_engine("best")
+    eng.start()
+    kt0, ft0 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    eng.render()
+    eng.set_instance_transform(0, tm.rotation_y(0.4) @ tm.translation(0.3, 0.0, 0.0))
+    eng.tick()
+    np.testing.assert_array_equal(eng.scene.packed.inst_rows.numpy(),
+                                  build_shading_tables(eng.scene).inst_rows.numpy())
+    kt1, ft1 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    assert kt1 is not kt0
+    for f in ("planes", "attrs", "hyper_box", "super_box", "cluster_box", "tri_gid", "ranges"):
+        assert getattr(kt1, f).data_ptr() == getattr(kt0, f).data_ptr(), f
+    assert torch.equal(kt1.inst, eng.scene.packed.inst_rows)
+    assert not torch.equal(kt1.inst, kt0.inst)
+    assert ft1.tex.data_ptr() == ft0.tex.data_ptr()
+    eng.tick()  # nothing dirty: the scene stays
+    assert tr.kernel_tables(eng.scene) is kt1
+
+
+def test_engine_refuses_what_it_cannot_run():
+    with pytest.raises(ValueError):
+        Engine(config=RenderConfig(width=W, height=H), device="cpu")
+    with pytest.raises(ValueError):
+        Engine(_recipe(SceneBuilder, uv_sphere, gradient_sky), tracer="nope", device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None is the card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(_recipe(SceneBuilder, uv_sphere, gradient_sky))
