@@ -8,8 +8,10 @@ main paths (``render.render_frame``: the default frame on three scenes,
 the fused frame's options on six more cells and the two-phase path on
 four; ``render.trace_planar`` through K2.2's ray mode;
 ``render_fused_camera(split_rebin=True)`` through K2.2's carry on four;
-``diff.image_loss_and_grads``, the differentiable step) and prints one
-JSON line per phase:
+``diff.image_loss_and_grads``, the differentiable step; the multi-device
+layer, ``parallel.render_sharded``, ``train_step_sharded``,
+``render_sharded_2d`` and ``cli sweep``, over 1 to 4 ranks) and prints
+one JSON line per phase:
 
 1. device: card name and power limit, torch/CUDA versions, build seconds,
    registers and spills per kernel and per K2.2 instantiation (the carry's
@@ -139,6 +141,32 @@ twin's default and ``--grads`` rows at 1920x1080 (JSON lines); the live
 viewer as a process on the card at 480x320 (five ``/frame`` PNGs decoded,
 X-Frame rising, ``/pick`` on the sphere, ``/material``, a frame after the
 edit). The kernels line adds (u)'s launches to the K2.2 and K2.1 entries.
+
+After 6, (v) sharded: the multi-device layer (``parallel/``) on
+``torch.distributed``. (v1) ``render_sharded`` on (a) at 1920x1080, (v2)
+on (a)'s scene at 320x239 (the last row window past H), (v3) on
+``sphere65`` at 1920x1080 (two-phase rows, K2.1 a bounce), (v4)
+``train_step_sharded`` at (e)'s configuration against seeded numpy noise,
+lr 1.0: each in process on a 1-rank NCCL group, then on 2 gloo ranks
+sharing the card (``run_world``: ranks started by torch.multiprocessing
+after the parent's build, a file rendezvous, a timeout; a rank that fails
+or hangs fails the phase); counts from zero on every rank (one K2.2 launch
+a rank and frame; K2.1 twice a frame in (v3); K2.1, K2.3 and K2.4 twice a
+step), frame and step ms (CUDA events, every rank its own), the
+all-gather and the all-reduce alone, every rank's frame bit-equal to the
+1-rank frame and at most FRAME_MISMATCH_MAX pixels over 1e-5 from
+``render_frame``, (v1)'s frame beside ``render_frame``'s in turns; (v4)'s
+loss and albedo of 2 ranks within rtol 1e-4 of 1 rank and the gradient
+the update implies against ``image_loss_and_grads`` (rtol 2e-2, atol
+1e-5). (v5) 4 gloo ranks: ``render_sharded_2d`` on a 2x2 mesh (rows x
+instance blocks) of the geometry suite's 5-instance scene at 320x240
+(cut: the geo tracer is the plain-torch wavefront walk) bit-equal to
+``render_frame(tracer=trace_wavefront)``, and the geo tracer's records
+on 4096 seeded rays equal to ``trace_wavefront``'s. (v6) ``cli sweep`` on
+(a) at 1080p in process (1 NCCL rank), then as 2 gloo processes on the
+card (a mechanism check: two ranks on one card measure no scaling). Then
+each kernel of the path against its plain version at the last rank's
+shapes, timed, with its bound; the kernels line adds their entries.
 
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
@@ -2195,6 +2223,7 @@ def phase_kernels(dev, results) -> None:
         *twophase_kernel_entries(results),
         *split_kernel_entries(results),
         *diff_kernel_entries(results),
+        *sharded_kernel_entries(results),
     ]})
 
 
@@ -3200,6 +3229,640 @@ def phase_engine(dev, results) -> None:
         raise SystemExit("engine cell (u) failed")
 
 
+# ---------------------------------------------------------------------------
+# (v) the multi-device layer: parallel.sharding and parallel.geometry over
+# torch.distributed, one rank in process on NCCL and 2 or 4 gloo ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+SHARD_CELL = ("v", "sphere", 4096, 1920, 1080)
+SHARD_UNEVEN_WH = (320, 239)  # 2 windows of 120 rows: the last runs past H
+SHARD_TWO_PHASE = ("sphere65", 4096, 1920, 1080)
+SHARD_TWO_PHASE_FRAMES = 5
+SHARD_GEO_WH = (320, 240)  # cut: the geo tracer is the plain-torch wavefront walk
+SHARD_GEO_MESH = (2, 2)  # rows x instance blocks
+SHARD_GEO_RAYS = 4096
+SHARD_GEO_CAMERA = (0.17, 0.23, 7.0)  # tests/test_geometry_sharding.py:54
+SHARD_LR = 1.0
+SWEEP_ITERS = 10
+#: seconds a world of ranks may take (start-up, kernel load, scene build
+#: and work), and the timeout of each rank's process group
+RANK_TIMEOUT_S = 240
+
+
+def geo_scene(device):
+    """tests/test_geometry_sharding.py:34-49's 5-instance scene (a sphere and
+    cubes, overlapping), built with the port's builder."""
+    from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.scene import SceneBuilder
+    from clraytracer_tpu_torch.scene import procedural_tex as ptex
+    from clraytracer_tpu_torch.scene.procedural import cube, uv_sphere
+
+    b = SceneBuilder()
+    b.import_procedural(ptex.sky_gradient(32, 16))
+    checker = b.import_procedural(ptex.checker(16, 4))
+    m0 = b.create_material(albedo=(0.9, 0.3, 0.2), albedo_tex=checker)
+    m1 = b.create_material(albedo=(0.2, 0.8, 0.3), shininess=1.5)
+    sphere = b.add_mesh(uv_sphere(1.0, n_lat=6, n_lon=10), materials_start=m0)
+    cube_m = b.add_mesh(cube(0.9), materials_start=m1)
+    b.add_instance(sphere)
+    b.add_instance(cube_m, math3d.translation(1.2, 0.1, -0.5))
+    b.add_instance(cube_m, math3d.translation(-1.4, -0.2, 0.6))
+    b.add_instance(sphere, math3d.translation(0.6, 0.9, -1.0))
+    b.add_instance(cube_m, math3d.translation(-0.3, -1.0, -0.2))
+    return b.build(device=device)
+
+
+def geo_inputs(dev):
+    """(frame at SHARD_GEO_WH, planar rays [3, n] origins and directions of
+    SHARD_GEO_RAYS pixels drawn with numpy's generator from seed 0)."""
+    import numpy as np
+    import torch
+
+    from clraytracer_tpu_torch.camera import Camera, ray_directions_planar
+    from clraytracer_tpu_torch.config import CameraConfig
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera
+
+    w, h = SHARD_GEO_WH
+    cam = Camera.create(CameraConfig(position=SHARD_GEO_CAMERA), w, h)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
+    d = ray_directions_planar(f32(cam.inverse_view), f32(cam.inverse_projection), w, h)
+    pick = np.random.default_rng(0).choice(w * h, SHARD_GEO_RAYS, replace=False)
+    d = d.reshape(3, -1)[:, torch.from_numpy(pick).to(dev)]
+    o = f32(cam.position)[:, None].expand_as(d)
+    return frame_inputs_from_camera(cam, -1.8), o, d
+
+
+def step_target(h: int, w: int, dev):
+    import numpy as np
+    import torch
+
+    noise = np.random.default_rng(0).uniform(0.0, 1.0, (h, w, 3)).astype(np.float32)
+    return torch.from_numpy(noise).to(dev)
+
+
+def sharded_render(mesh, scene, frame, w: int, h: int, frames: int, warmup: int) -> dict:
+    """``render_sharded`` on this rank: counts from zero over warmup +
+    frames frames (the main path's own run), frame ms by CUDA events (the
+    gather included; every rank times its own), the all-gather of the
+    window alone, and the frame."""
+    import torch
+
+    from clraytracer_tpu_torch.config import RenderConfig
+    from clraytracer_tpu_torch.parallel import sharding as sh
+
+    cfg = RenderConfig(width=w, height=h)
+    run = lambda: sh.render_sharded(scene, frame, cfg, mesh)
+    run()  # tables upload
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, times = event_ms(run, frames, warmup)
+    launches = read_counts()
+    img = run()
+    local_rows = -(-h // mesh.size)
+    block = torch.zeros(local_rows, w, 3, device=mesh.device)
+    gather_ms, _ = event_ms(lambda: sh._all_gather_rows(mesh, block), frames, warmup)
+    torch.cuda.synchronize()
+    return {"frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
+            "frames": frames + warmup, "launches": launches, "gather_ms": gather_ms,
+            "gather_bytes": block.numel() * 4 * mesh.size, "img": img.cpu()}
+
+
+def sharded_step(mesh, scene, frame, target, w: int, h: int) -> dict:
+    """``train_step_sharded`` on this rank at (e)'s configuration: counts
+    from zero over STEP_WARMUP + STEPS steps, step ms by CUDA events, the
+    all-reduce of [loss, gradients] alone, the loss and the new albedo."""
+    import torch
+
+    from clraytracer_tpu_torch.diff import DIFF_GROUPS, _float_leaves
+    from clraytracer_tpu_torch.parallel import sharding as sh
+
+    run = lambda: sh.train_step_sharded(scene, frame, target, mesh, lr=SHARD_LR)
+    run()
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, times = event_ms(run, STEPS, STEP_WARMUP)
+    launches = read_counts()
+    loss, new = run()
+    n = 1 + sum(v.numel() for g, _f, v in _float_leaves(scene) if g in DIFF_GROUPS)
+    flat = torch.zeros(n, device=mesh.device)
+    reduce_ms, _ = event_ms(lambda: sh._all_reduce(mesh, flat), STEPS, STEP_WARMUP)
+    torch.cuda.synchronize()
+    return {"step_ms": ms, "step_ms_min": times[0], "step_ms_max": times[-1],
+            "steps": STEPS + STEP_WARMUP, "launches": launches, "allreduce_ms": reduce_ms,
+            "allreduce_bytes": n * 4, "loss": float(loss),
+            "albedo": new.materials.albedo.cpu()}
+
+
+def sharded_world_work(mesh, dev) -> dict:
+    """(v1)-(v4) on this rank of ``mesh``: (a) at 1080p, the uneven frame,
+    sphere65's two-phase rows, (e)'s step."""
+    from clraytracer_tpu_torch.cli import build_scene
+    from clraytracer_tpu_torch.parallel.sharding import replicate_scene
+
+    _tag, spec, tris, w, h = SHARD_CELL
+    scene = replicate_scene(build_scene(spec, tris, device=dev), mesh)
+    out = {"v1": sharded_render(mesh, scene, diff_frame(w, h, dev), w, h, FRAMES, WARMUP)}
+    uw, uh = SHARD_UNEVEN_WH
+    out["v2"] = sharded_render(mesh, scene, diff_frame(uw, uh, dev), uw, uh, 3, 1)
+    out["v4"] = sharded_step(mesh, scene, diff_frame(w, h, dev), step_target(h, w, dev), w, h)
+    spec3, tris3, w3, h3 = SHARD_TWO_PHASE
+    scene3 = replicate_scene(option_scene(spec3, tris3, device=dev), mesh)
+    out["v3"] = sharded_render(mesh, scene3, diff_frame(w3, h3, dev), w3, h3,
+                               SHARD_TWO_PHASE_FRAMES, 1)
+    return out
+
+
+def geo_world_work(dev) -> dict:
+    """(v5) on this rank of 4: ``render_sharded_2d`` on the 2x2 mesh and the
+    geo tracer over all 4 ranks on the seeded rays, counts from zero."""
+    import torch
+
+    from clraytracer_tpu_torch.config import RenderConfig
+    from clraytracer_tpu_torch.parallel import geometry as geo
+    from clraytracer_tpu_torch.parallel.sharding import make_device_mesh, replicate_scene
+
+    mesh2 = geo.make_mesh_2d(*SHARD_GEO_MESH, device=dev)
+    mesh1 = make_device_mesh(device=dev)
+    scene = replicate_scene(geo_scene(dev), mesh1)
+    frame, o, d = geo_inputs(dev)
+    w, h = SHARD_GEO_WH
+    reset_counts()
+    t0 = time.perf_counter()
+    img = geo.render_sharded_2d(scene, frame, RenderConfig(width=w, height=h), mesh2)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    hit = geo.make_geo_sharded_tracer(mesh1)(scene, o, d)
+    torch.cuda.synchronize()
+    return {"img": img.cpu(), "frame_s": frame_s, "launches": read_counts(),
+            "hit": {f: getattr(hit, f).cpu() for f in ("t", "u", "v", "tri", "instance",
+                                                          "hit")}}
+
+
+def sharded_rank(rank: int, world: int, tmp: str, device: str = "cuda") -> None:
+    """One gloo rank on the card (started by ``run_world``): its process
+    group with a timeout, the kernels loaded from the parent's build, then
+    (v1)-(v4) in a world of 2 or (v5) in a world of 4; what it got goes to
+    ``<tmp>/rank<r>_of<world>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from clraytracer_tpu_torch.parallel.sharding import make_device_mesh
+    from clraytracer_tpu_torch.runtime import kernels
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv{world}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    if dev.type == "cuda":
+        kernels.build_all()
+    if world == 2:
+        out = sharded_world_work(make_device_mesh(device=dev), dev)
+    else:
+        out = geo_world_work(dev)
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(out, f"{tmp}/rank{rank}_of{world}.pt")
+
+
+def run_world(world: int, tmp: str, device: str = "cuda") -> list:
+    """``world`` gloo ranks (``sharded_rank``) started with
+    torch.multiprocessing; fails the phase if a rank exits non-zero or the
+    world outlasts RANK_TIMEOUT_S (the others are killed). Returns each
+    rank's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, tmp, device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + RANK_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad or time.time() > deadline:
+                raise SystemExit(f"sharded: a rank of {world} failed (exit codes "
+                                 f"{[p.exitcode for p in procs]}) or hung")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise SystemExit(f"sharded: ranks of {world} exited with {codes}")
+    return [torch.load(f"{tmp}/rank{r}_of{world}.pt") for r in range(world)]
+
+
+def frame_mismatch(img, ref) -> int:
+    """Pixels with a channel more than 1e-5 from ``ref``."""
+    return int(((img - ref.cpu()).abs() > 1e-5).any(dim=-1).sum())
+
+
+def sweep_rows(argv: list) -> list:
+    """``cli sweep`` in process: its JSON lines."""
+    import contextlib
+    import io
+
+    from clraytracer_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(argv) != 0:
+            raise SystemExit("sharded: cli sweep failed")
+    return [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+
+
+def sweep_processes(argv: list, world: int) -> list:
+    """``python -m clraytracer_tpu_torch sweep`` as ``world`` processes on the
+    card: rank 0's JSON lines."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "clraytracer_tpu_torch", *argv, "--num-processes",
+         str(world), "--process-id", str(r)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            if p.returncode != 0:
+                raise SystemExit(f"sharded: sweep rank exited {p.returncode}:\n{err[-2000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [json.loads(x) for x in outs[0].splitlines() if x.startswith("{")]
+
+
+def sharded_kernel_checks(dev, results) -> dict:
+    """The kernels of (v) against their plain versions at the path's shapes
+    (the last rank's window of the 2-rank frames), timed, with bounds: K2.2
+    on (v1)'s row window from row 540 (past nothing, 1080 = 2 x 540) and on
+    (v2)'s window past H; K2.1 on (v3)'s window of camera rays; K2.3 and
+    K2.4 on the last rank's own step (its rows, before its all-reduce)."""
+    import torch
+
+    from clraytracer_tpu_torch.camera import ray_directions_planar
+    from clraytracer_tpu_torch.cli import build_scene
+    from clraytracer_tpu_torch.ops import gather_rows as gr
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops import trace as tr
+    from clraytracer_tpu_torch.parallel import sharding as sh
+
+    _tag, spec, tris, w, h = SHARD_CELL
+    scene = build_scene(spec, tris, device=dev)
+    kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
+    out = {}
+
+    def window_rays(frame, w, h, row0, rows):
+        d = ray_directions_planar(frame.inverse_view, frame.inverse_projection, w, h,
+                                  row_start=row0, num_rows=rows).reshape(3, -1)
+        return torch.cat([frame.camera_position[:, None].expand_as(d), d]).contiguous()
+
+    def k22_window(w, h, tag):
+        frame = diff_frame(w, h, dev)
+        rows = -(-h // 2)
+        trows = rf.tile_rows(w * rows)
+        rows_total = -(-rows // trows) * -(-w // 128) * trows
+        args = (kt, ft, rf.camera_row(frame, rows), w, h, trows, rows_total, 2)
+        cnt = torch.zeros(6, dtype=torch.int64, device=dev)
+        got = rf.render_cuda(*args, cnt)
+        ref = rf.render_fused_plain(*args, dev)
+        torch.cuda.synchronize()
+        check = compare_options(got, ref, 0, False)
+        k1 = tr.trace_cuda(kt, window_rays(frame, w, h, rows, rows))
+        clusters, slots = winners(k1)
+        kb = walk_bound(("K2.2", tag, int(scene.tris.count)),
+                        walk_bytes(kt, clusters, slots, ft) + 9 * rows_total * 128 * 4,
+                        cnt.cpu().tolist(), rows_total * 128, shade=True)
+        ms, _ = event_ms(lambda: rf.render_cuda(*args), 10, 2)
+        return {"window": f"rows {rows}-{2 * rows - 1} of {w}x{h}", "check": check,
+                "ms": ms, "device_ms": device_ms(lambda: rf.render_cuda(*args)),
+                "plain_ms": event_ms(lambda: rf.render_fused_plain(*args, dev), 1, 0)[0],
+                **kb}
+
+    out["K2.2"] = k22_window(w, h, "v1")
+    out["K2.2_uneven"] = k22_window(*SHARD_UNEVEN_WH, "v2")
+    del kt, ft
+    # ---- K2.1 on (v3)'s last window of camera rays, sphere65
+    spec3, tris3, w3, h3 = SHARD_TWO_PHASE
+    scene3 = option_scene(spec3, tris3, device=dev)
+    kt3 = tr.kernel_tables(scene3)
+    rows = -(-h3 // 2)
+    rays = window_rays(diff_frame(w3, h3, dev), w3, h3, rows, rows)
+    n = rays.shape[1]
+    cnt = torch.zeros(6, dtype=torch.int64, device=dev)
+    got = tr.trace_cuda(kt3, rays, None, cnt)
+    ref = tr.trace_plain(kt3, rays)
+    torch.cuda.synchronize()
+    clusters, slots = winners(got)
+    kb = walk_bound(("K2.1", "v3", int(scene3.tris.count)),
+                    6 * n * 4 + walk_bytes(kt3, clusters, slots) + 11 * n * 4,
+                    cnt.cpu().tolist())
+    out["K2.1"] = {"window": f"rows {rows}-{2 * rows - 1} of {w3}x{h3}, {spec3}",
+                   "check": compare_trace(got, ref),
+                   "ms": event_ms(lambda: tr.trace_cuda(kt3, rays), 10, 2)[0],
+                   "device_ms": device_ms(lambda: tr.trace_cuda(kt3, rays)),
+                   "plain_ms": event_ms(lambda: tr.trace_plain(kt3, rays), 1, 0)[0], **kb}
+    del got, ref, kt3
+    # ---- K2.3 and K2.4 on the last rank's own step: a mesh of 2 seen from
+    # rank 1 without a group runs that rank's rows, and no all-reduce
+    gathers, scatters = [], []
+    real_gather, real_scatter = gr.gather_rows, gr.scatter_rows
+
+    def rec_gather(table, idx):
+        gathers.append((table.detach(), idx))
+        return real_gather(table, idx)
+
+    def rec_scatter(g, idx, t_rows):
+        scatters.append((g, idx, t_rows))
+        return real_scatter(g, idx, t_rows)
+
+    last = sh.DeviceMesh(None, 1, 2, dev)
+    gr.gather_rows, gr.scatter_rows = rec_gather, rec_scatter
+    try:
+        sh.train_step_sharded(scene, diff_frame(w, h, dev), step_target(h, w, dev), last,
+                              lr=SHARD_LR)
+        torch.cuda.synchronize()
+    finally:
+        gr.gather_rows, gr.scatter_rows = real_gather, real_scatter
+    out["gather"] = check_gather_kernels(gathers, scatters)
+    return out
+
+
+def phase_sharded(dev, results) -> None:
+    """(v): the multi-device layer. (v1)-(v4) in process as a 1-rank NCCL
+    group (``sharded_world_work``), then as 2 gloo ranks on the one card
+    (``run_world``), (v5) as 4 gloo ranks (a 2x2 mesh), (v6) ``cli sweep`` in
+    process (1 rank, NCCL) and as 2 gloo processes; checks against
+    ``render_frame`` and ``image_loss_and_grads`` on the same inputs; the
+    kernels of the path against their plain versions
+    (``sharded_kernel_checks``)."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from clraytracer_tpu_torch.cli import build_scene
+    from clraytracer_tpu_torch.config import RenderConfig
+    from clraytracer_tpu_torch.diff import image_loss_and_grads
+    from clraytracer_tpu_torch.ops.trace_wavefront import trace_wavefront
+    from clraytracer_tpu_torch.parallel.sharding import make_device_mesh, render_sharded
+    from clraytracer_tpu_torch.render import render_frame
+
+    t_phase = time.perf_counter()
+    _tag, spec, tris, w, h = SHARD_CELL
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- one rank in process: NCCL's init, all-gather and all-reduce
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S),
+                                device_id=dev)
+        mesh = make_device_mesh()
+        one = sharded_world_work(mesh, dev)
+        # (v1) the sharded frame and render_frame in turns
+        scene = build_scene(spec, tris, device=dev)
+        frame = diff_frame(w, h, dev)
+        cfg = RenderConfig(width=w, height=h)
+        turns = {"render_sharded": [], "render_frame": []}
+        fns = {"render_sharded": lambda: render_sharded(scene, frame, cfg, mesh),
+               "render_frame": lambda: render_frame(scene, frame, cfg)}
+        for i in range(WARMUP + FRAMES):
+            for k, fn in fns.items():
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                if i >= WARMUP:
+                    turns[k].append(a.elapsed_time(b))
+        turns = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+        dist.destroy_process_group()
+        ref1 = render_frame(scene, frame, cfg).cpu()
+        uw, uh = SHARD_UNEVEN_WH
+        ref2 = render_frame(scene, diff_frame(uw, uh, dev), RenderConfig(width=uw, height=uh))
+        spec3, tris3, w3, h3 = SHARD_TWO_PHASE
+        scene3 = option_scene(spec3, tris3, device=dev)
+        reset_counts()
+        ref3 = render_frame(scene3, diff_frame(w3, h3, dev), RenderConfig(width=w3, height=h3))
+        ref3_launches = read_counts()
+        target = step_target(h, w, dev)
+        loss_ref, g_ref = image_loss_and_grads(scene, frame, w, h, target=target)
+        g_ref = g_ref["materials.albedo"].cpu() * (h * w * 3)
+        del scene3
+        # ---- 2 gloo ranks on the card
+        t0 = time.perf_counter()
+        two = run_world(2, tmp)
+        world2_s = time.perf_counter() - t0
+        # ---- (v5) 4 gloo ranks: a 2x2 mesh of rows and instance blocks
+        t0 = time.perf_counter()
+        four = run_world(4, tmp)
+        world4_s = time.perf_counter() - t0
+        gs = geo_scene(dev)
+        gframe, go, gd = geo_inputs(dev)
+        gw, gh = SHARD_GEO_WH
+        ref5 = render_frame(gs, gframe, RenderConfig(width=gw, height=gh),
+                            tracer=trace_wavefront).cpu()
+        hit5 = trace_wavefront(gs, go, gd)
+        # ---- (v6) cli sweep: 1 rank in process on NCCL, then 2 gloo processes
+        sweep_argv = ["sweep", "--scene", spec, "--tris", str(tris), "--width", str(w),
+                      "--height", str(h), "--iters", str(SWEEP_ITERS)]
+        sweep1 = sweep_rows(sweep_argv + ["--coordinator", f"file://{tmp}/cli1",
+                                          "--num-processes", "1", "--process-id", "0"])
+        sweep2 = sweep_processes(sweep_argv + ["--backend", "gloo", "--coordinator",
+                                               f"file://{tmp}/cli2"], 2)
+    body = {}
+    ok = True
+    # (v1), (v2), (v3): per rank and frame, one K2.2 launch (v1, v2) or one
+    # K2.1 launch a bounce (v3); every rank's frame bit-equal to the 1-rank
+    # frame; the frames against render_frame
+    per_frame = {"v1": {"K2.1": 0, "K2.2": 1, "K2.3": 0, "K2.4": 0},
+                 "v2": {"K2.1": 0, "K2.2": 1, "K2.3": 0, "K2.4": 0},
+                 "v3": {"K2.1": 2, "K2.2": 0, "K2.3": 0, "K2.4": 0}}
+    refs = {"v1": ref1, "v2": ref2.cpu(), "v3": ref3.cpu()}
+    for key in ("v1", "v2", "v3"):
+        runs = [one[key]] + [r[key] for r in two]
+        want = [{k: v * r["frames"] for k, v in per_frame[key].items()} for r in runs]
+        c = {
+            "nccl_1_rank": {k: one[key][k] for k in ("frame_ms", "frame_ms_min",
+                                                      "frame_ms_max", "gather_ms",
+                                                      "gather_bytes", "launches", "frames")},
+            "gloo_2_ranks": [{k: r[key][k] for k in ("frame_ms", "frame_ms_min",
+                                                      "frame_ms_max", "gather_ms",
+                                                      "gather_bytes", "launches", "frames")}
+                             for r in two],
+            "ranks_bit_equal_1_rank": [bool(torch.equal(r[key]["img"], one[key]["img"]))
+                                       for r in two],
+            "pixels_over_1e-5_vs_render_frame": frame_mismatch(one[key]["img"], refs[key]),
+            "finite": bool(torch.isfinite(one[key]["img"]).all()),
+            "launches_ok": [r["launches"] == x for r, x in zip(runs, want)],
+        }
+        c["ok"] = (all(c["ranks_bit_equal_1_rank"]) and all(c["launches_ok"]) and c["finite"]
+                   and c["pixels_over_1e-5_vs_render_frame"] <= FRAME_MISMATCH_MAX)
+        body[key] = c
+        ok = ok and c["ok"]
+    body["v1"]["frame_ms_in_turns"] = turns
+    body["v2"]["frame"] = f"{uw}x{uh}, windows of {-(-uh // 2)} rows (the last past H)"
+    body["v3"]["render_frame_launches"] = ref3_launches
+    # (v4): loss and albedo of 2 ranks against 1; the implied gradient
+    # against image_loss_and_grads
+    v4 = [one["v4"]] + [r["v4"] for r in two]
+    steps = one["v4"]["steps"]
+    want4 = {"K2.1": 2 * steps, "K2.2": 0, "K2.3": 2 * steps, "K2.4": 2 * steps}
+    albedo0 = scene.materials.albedo.cpu()
+    implied = (albedo0 - one["v4"]["albedo"]) / (SHARD_LR / (h * w * 3))
+    grad_err = (implied - g_ref).abs() - (2e-2 * g_ref.abs() + 1e-5)
+    c = {
+        "nccl_1_rank": {k: one["v4"][k] for k in ("step_ms", "step_ms_min", "step_ms_max",
+                                                   "allreduce_ms", "allreduce_bytes",
+                                                   "launches", "steps", "loss")},
+        "gloo_2_ranks": [{k: r["v4"][k] for k in ("step_ms", "step_ms_min", "step_ms_max",
+                                                   "allreduce_ms", "allreduce_bytes",
+                                                   "launches", "steps", "loss")}
+                         for r in two],
+        "loss_image_loss_and_grads": float(loss_ref),
+        "loss_rel_err_2_vs_1": max(abs(r["loss"] - one["v4"]["loss"]) / abs(one["v4"]["loss"])
+                                   for r in v4[1:]),
+        "albedo_2_vs_1_within_rtol_1e-4": all(
+            bool(torch.allclose(r["albedo"], one["v4"]["albedo"], rtol=1e-4, atol=0.0))
+            for r in v4[1:]),
+        "grad_vs_image_loss_and_grads_ok": bool((grad_err <= 0).all()),
+        "grad_max_abs": float(g_ref.abs().max()),
+        "launches_ok": [r["launches"] == want4 for r in v4],
+    }
+    c["ok"] = (c["loss_rel_err_2_vs_1"] <= 1e-4 and c["albedo_2_vs_1_within_rtol_1e-4"]
+               and c["grad_vs_image_loss_and_grads_ok"] and c["grad_max_abs"] > 0
+               and all(c["launches_ok"])
+               and abs(one["v4"]["loss"] - float(loss_ref)) <= 2e-2 * abs(float(loss_ref)))
+    body["v4"] = c
+    ok = ok and c["ok"]
+    # (v5): every rank's frame bit-equal to render_frame(trace_wavefront);
+    # the geo tracer's records equal to trace_wavefront's; no kernel
+    hits_equal = [all(bool(torch.equal(r["hit"][f], getattr(hit5, f).cpu()))
+                      for f in r["hit"]) for r in four]
+    c = {
+        "mesh": list(SHARD_GEO_MESH), "frame": f"{gw}x{gh}", "rays": SHARD_GEO_RAYS,
+        "instances": int(gs.instances.count), "world_s": world4_s,
+        "frame_s": [r["frame_s"] for r in four],
+        "ranks_bit_equal_render_frame": [bool(torch.equal(r["img"], ref5)) for r in four],
+        "pixels_differing": [int((r["img"] != ref5).any(dim=-1).sum()) for r in four],
+        "hits_equal_trace_wavefront": hits_equal,
+        "hits": int(hit5.hit.sum()),
+        "launches": [r["launches"] for r in four],
+    }
+    c["ok"] = (all(c["ranks_bit_equal_render_frame"]) and all(hits_equal) and c["hits"] > 0
+               and all(sum(x.values()) == 0 for x in c["launches"]))
+    body["v5"] = c
+    ok = ok and c["ok"]
+    # (v6)
+    c = {"nccl_1_rank": sweep1, "gloo_2_processes": sweep2,
+         "note": "2 ranks share one card: a mechanism check, not scaling"}
+    c["ok"] = (len(sweep1) == 2 and sweep1[0]["devices"] == 1
+               and sweep1[0]["efficiency"] == 1.0 and sweep1[-1]["backend"] == "nccl"
+               and len(sweep2) == 3 and [r["devices"] for r in sweep2[:2]] == [1, 2]
+               and sweep2[-1]["backend"] == "gloo"
+               and all(r["mrays_per_s"] > 0 for r in sweep1[:1] + sweep2[:2]))
+    body["v6"] = c
+    ok = ok and c["ok"]
+    kern = sharded_kernel_checks(dev, results)
+    ok = ok and all(kern[k]["check"]["ok"] for k in ("K2.2", "K2.2_uneven", "K2.1"))
+    ok = ok and kern["gather"]["K2.3"]["ok"] and kern["gather"]["K2.4"]["ok"]
+    line = {"phase": "sharded", "config": "v", "scene": spec,
+            "triangles": int(scene.tris.count), "width": w, "height": h,
+            "card": card_line(), "world2_s": world2_s, **body,
+            "kernels": {k: {x: y for x, y in v.items() if x != "cases"}
+                        if k == "gather" else v for k, v in kern.items()},
+            "phase_s": time.perf_counter() - t_phase, "ok": ok}
+    results["sharded"] = {"line": line, "kern": kern, "launches": {
+        "K2.2": sum(r[k]["launches"]["K2.2"] for r in [one] + two for k in ("v1", "v2")),
+        "K2.1": sum(r[k]["launches"]["K2.1"] for r in [one] + two for k in ("v3", "v4")),
+        "K2.3": sum(r["v4"]["launches"]["K2.3"] for r in [one] + two),
+        "K2.4": sum(r["v4"]["launches"]["K2.4"] for r in [one] + two)}}
+    results["fused_err"] = max(results["fused_err"], kern["K2.2"]["check"]["max_abs_err_within"],
+                               kern["K2.2_uneven"]["check"]["max_abs_err_within"])
+    results["trace_err"] = max(results["trace_err"], kern["K2.1"]["check"]["max_abs_err"])
+    emit(line)
+    if not ok:
+        raise SystemExit("sharded cell (v) failed")
+
+
+def sharded_kernel_entries(results) -> list:
+    """The kernels-line entries of (v): K2.2 on the row windows of (v1) and
+    (v2), K2.1 on (v3)'s and (v4)'s sharded rows, K2.3 and K2.4 in (v4)'s
+    step; launches summed over the 1-rank and the 2-rank runs, ms, plain
+    ms and bounds at the last rank's shapes (``sharded_kernel_checks``)."""
+    v, kern = results["sharded"], results["sharded"]["kern"]
+    line, launches = v["line"], v["launches"]
+    k22, k22u, k21 = kern["K2.2"], kern["K2.2_uneven"], kern["K2.1"]
+    out = [
+        {
+            "name": "K2.2 fused frame, row window", "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/render.cu",
+            "replaces": "clraytracer_tpu/ops/render_pallas.py:109",
+            "entry": ("render_fused_camera(row0=, local_height=) "
+                      "(clraytracer_tpu/ops/render_pallas.py:1204, :1213-1231)"),
+            "launches": launches["K2.2"],
+            "path": (f"(v1) parallel.render_sharded, {line['width']}x{line['height']}, and "
+                     f"(v2) {SHARD_UNEVEN_WH[0]}x{SHARD_UNEVEN_WH[1]}, on 1 NCCL rank and "
+                     "2 gloo ranks"),
+            "max_abs_err": max(k22["check"]["max_abs_err_all"],
+                               k22u["check"]["max_abs_err_all"]),
+            "tolerance": f"<= {FRAME_MISMATCH_MAX} rays over 1e-5 on any of nine planes",
+            "ms": k22["ms"], "device_ms": k22["device_ms"], "plain_ms": k22["plain_ms"],
+            "bound_ms": k22["bound_ms"], "bound_by": k22["bound_by"], "library_ms": None,
+            "shape": f"{k22['window']}, 2 bounces",
+        },
+        {
+            "name": "K2.1 trace, sharded rows", "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/trace.cu",
+            "replaces": "clraytracer_tpu/ops/trace_pallas.py:928",
+            "launches": launches["K2.1"],
+            "path": ("(v3) parallel.render_sharded, two-phase rows of sphere65; (v4) "
+                     "parallel.train_step_sharded's hit-finder"),
+            "max_abs_err": k21["check"]["max_abs_err"],
+            "tolerance": (f"hit rule of tests/test_trace.py; <= {FRAME_MISMATCH_MAX} "
+                          "rays not exact in (t, slot, instance); attrs rtol 1e-5 atol 1e-6"),
+            "ms": k21["ms"], "device_ms": k21["device_ms"], "plain_ms": k21["plain_ms"],
+            "bound_ms": k21["bound_ms"], "bound_by": k21["bound_by"], "library_ms": None,
+            "shape": f"{k21['window']} camera rays",
+        },
+    ]
+    for key, name, src, fn in (
+        ("K2.3", "K2.3 gather rows (sharded step)", "clrt_gather_rows",
+         "clraytracer_tpu/ops/gather_pallas.py:77"),
+        ("K2.4", "K2.4 scatter rows (sharded step)", "clrt_scatter_rows",
+         "clraytracer_tpu/ops/gather_pallas.py:110"),
+    ):
+        k = kern["gather"][key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "clraytracer_tpu_torch/csrc/gather.cu",
+            "entry": src, "replaces": fn, "launches": launches[key],
+            "path": f"(v4) parallel.train_step_sharded, {line['width']}x{line['height']}x2",
+            "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
+            "tolerance": ("bit-exact" if key == "K2.3"
+                          else "1e-5 * sum|g| (plain scatter of |g|) + 1e-7"),
+            "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "library_device_ms": k["library_device_ms"],
+            "shape": f"the last of 2 ranks: {k['shape']}",
+        })
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write every line here (JSON)")
@@ -3245,6 +3908,7 @@ def main() -> int:
     phase_engine(dev, results)
     phase_profile(dev, results)
     phase_diff(dev, results)
+    phase_sharded(dev, results)
     phase_kernels(dev, results)
     if args.out:
         with open(args.out, "w") as f:

@@ -20,7 +20,10 @@ procedural recipes or from files (OBJ/MTL, ``.clm``, ``.clsnap.npz``;
 ``render.TRACERS`` and taken for scenes without cluster tables. Above them
 sit the reference's application layer: ``engine.Engine`` (the frame
 loop), ``raycast`` (picking), ``bench`` (the benchmark, timed by CUDA
-events) and the two viewers in ``tools/``.
+events) and the two viewers in ``tools/``. ``parallel/`` spreads the
+frame's rows and the scene's instances over the ranks of a
+``torch.distributed`` group (NCCL, one rank per card, or gloo), with the
+data-parallel training step and ``cli sweep``.
 """
 
 __version__ = "0.1.0"

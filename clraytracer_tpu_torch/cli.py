@@ -21,8 +21,17 @@ scenes under ``$CLRT_REFERENCE_ASSETS``) — the JAX package's named scenes
 ``.clm`` or a ``.clsnap.npz`` snapshot. ``--tracer`` picks the tracer by
 name (``render.TRACERS``): best, brute, bvh, wavefront or pallas (the
 port's K2.1). ``bench`` runs the benchmark twin (``bench.py`` of this
-package) in process. The JAX CLI's ``sweep`` renders through the
-multi-device path and comes with it.
+package) in process. ``sweep`` renders through the multi-device layer
+(``parallel/``) over 1, 2, 4, ... ranks of a ``torch.distributed`` group,
+one process per rank:
+
+  python -m clraytracer_tpu_torch sweep --width 1920 --height 1080
+  torchrun --nproc-per-node 4 -m clraytracer_tpu_torch sweep --coordinator auto
+  python -m clraytracer_tpu_torch sweep --device cpu --coordinator file:///tmp/rdv \
+      --num-processes 2 --process-id 0    # and --process-id 1 beside it
+
+NCCL takes one rank per card; ``--backend gloo`` puts several ranks on one
+card (or the CPU, where gloo is the default).
 """
 
 from __future__ import annotations
@@ -338,6 +347,132 @@ def cmd_fit(args) -> int:
     return 0
 
 
+def _maybe_init_distributed(args) -> int:
+    """Start ``torch.distributed`` when a coordinator is given, by flag or
+    by environment (``CLRT_COORDINATOR``, ``CLRT_NUM_PROCESSES``,
+    ``CLRT_PROCESS_ID``; cli.py:325 of the JAX package). Returns this
+    process's rank (0 without a coordinator).
+
+    ``--coordinator host:port`` rendezvouses over TCP, a URL
+    (``file:///path``, ``tcp://host:port``) as given, and ``auto`` through
+    the environment that ``torchrun`` sets (``env://``). The backend is
+    ``--backend``, else NCCL on the card and gloo on the CPU; the group
+    fails after ``parallel.sharding.INIT_TIMEOUT`` without its ranks."""
+    import torch.distributed as dist
+
+    from clraytracer_tpu_torch.parallel.sharding import INIT_TIMEOUT
+
+    coord = getattr(args, "coordinator", None) or os.environ.get("CLRT_COORDINATOR")
+    if coord is None:
+        return 0
+    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    if coord == "auto":
+        dist.init_process_group(backend, init_method="env://", timeout=INIT_TIMEOUT)
+    else:
+        nproc = getattr(args, "num_processes", None) or int(
+            os.environ.get("CLRT_NUM_PROCESSES", "0"))
+        pid = getattr(args, "process_id", None)
+        if pid is None:
+            pid = int(os.environ.get("CLRT_PROCESS_ID", "-1"))
+        if nproc <= 0 or pid < 0:
+            raise SystemExit("error: --coordinator needs --num-processes and "
+                             "--process-id (or CLRT_NUM_PROCESSES, CLRT_PROCESS_ID)")
+        url = coord if "://" in coord else f"tcp://{coord}"
+        dist.init_process_group(backend, init_method=url, world_size=nproc, rank=pid,
+                                timeout=INIT_TIMEOUT)
+    return dist.get_rank()
+
+
+def cmd_sweep(args) -> int:
+    """Scaling sweep (cli.py:373 of the JAX package): rays/s of
+    ``render_sharded`` over the first 1, 2, 4, ... ranks, each count
+    through a group of those ranks while the others wait. Frame time is
+    the median of ``--iters`` frames after a warm-up, the all-gather
+    included, timed on rank 0 by CUDA events (on the CPU by the host
+    clock); efficiency = rays/s(n) / (n * rays/s(1)). Ranks that share a
+    card measure the mechanism, not scaling."""
+    import torch
+    import torch.distributed as dist
+
+    from clraytracer_tpu_torch.config import RenderConfig
+    from clraytracer_tpu_torch.parallel.sharding import (
+        DeviceMesh,
+        local_device,
+        render_sharded,
+        replicate_scene,
+    )
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera
+    from clraytracer_tpu_torch.runtime import kernels
+
+    rank = _maybe_init_distributed(args)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dev = local_device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        # one build: rank 0 compiles into _build/, the others load it after
+        if rank == 0:
+            kernels.build_all()
+        if world > 1:
+            dist.barrier()
+        kernels.build_all()
+    tracer = _tracer(args.tracer)
+    scene_h = build_scene(args.scene, args.tris, device=dev)
+    frame = frame_inputs_from_camera(_camera(args), args.sun_angle)
+    cfg = RenderConfig(width=args.width, height=args.height, bounces=args.bounces)
+    counts = [n for n in (1, 2, 4, 8, 16, 32) if n <= world]
+    # every rank makes every group, in the same order; the whole world is
+    # the default group (so a world of one still runs its collectives)
+    groups = {n: None for n in counts}
+    if dist.is_initialized():
+        groups = {n: dist.new_group(list(range(n))) if n < world else dist.group.WORLD
+                  for n in counts}
+
+    def time_n(n: int) -> float:
+        mesh = DeviceMesh(groups[n], rank, n, dev)
+        scene = replicate_scene(scene_h, mesh)
+        ms = []
+        for i in range(1 + args.iters):
+            if dev.type == "cuda":
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                render_sharded(scene, frame, cfg, mesh, tracer=tracer)
+                b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            else:
+                t0 = time.perf_counter()
+                render_sharded(scene, frame, cfg, mesh, tracer=tracer)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        steady = sorted(ms[1:])
+        return steady[len(steady) // 2]
+
+    rays = args.width * args.height * args.bounces
+    results = []
+    base = None
+    for n in counts:
+        if rank < n:
+            frame_ms = time_n(n)
+            mrays = rays / (frame_ms * 1e-3) / 1e6
+            base = mrays if base is None else base
+            results.append({"devices": n, "frame_ms": frame_ms, "mrays_per_s": mrays,
+                            "efficiency": mrays / (n * base)})
+            if rank == 0:
+                print(json.dumps(results[-1]), flush=True)
+        if world > 1:
+            dist.barrier()
+    if rank == 0:
+        print(json.dumps({
+            "platform": dev.type, "kind": (torch.cuda.get_device_name(dev)
+                                           if dev.type == "cuda" else "cpu"),
+            "backend": dist.get_backend() if dist.is_initialized() else None,
+            "tracer": args.tracer, "processes": world, "sweep": results,
+        }), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
 def cmd_inspect(args) -> int:
     """The scene's table counts as JSON (cli.py:469 of the JAX package)."""
     from clraytracer_tpu_torch.scene.types import scene_summary
@@ -434,6 +569,23 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("inspect", help="scene statistics")
     common(p)
     p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser(
+        "sweep", help="multi-device scaling sweep (rays/s against rank count)"
+    )
+    common(p)
+    p.add_argument("--iters", type=int, default=4)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port, a URL (file:///path, tcp://host:port) or 'auto' "
+                   "(torchrun's environment); env fallback CLRT_COORDINATOR")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count (CLRT_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (CLRT_PROCESS_ID)")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="nccl (default on the card: one rank per card) | gloo "
+                   "(default on the CPU; several ranks on one card)")
+    p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser(
         "snapshot",

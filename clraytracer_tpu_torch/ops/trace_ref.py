@@ -87,7 +87,8 @@ def object_space_ray(scene: Scene, inst: int, origin, direction):
 def per_live_ray(trace_flat, origin, direction, live):
     """Planar [3, ...] rays → a SceneHit of [...] fields from
     ``trace_flat(o [N, 3], d [N, 3])``, which sees the live rays only
-    (all of them when ``live`` is None); dead lanes report a miss."""
+    (all of them when ``live`` is None); dead lanes report a miss. A field
+    that ``trace_flat`` leaves None stays None."""
     shape = origin.shape[1:]
     flat_o = torch.movedim(origin, 0, -1).reshape(-1, 3)
     flat_d = torch.movedim(direction, 0, -1).reshape(-1, 3)
@@ -98,7 +99,7 @@ def per_live_ray(trace_flat, origin, direction, live):
         sub = trace_flat(flat_o[idx], flat_d[idx])
         best = _empty_hit(flat_o, flat_d)
         best = SceneHit(*(
-            None if b is None else b.index_put((idx,), s)
+            None if b is None or s is None else b.index_put((idx,), s)
             for b, s in zip(best, sub)
         ))
     return SceneHit(*(

@@ -1036,3 +1036,132 @@ def test_engine_frame_equals_render_frame_on_card():
             for f in ("planes", "attrs", "cluster_box", "tri_gid"):
                 assert getattr(kt, f).data_ptr() == getattr(kt0, f).data_ptr(), f
         kt0 = kt
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer (parallel/) on the card: NCCL takes one rank per
+# card, so one card holds a 1-rank NCCL group in this process and gloo
+# ranks as processes (tests/_torch_dist_worker.py)
+# ---------------------------------------------------------------------------
+
+SHARD_WH = (320, 239)  # 2 windows of 120 rows: the last runs past H
+
+
+def _nccl_one_rank(tmp_path):
+    """A 1-rank NCCL group in this process; the caller destroys it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/nccl", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=120),
+                            device_id=torch.device("cuda", 0))
+
+
+def _counts():
+    return {"K2.1": tr.trace_cuda.launches, "K2.2": rf.render_cuda.launches,
+            "K2.3": gr.gather_rows_cuda.launches, "K2.4": gr.scatter_rows_cuda.launches}
+
+
+def _shard_frame(w, h):
+    return trender.frame_inputs_from_camera(Camera.create(CAMERA, w, h), -1.96)
+
+
+@pytest.mark.cuda
+def test_render_sharded_nccl_one_rank_equals_gloo_two_ranks_on_card(tmp_path):
+    """``render_sharded`` on (a)'s sphere at 320x239: one K2.2 launch on a
+    1-rank NCCL group, bit-equal to each rank's frame of 2 gloo ranks on the
+    same card (the last window past H), and within the frame rule of
+    ``render_frame``."""
+    import torch.distributed as dist
+
+    import _torch_dist_worker as worker
+    from clraytracer_tpu_torch.parallel import sharding as sh
+
+    dev = _card()
+    w, h = SHARD_WH
+    scene = build_scene("sphere", 4096, device=dev)
+    frame = _shard_frame(w, h)
+    cfg = RenderConfig(width=w, height=h)
+    _nccl_one_rank(tmp_path)
+    try:
+        mesh = sh.make_device_mesh()
+        before = _counts()
+        one = sh.render_sharded(scene, frame, cfg, mesh).cpu()
+        after = _counts()
+    finally:
+        dist.destroy_process_group()
+    assert {k: after[k] - before[k] for k in after} == {"K2.1": 0, "K2.2": 1, "K2.3": 0,
+                                                         "K2.4": 0}
+    ranks = worker.wait(worker.start(2, tmp_path, {
+        "device": "cuda", "scenes": {"sphere": {"cli": ("sphere", 4096)}},
+        "cases": [dict(kind="render", name="img", scene="sphere", tracer="best",
+                       wh=SHARD_WH)],
+    }), tmp_path, 300)
+    for r in ranks:
+        assert torch.equal(torch.from_numpy(r["img"]), one)
+    ref = trender.render_frame(scene, frame, cfg).cpu()
+    assert int(((one - ref).abs() > 1e-5).any(dim=-1).sum()) <= FRAME_MISMATCH_MAX
+
+
+@pytest.mark.cuda
+def test_k22_row_window_past_height_on_card():
+    """K2.2 in camera mode on the last window of a 2-way 320x239 split (rows
+    120-239, one past H): within the plane rule of its plain version, and
+    its rows below H bit-equal to the whole frame's."""
+    from chip_smoke import compare_options
+
+    dev = _card()
+    w, h = SHARD_WH
+    rows = -(-h // 2)
+    scene = build_scene("sphere", 4096, device=dev)
+    frame = _shard_frame(w, h)
+    trows = rf.tile_rows(w * rows)
+    rows_total = -(-rows // trows) * -(-w // 128) * trows
+    args = (tr.kernel_tables(scene), rf.frame_tables(scene), rf.camera_row(frame, rows),
+            w, h, trows, rows_total, 2)
+    got = rf.render_cuda(*args)
+    ref = rf.render_fused_plain(*args, dev)
+    torch.cuda.synchronize()
+    assert compare_options(got, ref, 0, False)["ok"]
+    win, wlay = rf.render_fused_camera(scene, frame, w, h, 2, row0=rows, local_height=rows)
+    full, lay = rf.render_fused_camera(scene, frame, w, h, 2)
+    win = trender._untile(win, ("strip",) + wlay, rows, w)
+    full = trender._untile(full, ("strip",) + lay, h, w)
+    assert torch.equal(win[:, : h - rows], full[:, rows:])
+
+
+@pytest.mark.cuda
+def test_train_step_sharded_one_rank_on_card(tmp_path):
+    """``train_step_sharded`` on a 1-rank NCCL group at 160x120 against
+    ``image_loss_and_grads``: the loss, and the albedo gradient the update
+    implies at the JAX tests' rtol 2e-2 / atol 1e-5; K2.1, K2.3 and K2.4
+    twice each a step (2 bounces)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from clraytracer_tpu_torch.diff import image_loss_and_grads
+    from clraytracer_tpu_torch.parallel import sharding as sh
+
+    dev = _card()
+    scene = build_scene("sphere", 4096, device=dev)
+    frame = _shard_frame(W, H)
+    target = torch.from_numpy(
+        np.random.default_rng(0).uniform(0.0, 1.0, (H, W, 3)).astype(np.float32)).to(dev)
+    _nccl_one_rank(tmp_path)
+    try:
+        mesh = sh.make_device_mesh()
+        before = _counts()
+        loss, new = sh.train_step_sharded(scene, frame, target, mesh, lr=1.0)
+        torch.cuda.synchronize()
+        after = _counts()
+    finally:
+        dist.destroy_process_group()
+    assert {k: after[k] - before[k] for k in after} == {"K2.1": 2, "K2.2": 0, "K2.3": 2,
+                                                         "K2.4": 2}
+    loss_ref, g = image_loss_and_grads(scene, frame, W, H, target=target)
+    g_ref = g["materials.albedo"].cpu() * (H * W * 3)
+    implied = (scene.materials.albedo - new.materials.albedo).cpu() / (1.0 / (H * W * 3))
+    torch.testing.assert_close(float(loss), float(loss_ref), rtol=2e-2, atol=1e-5)
+    torch.testing.assert_close(implied, g_ref, rtol=2e-2, atol=1e-5)
+    assert float(g_ref.abs().max()) > 0
