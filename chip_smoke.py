@@ -10,8 +10,10 @@ four; ``render.trace_planar`` through K2.2's ray mode;
 ``render_fused_camera(split_rebin=True)`` through K2.2's carry on four;
 ``diff.image_loss_and_grads``, the differentiable step; the multi-device
 layer, ``parallel.render_sharded``, ``train_step_sharded``,
-``render_sharded_2d`` and ``cli sweep``, over 1 to 4 ranks) and prints
-one JSON line per phase:
+``render_sharded_2d`` and ``cli sweep``, over 1 to 4 ranks; the entry
+points, ``entry.entry`` and ``entry.dryrun_multichip``, with ``render
+--profile-dir`` and the step's two profiling tools) and prints one JSON
+line per phase:
 
 1. device: card name and power limit, torch/CUDA versions, build seconds,
    registers and spills per kernel and per K2.2 instantiation (the carry's
@@ -168,6 +170,19 @@ card (a mechanism check: two ranks on one card measure no scaling). Then
 each kernel of the path against its plain version at the last rank's
 shapes, timed, with its bound; the kernels line adds their entries.
 
+After (v), (w) entry: the port's entry points (``clraytracer_tpu_torch.
+entry``). ``entry()``'s frame (the flagship scene at 256x192, one K2.2
+launch) timed by CUDA events (median of 20 after 3 warm-ups) with the
+host's issue, counts from zero, its launch against its plain version;
+``dryrun_multichip(1)`` (NCCL in process, counted) and ``(2)`` (gloo
+processes sharing the card), wall seconds each, each loss within rtol 1e-4
+of one rank's ``train_step_sharded`` on the same frame; ``cli render
+--scene two --profile-dir`` as a process, its trace holding K2.2's
+``render_kernel``; ``tools/profile_step`` and ``tools/grads_breakdown``
+at (e)'s size as processes, their tables in the phase line. The kernels
+line adds entry's frames to K2.2's entry and the 1-rank dry run's
+launches to the sharded entries.
+
 then the card's ``name, power.limit`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Any failure exits non-zero without that line.
 Imports no JAX and nothing of the JAX package.
@@ -177,6 +192,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2129,6 +2145,170 @@ def phase_diff(dev, results) -> None:
     if not line["ok"]:
         raise SystemExit("diff (g) failed")
 
+ENTRY_PROFILE_WH = (320, 240)  # the frame of ``cli render --profile-dir``
+#: ``dryrun_multichip(1)``: one K2.2 launch on the row window; the step's
+#: K2.1 hits, K2.3 gather and K2.4 scatter once a bounce (2 bounces)
+DRYRUN_ONE_RANK_LAUNCHES = {"K2.1": 2, "K2.2": 1, "K2.3": 2, "K2.4": 2}
+TOOL_TIMEOUT_S = 240
+
+
+def run_tool(argv: list) -> list:
+    """``python -m <argv>`` from the checkout's root, on the card: its
+    output lines; a non-zero exit or a hang fails the phase."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m", *argv], cwd=root, capture_output=True,
+                         text=True, timeout=TOOL_TIMEOUT_S)
+    if out.returncode != 0:
+        raise SystemExit(f"entry: {' '.join(argv[:1])} exited {out.returncode}:\n"
+                         f"{out.stderr[-2000:]}")
+    return out.stdout.splitlines()
+
+
+def dryrun_reference_loss(n: int, dev) -> float:
+    """The loss of ``dryrun_multichip(n)``'s step on a world of one (no
+    process group): the same frame, target and lr on one rank."""
+    import numpy as np
+    import torch
+
+    from clraytracer_tpu_torch import entry as ent
+    from clraytracer_tpu_torch.parallel.sharding import make_device_mesh, train_step_sharded
+
+    w, h = ent.DRYRUN_WIDTH, ent.DRYRUN_ROWS * n
+    target = np.random.default_rng(0).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    loss, _ = train_step_sharded(ent._flagship_scene(6, 8, device=dev), ent._frame(w, h, dev),
+                                 torch.from_numpy(target).to(dev), make_device_mesh(device=dev),
+                                 lr=1e-2)
+    return float(loss)
+
+
+def phase_entry(dev, results) -> None:
+    """(w) entry: the port's entry points (``clraytracer_tpu_torch.entry``).
+    ``entry()``'s frame (one K2.2 launch on the flagship scene at 256x192)
+    timed by CUDA events and its launch against ``render_fused_plain``;
+    ``dryrun_multichip(1)`` (NCCL in process) and ``(2)`` (gloo processes
+    on the card), each loss against one rank's; ``cli render
+    --profile-dir`` as a process, its trace holding K2.2's kernel;
+    ``tools/profile_step`` and ``tools/grads_breakdown`` at (e)'s size as
+    processes, their tables printed. Counts from zero over the in-process
+    runs (entry's frames and the 1-rank dry run)."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    import torch
+
+    from clraytracer_tpu_torch import entry as ent
+    from clraytracer_tpu_torch.ops import render_fused as rf
+
+    t_phase = time.perf_counter()
+    fn, (scene, frame) = ent.entry()
+    call = lambda: fn(scene, frame)
+    call()  # tables upload
+    torch.cuda.synchronize()
+    # ---- the main path's own run: counts from zero
+    reset_counts()
+    ms, times = event_ms(call, FRAMES, WARMUP)
+    frame_launches = read_counts()
+    variants = dict(rf.render_cuda.variant_launches)
+    call_host_ms = host_ms(call, FRAMES)
+    # ---- the K2.2 launch of one frame against its plain version
+    rec = []
+    real = rf.render_cuda
+
+    def recorder(*args, **kw):
+        out = real(*args, **kw)
+        rec.append((args, kw, out))
+        return out
+
+    # the wrapper counts on the module's ``render_cuda``, the recorder
+    # while it stands in
+    recorder.launches, recorder.variant_launches = 0, {}
+    rf.render_cuda = recorder
+    try:
+        img = call()
+        torch.cuda.synchronize()
+    finally:
+        rf.render_cuda = real
+    (args, kw, out), = rec
+    check = compare_options(out, rf.render_fused_plain(*args, dev, **kw), 0, False)
+    del out, rec
+    w, h = ent.ENTRY_WH
+    body = {"entry": {
+        "frame": f"{w}x{h}", "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
+        "host_issue_ms": call_host_ms, "frames": FRAMES + WARMUP, "launches": frame_launches,
+        "variants": variants, "k22_vs_plain": check,
+        "finite": bool(torch.isfinite(img).all()) and tuple(img.shape) == (h, w, 3),
+    }}
+    c = body["entry"]
+    c["ok"] = (check["ok"] and c["finite"]
+               and frame_launches == {"K2.1": 0, "K2.2": FRAMES + WARMUP, "K2.3": 0, "K2.4": 0})
+    ok = c["ok"]
+    # ---- the dry runs: 1 rank (NCCL, in process, counted), 2 gloo ranks
+    dry = {}
+    for n in (1, 2):
+        if n == 1:
+            reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            loss = ent.dryrun_multichip(n)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        ref = dryrun_reference_loss(n, dev)
+        d = {"loss": loss, "wall_s": wall, "printed": buf.getvalue().strip(),
+             "backend": "nccl, in process" if n == 1 else "gloo, 2 processes on the card",
+             "loss_one_rank": ref, "loss_rel_err": abs(loss - ref) / abs(ref)}
+        if n == 1:
+            d["launches"] = launches
+        d["ok"] = (math.isfinite(loss) and d["loss_rel_err"] <= 1e-4
+                   and d["printed"] == f"dryrun_multichip({n}): ok, loss={loss:.5f}"
+                   and (n > 1 or d["launches"] == DRYRUN_ONE_RANK_LAUNCHES))
+        dry[str(n)] = d
+        ok = ok and d["ok"]
+    body["dryrun_multichip"] = dry
+    # ---- cli render --profile-dir, its trace holding K2.2's kernel
+    pw, ph = ENTRY_PROFILE_WH
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log = run_tool(["clraytracer_tpu_torch", "render", "--scene", "two", "--width", str(pw),
+                        "--height", str(ph), "--profile-dir", f"{tmp}/prof",
+                        "-o", f"{tmp}/two.png"])
+        wall = time.perf_counter() - t0
+        traces = glob.glob(f"{tmp}/prof/*.pt.trace.json")
+        events = []
+        for path in traces:
+            with open(path) as f:
+                events += json.load(f)["traceEvents"]
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    c = {"frame": f"{pw}x{ph}", "wall_s": wall, "trace_files": len(traces),
+         "kernel_events": len(kern),
+         "k22_events": sum("render_kernel" in k for k in kern),
+         "kernels": sorted(set(k[:80] for k in kern))[:12]}
+    c["ok"] = c["trace_files"] >= 1 and c["k22_events"] >= 1
+    body["profile_dir"] = c
+    ok = ok and c["ok"]
+    # ---- the step's two profiling tools at (e)'s size
+    _tag, spec, tris, ew, eh = DIFF_E
+    size = ["--width", str(ew), "--height", str(eh), "--tris", str(tris)]
+    for name, extra in (("profile_step", ["--reps", "3", "--top", "20"]),
+                        ("grads_breakdown", ["--iters", "4"])):
+        t0 = time.perf_counter()
+        lines = run_tool([f"clraytracer_tpu_torch.tools.{name}", *size, *extra])
+        body[name] = {"wall_s": time.perf_counter() - t0, "lines": lines,
+                      "ok": len(lines) >= 3}
+        ok = ok and body[name]["ok"]
+    line = {"phase": "entry", "config": "w", "card": card_line(), **body,
+            "phase_s": time.perf_counter() - t_phase, "ok": ok}
+    results["entry"] = {"line": line, "launches": {
+        "frame": frame_launches, "dryrun": dry["1"]["launches"]}}
+    results["fused_err"] = max(results["fused_err"], check["max_abs_err_within"])
+    emit(line)
+    if not ok:
+        raise SystemExit("entry cell (w) failed")
+
 
 def phase_kernels(dev, results) -> None:
     """Holds each kernel against its plain version at the main path's shapes
@@ -2211,8 +2391,10 @@ def phase_kernels(dev, results) -> None:
             "source": "clraytracer_tpu_torch/csrc/render.cu",
             "replaces": "clraytracer_tpu/ops/render_pallas.py:109",
             "launches": (sum(m["k22_launches"] for m in results["main"])
-                         + results["engine"]["launches"]["K2.2"]),
-            "path": "(a)-(c) render.render_frame; (u) engine.Engine.render",
+                         + results["engine"]["launches"]["K2.2"]
+                         + results["entry"]["launches"]["frame"]["K2.2"]),
+            "path": ("(a)-(c) render.render_frame; (u) engine.Engine.render; (w) "
+                     "entry.entry()'s frame at 256x192"),
             "max_abs_err": max(results["fused_err"], check2["max_abs_err_all"]),
             "tolerance": f"<= {FRAME_MISMATCH_MAX} rays over 1e-5 on any of nine planes",
             "ms": r_ms, "device_ms": r_dev, "plain_ms": rp_ms, "bound_ms": kb2["bound_ms"],
@@ -3802,10 +3984,13 @@ def phase_sharded(dev, results) -> None:
 def sharded_kernel_entries(results) -> list:
     """The kernels-line entries of (v): K2.2 on the row windows of (v1) and
     (v2), K2.1 on (v3)'s and (v4)'s sharded rows, K2.3 and K2.4 in (v4)'s
-    step; launches summed over the 1-rank and the 2-rank runs, ms, plain
-    ms and bounds at the last rank's shapes (``sharded_kernel_checks``)."""
+    step; launches summed over the 1-rank and the 2-rank runs and (w)'s
+    ``dryrun_multichip(1)``, ms, plain ms and bounds at the last rank's
+    shapes (``sharded_kernel_checks``)."""
     v, kern = results["sharded"], results["sharded"]["kern"]
-    line, launches = v["line"], v["launches"]
+    dry = results["entry"]["launches"]["dryrun"]
+    line = v["line"]
+    launches = {k: n + dry[k] for k, n in v["launches"].items()}
     k22, k22u, k21 = kern["K2.2"], kern["K2.2_uneven"], kern["K2.1"]
     out = [
         {
@@ -3817,7 +4002,7 @@ def sharded_kernel_entries(results) -> list:
             "launches": launches["K2.2"],
             "path": (f"(v1) parallel.render_sharded, {line['width']}x{line['height']}, and "
                      f"(v2) {SHARD_UNEVEN_WH[0]}x{SHARD_UNEVEN_WH[1]}, on 1 NCCL rank and "
-                     "2 gloo ranks"),
+                     "2 gloo ranks; (w) entry.dryrun_multichip(1)"),
             "max_abs_err": max(k22["check"]["max_abs_err_all"],
                                k22u["check"]["max_abs_err_all"]),
             "tolerance": f"<= {FRAME_MISMATCH_MAX} rays over 1e-5 on any of nine planes",
@@ -3831,7 +4016,8 @@ def sharded_kernel_entries(results) -> list:
             "replaces": "clraytracer_tpu/ops/trace_pallas.py:928",
             "launches": launches["K2.1"],
             "path": ("(v3) parallel.render_sharded, two-phase rows of sphere65; (v4) "
-                     "parallel.train_step_sharded's hit-finder"),
+                     "parallel.train_step_sharded's hit-finder; (w) "
+                     "entry.dryrun_multichip(1)'s step"),
             "max_abs_err": k21["check"]["max_abs_err"],
             "tolerance": (f"hit rule of tests/test_trace.py; <= {FRAME_MISMATCH_MAX} "
                           "rays not exact in (t, slot, instance); attrs rtol 1e-5 atol 1e-6"),
@@ -3851,7 +4037,8 @@ def sharded_kernel_entries(results) -> list:
             "name": name, "route": "cuda",
             "source": "clraytracer_tpu_torch/csrc/gather.cu",
             "entry": src, "replaces": fn, "launches": launches[key],
-            "path": f"(v4) parallel.train_step_sharded, {line['width']}x{line['height']}x2",
+            "path": (f"(v4) parallel.train_step_sharded, {line['width']}x{line['height']}x2; "
+                     "(w) entry.dryrun_multichip(1)'s step"),
             "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
             "tolerance": ("bit-exact" if key == "K2.3"
                           else "1e-5 * sum|g| (plain scatter of |g|) + 1e-7"),
@@ -3909,6 +4096,7 @@ def main() -> int:
     phase_profile(dev, results)
     phase_diff(dev, results)
     phase_sharded(dev, results)
+    phase_entry(dev, results)
     phase_kernels(dev, results)
     if args.out:
         with open(args.out, "w") as f:

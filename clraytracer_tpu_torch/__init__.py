@@ -23,7 +23,11 @@ loop), ``raycast`` (picking), ``bench`` (the benchmark, timed by CUDA
 events) and the two viewers in ``tools/``. ``parallel/`` spreads the
 frame's rows and the scene's instances over the ranks of a
 ``torch.distributed`` group (NCCL, one rank per card, or gloo), with the
-data-parallel training step and ``cli sweep``.
+data-parallel training step and ``cli sweep``. ``entry`` holds the
+entry points (``entry()``: the default frame on the flagship scene;
+``dryrun_multichip(n)``: the multi-device path over n ranks it starts
+itself), and ``tools/profile_step.py`` and ``tools/grads_breakdown.py``
+profile the differentiable step on the card.
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,7 @@ Usage:
   python -m clraytracer_tpu_torch render --scene two --shadows --gi --spp 4 --fxaa
   python -m clraytracer_tpu_torch render --scene glass --refraction --ior 1.45
   python -m clraytracer_tpu_torch render --scene path/to/mesh.obj --tracer wavefront
+  python -m clraytracer_tpu_torch render --scene two --profile-dir prof/
   python -m clraytracer_tpu_torch bench  --width 1920 --height 1080
   python -m clraytracer_tpu_torch grads  --scene sphere --width 1920 --height 1080
   python -m clraytracer_tpu_torch fit    --scene two --steps 100 --lr 0.05 --save-snapshot fit.clsnap.npz
@@ -156,6 +157,33 @@ def _camera(args):
     )
 
 
+def _profiled(fn, trace_dir: str, device):
+    """``fn()`` under ``torch.profiler`` (the JAX CLI's
+    ``jax.profiler.trace``): CPU activity, and the card's where ``device``
+    is CUDA; the trace goes into ``trace_dir`` as ``*.pt.trace.json``
+    (Chrome's trace format, which TensorBoard's profiler plugin also
+    reads). On the card a profiler that records no CUDA activity raises:
+    a CPU-only trace of a card's frame would hide its kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise RuntimeError("torch.profiler cannot record CUDA activity in this build")
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)) as prof:
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    if device.type == "cuda" and not any(
+        e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()
+    ):
+        raise RuntimeError(f"the profiler recorded no CUDA activity (trace in {trace_dir})")
+    return out
+
+
 def cmd_render(args) -> int:
     import torch
 
@@ -180,7 +208,12 @@ def cmd_render(args) -> int:
         gi_seed=args.gi_seed,
     )
     t0 = time.perf_counter()
-    img = render(scene, _camera(args), cfg, device=args.device, tracer=tracer)
+    run = lambda: render(scene, _camera(args), cfg, device=args.device, tracer=tracer)
+    if args.profile_dir:
+        img = _profiled(run, args.profile_dir, scene.device)
+        log.info("profiler trace written to %s", args.profile_dir)
+    else:
+        img = run()
     if scene.device.type == "cuda":
         torch.cuda.synchronize()
     log.info("rendered %dx%d in %.1f ms (first frame, incl. set-up)",
@@ -537,6 +570,9 @@ def main(argv: list[str] | None = None) -> int:
                    "with --spp N to integrate")
     p.add_argument("--gi-seed", type=int, default=0,
                    help="base RNG seed for --gi sample streams")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the render here "
+                   "(*.pt.trace.json: Chrome's format, read by TensorBoard too)")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("bench", help="throughput benchmark (CUDA events)")

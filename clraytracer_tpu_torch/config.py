@@ -71,3 +71,15 @@ class PoolConfig:
     max_materials: int = 256
     max_meshes: int = 128
     max_instances: int = 401
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """Layout of the multi-device layer (``parallel/``), as in the JAX
+    package, where nothing reads it either: the ranks' group along the
+    image rows is named ``data_axis`` (``parallel.sharding.AXIS``), and
+    ``row_align`` rows of pixels are the shard unit when H is padded to a
+    multiple of the rank count."""
+
+    data_axis: str = "devices"
+    row_align: int = 8

@@ -45,6 +45,33 @@ def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return v - n * (2.0 * dot(n, v))[None]
 
 
+def transform_point(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Row-vector affine transform of planar points: [3, N] x [4, 4]."""
+    return torch.stack(
+        [p[0] * m[0, j] + p[1] * m[1, j] + p[2] * m[2, j] + m[3, j] for j in range(3)]
+    )
+
+
+def transform_vector(d: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The linear part of ``transform_point``: [3, N] x [4, 4]."""
+    return torch.stack([d[0] * m[0, j] + d[1] * m[1, j] + d[2] * m[2, j] for j in range(3)])
+
+
+def transform_point_batched(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Per-ray matrices: [3, N] x [N, 4, 4] (gathered instance transforms)."""
+    return torch.stack(
+        [p[0] * m[:, 0, j] + p[1] * m[:, 1, j] + p[2] * m[:, 2, j] + m[:, 3, j]
+         for j in range(3)]
+    )
+
+
+def transform_vector_batched(d: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The linear part of ``transform_point_batched``: [3, N] x [N, 4, 4]."""
+    return torch.stack(
+        [d[0] * m[:, 0, j] + d[1] * m[:, 1, j] + d[2] * m[:, 2, j] for j in range(3)]
+    )
+
+
 def where(mask: torch.Tensor, a, b) -> torch.Tensor:
     """Select on a [N] mask between [3, N] (or scalar-broadcast) values."""
     return torch.where(mask[None], a, b)

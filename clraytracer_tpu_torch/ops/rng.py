@@ -2,7 +2,10 @@
 seeding, xorshift32 steps, 24-bit uniform floats, the tangent frame and
 uniform hemisphere sampling (MathAndSTL.cl:173-215; the JAX package's
 ``ops/rng.py``), and the per-bounce seed bases of the fused frame
-(``render_pallas._gi_seed_rows``).
+(``render_pallas._gi_seed_rows``); ``pixel_streams``, the per-pixel states
+of a frame; and the host-side generators of the reference's Random.hpp,
+``PCG32``, ``MTwister`` and ``MTwister64``, bit-exact with the JAX
+package's copies draw for draw.
 
 torch has no uint32 arithmetic, so a stream state is an int64 tensor that
 holds the uint32 value: every multiply and left shift is masked back to 32
@@ -15,7 +18,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from clraytracer_tpu_torch.device import resolve_device
 
 _MASK = 0xFFFFFFFF
 #: float multiplier for 24-bit mantissa uniforms (MathAndSTL.cl:127)
@@ -51,6 +57,17 @@ def next_float01(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (MathAndSTL.cl:204-206)."""
     s = xorshift32(state)
     return (s >> 8).to(torch.float32) * _FMUL, s
+
+
+def pixel_streams(width: int, height: int, frame: int = 0,
+                  device: str | torch.device | None = None) -> torch.Tensor:
+    """Planar [H, W] stream states, decorrelated per pixel and frame (the
+    per-thread ``WangHash(i * 9999 + time)`` idiom): int64 holding uint32
+    values on ``device`` (None = the CUDA card). ``i * 9999 + frame`` wraps
+    mod 2^32 as the JAX package's uint32 arithmetic does (from pixel
+    429,540 on the product passes 2^32)."""
+    idx = torch.arange(width * height, dtype=torch.int64, device=resolve_device(device))
+    return wang_hash((idx * 9999 + (frame & _MASK)) & _MASK).reshape(height, width)
 
 
 def tangent_space(normal: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -104,3 +121,189 @@ def ray_streams(ray_index: torch.Tensor, seed_base: int) -> torch.Tensor:
     (render.py:255-261 of the JAX package, the fused kernel's
     ``row*128 + lane``)."""
     return wang_hash((_u32(ray_index) * 9999 + seed_base) & _MASK)
+
+
+# ---------------------------------------------------------------------------
+# host-side generators of the reference (Random.hpp), in numpy as the JAX
+# package keeps them: their 64-bit states wrap, which numpy's uint64 does by
+# definition and torch's int64 would do only through signed overflow
+# ---------------------------------------------------------------------------
+
+
+class PCG32:
+    """Host-side PCG32, bit-exact with the reference's ``Random::PCG``
+    (Random.hpp:106-138; the standard pcg32 from pcg-random.org),
+    vectorised over numpy uint64 state arrays: every lane an independent
+    stream.
+
+    Constructor forms mirror the reference: ``PCG32()`` (default state),
+    ``PCG32(seed)`` (Random.hpp:114-117: default state, inc = seed << 1 |
+    1), ``PCG32(seed, initstate)`` (Random.hpp:119-125: the canonical
+    pcg32_srandom)."""
+
+    _MUL = 6364136223846793005
+    _STATE = 0x853C49E6748FEA9B
+    _INC = 0xDA3E39CB94B95BDB
+
+    def __init__(self, seed=None, initstate=None):
+        if seed is None:
+            self.state = np.asarray(self._STATE, np.uint64)
+            self.inc = np.asarray(self._INC, np.uint64)
+            return
+        inc = (np.asarray(seed, np.uint64) << np.uint64(1)) | np.uint64(1)
+        if initstate is None:
+            self.state = np.full(np.shape(seed), self._STATE, np.uint64)
+            self.inc = inc
+            return
+        self.state = np.zeros_like(np.asarray(seed, np.uint64))
+        self.inc = inc
+        self.next()
+        self.state = self.state + np.asarray(initstate, np.uint64)
+        self.next()
+
+    def next(self):
+        """One pcg32 step → uint32 sample(s) (Random.hpp:130-138)."""
+        old = self.state
+        with np.errstate(over="ignore"):
+            self.state = old * np.uint64(self._MUL) + (self.inc | np.uint64(1))
+        xorshifted = ((old >> np.uint64(18)) ^ old) >> np.uint64(27)
+        rot = (old >> np.uint64(59)).astype(np.uint32)
+        x32 = xorshifted.astype(np.uint32)
+        with np.errstate(over="ignore"):
+            return (x32 >> rot) | (x32 << ((-rot) & np.uint32(31)))
+
+    def next_float01(self):
+        """float(Next() >> 8) / 2^24 (Random.hpp:82)."""
+        return (self.next() >> np.uint32(8)).astype(np.float32) * np.float32(_FMUL)
+
+
+class MTwister:
+    """Host-side Mersenne Twister, bit-exact with the reference's 32-bit
+    ``Random::MTwister`` (Random.hpp:231-330): the MT19937 layout (SIZE
+    624, PERIOD 397, init 0x6c078965, the standard tempering), and the
+    reference's ``Next64``, which combines its two draws with ``&`` where
+    ``|`` was meant (Random.hpp:270): the 64-bit stream is reproduced as
+    shipped, mostly zeros."""
+
+    _SIZE, _PERIOD = 624, 397
+    _MAGIC = 0x9908B0DF
+
+    def __init__(self, seed: int = 4586):
+        mt = np.empty(self._SIZE, np.uint32)
+        mt[0] = np.uint32(seed)
+        with np.errstate(over="ignore"):
+            for i in range(1, self._SIZE):
+                mt[i] = np.uint32(0x6C078965) * (mt[i - 1] ^ (mt[i - 1] >> np.uint32(30))) \
+                    + np.uint32(i)
+        self._mt = mt
+        self._index = self._SIZE
+
+    def _generate(self) -> None:
+        mt = self._mt
+        size, period = self._SIZE, self._PERIOD
+        for i in range(size):
+            y = (np.uint32(0x80000000) & mt[i]) | (np.uint32(0x7FFFFFFF) & mt[(i + 1) % size])
+            sel = np.uint32(0xFFFFFFFF) if (y & np.uint32(1)) else np.uint32(0)
+            mt[i] = mt[(i + period) % size] ^ (y >> np.uint32(1)) ^ (sel & np.uint32(self._MAGIC))
+        self._index = 0
+
+    def next(self) -> int:
+        if self._index >= self._SIZE:
+            self._generate()
+        y = self._mt[self._index]
+        self._index += 1
+        y ^= y >> np.uint32(11)
+        y ^= (y << np.uint32(7)) & np.uint32(0x9D2C5680)
+        y ^= (y << np.uint32(15)) & np.uint32(0xEFC60000)
+        y ^= y >> np.uint32(18)
+        return int(y)
+
+    def next64(self) -> int:
+        """``a & (b << 32)`` of two draws, tempered with the masks ANDed
+        with themselves shifted, as Random.hpp:265-278 ships it: the low
+        word is always zero, so the values are almost always 0."""
+        if self._index + 1 >= self._SIZE:
+            self._generate()
+        a = np.uint64(self._mt[self._index])
+        self._index += 1
+        b = np.uint64(self._mt[self._index])
+        self._index += 1
+        y = a & (b << np.uint64(32))
+        y ^= y >> np.uint64(11)
+        y ^= (y << np.uint64(7)) & np.uint64(0x9D2C5680 & (0x9D2C5680 << 32))
+        y ^= (y << np.uint64(15)) & np.uint64(0xEFC60000 & (0xEFC60000 << 32))
+        y ^= y >> np.uint64(18)
+        return int(y)
+
+
+class MTwister64:
+    """Host-side twin of the reference's nonstandard 64-bit ``MTwister64``
+    (Random.hpp:158-230): a 624-word uint64 state, M = 367 (not
+    MT19937-64's 156), multiplicative 69069 seeding with no tempering
+    mask, 32-bit mixing masks applied to 64-bit words, and ``Next() =
+    uint32(x >> 16)``.
+
+    The refill keeps both of the reference's off-spec behaviours:
+
+    * index 257 is processed twice: the first loop, unrolled by 3 (``while
+      kk < N - M`` with N - M = 257), overruns to kk = 257, then ``kk--``
+      lets the second loop redo it (Random.hpp:196-208);
+    * that overrun reads ``m_MT[624]``, one past the array, which is
+      ``m_Index`` (624 or 625). Only bit 31 of that word can reach later
+      state (through index 257's redone ``y``), and it is always 0, so the
+      sequence is deterministic; the word is modelled as ``m_Index``'s
+      value."""
+
+    _N, _M = 624, 367
+    _MAGIC = 0x9908B0DF
+
+    def __init__(self, seed: int = 4357):
+        mt = np.empty(self._N, np.uint64)
+        mt[0] = np.uint64(seed)
+        with np.errstate(over="ignore"):
+            for i in range(1, self._N):
+                mt[i] = np.uint64(69069) * mt[i - 1]
+        self._mt = mt
+        self._index = self._N + 1
+
+    def _generate(self) -> None:
+        mt = self._mt
+        n, m = self._N, self._M
+        magic, one = np.uint64(self._MAGIC), np.uint64(1)
+        hi, lo = np.uint64(0x80000000), np.uint64(0x7FFFFFFF)
+
+        def mix(kk: int, base: int) -> None:
+            y = (mt[kk] & hi) | (mt[kk + 1] & lo)
+            sel = magic if (y & one) else np.uint64(0)
+            src = np.uint64(self._index) if base == n else mt[base]  # m_MT[624] is m_Index
+            mt[kk] = src ^ (y >> one) ^ sel
+
+        kk = 0
+        while kk < n - m:  # unrolled by 3 in the reference: overruns to 257
+            for _ in range(3):
+                mix(kk, kk + m)
+                kk += 1
+        kk -= 1  # 257 redone below, as in the reference
+        while kk < n - 1:
+            for _ in range(3):
+                mix(kk, kk + m - n)
+                kk += 1
+        y = (mt[n - 1] & hi) | (mt[0] & lo)
+        sel = magic if (y & one) else np.uint64(0)
+        mt[n - 1] = mt[m - 1] ^ (y >> one) ^ sel
+        self._index = 0
+
+    def next(self) -> int:
+        if self._index >= self._N:
+            self._generate()
+        x = self._mt[self._index]
+        self._index += 1
+        x ^= x >> np.uint64(11)
+        x ^= (x << np.uint64(7)) & np.uint64(0x9D2C5680)
+        x ^= (x << np.uint64(15)) & np.uint64(0xEFC60000)
+        x ^= x >> np.uint64(18)
+        return int(np.uint32(x >> np.uint64(16)))
+
+    def next64(self) -> int:
+        """``Next() >> 16``, as shipped (Random.hpp:185)."""
+        return self.next() >> 16

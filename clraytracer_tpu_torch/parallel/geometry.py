@@ -56,12 +56,20 @@ from clraytracer_tpu_torch.render import FrameInputs
 from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
 
 
+#: the names of the 2-D mesh's axes, as in the JAX package: instance
+#: blocks along ``GEO_AXIS`` (``Mesh2D.geo``), rows along ``RAY_AXIS``
+#: (``Mesh2D.rows``; the name of ``parallel.sharding.AXIS``)
+GEO_AXIS = "geo"
+RAY_AXIS = "devices"
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh2D:
     """A 2-D mesh of ``n_rows x n_geo`` ranks: world rank ``r`` is row
     shard ``r // n_geo`` and instance block ``r % n_geo``. ``rows``: this
-    rank's group along the row axis (the ranks of its instance block),
-    ``geo``: its group along the instance axis (the ranks of its rows)."""
+    rank's group along the row axis (``RAY_AXIS``; the ranks of its
+    instance block), ``geo``: its group along the instance axis
+    (``GEO_AXIS``; the ranks of its rows)."""
 
     rows: DeviceMesh
     geo: DeviceMesh

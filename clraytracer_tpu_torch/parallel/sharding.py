@@ -52,6 +52,10 @@ from clraytracer_tpu_torch.render import (
 )
 from clraytracer_tpu_torch.scene.types import Scene
 
+#: the name of the row axis, along which a ``DeviceMesh`` of
+#: ``make_device_mesh`` deals the image rows (the JAX package's mesh axis)
+AXIS = "devices"
+
 #: the timeout a process group is created with by this package's entry
 #: points (the CLI's ``sweep``): a rank that never arrives fails the run
 INIT_TIMEOUT = datetime.timedelta(seconds=300)

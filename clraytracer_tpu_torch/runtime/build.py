@@ -51,6 +51,10 @@ def _compile() -> Path | None:
     return out
 
 
+def native_available() -> bool:
+    return native_lib() is not None
+
+
 def native_lib() -> ctypes.CDLL | None:
     """The compiled native library, or None when unavailable."""
     global _lib, _tried

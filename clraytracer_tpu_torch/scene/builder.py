@@ -46,6 +46,7 @@ from clraytracer_tpu_torch.scene.types import (
 )
 
 DEFAULT_MATERIAL = 0xFFFF
+NONE_MATERIAL = 0
 WHITE_TEXTURE = 0
 BLACK_TEXTURE = 1
 

@@ -14,6 +14,8 @@ from typing import Any
 
 import torch
 
+from clraytracer_tpu_torch.device import resolve_device
+
 #: Miss sentinel distance (reference RayacastMissDistance=1e30).
 MISS_DISTANCE = 1e30
 
@@ -181,6 +183,12 @@ class Scene(_TensorData):
     skybox_tex: int = 2
     #: (texture handle, texel-pool offset, ProceduralTexture) triples
     procedural_tex: tuple = ()
+
+
+def as_device_scene(scene: Scene, device: str | torch.device | None = None) -> Scene:
+    """Every tensor leaf of ``scene`` on ``device`` (None = the CUDA card;
+    ``device.resolve_device``)."""
+    return scene.to(resolve_device(device))
 
 
 def scene_summary(scene: Scene) -> dict[str, Any]:

@@ -1,4 +1,5 @@
 """Viewers over the ``engine.Engine`` frame loop: ``viewer`` writes a
-turntable of frames, ``live_viewer`` serves the loop over HTTP. Run them as
-``python -m clraytracer_tpu_torch.tools.viewer`` and
-``python -m clraytracer_tpu_torch.tools.live_viewer``."""
+turntable of frames, ``live_viewer`` serves the loop over HTTP. Profiling
+tools of the differentiable step: ``profile_step`` (its top ops by their
+time on the card) and ``grads_breakdown`` (its time with each leaf group
+detached). Run each as ``python -m clraytracer_tpu_torch.tools.<name>``."""

@@ -1165,3 +1165,76 @@ def test_train_step_sharded_one_rank_on_card(tmp_path):
     torch.testing.assert_close(float(loss), float(loss_ref), rtol=2e-2, atol=1e-5)
     torch.testing.assert_close(implied, g_ref, rtol=2e-2, atol=1e-5)
     assert float(g_ref.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_pixel_streams_on_card_equal_cpu():
+    from clraytracer_tpu_torch.ops.rng import pixel_streams
+
+    dev = _card()
+    for frame in (0, 3, 2**32 - 1):
+        got = pixel_streams(1024, 512, frame)
+        assert got.device == dev
+        assert torch.equal(got.cpu(), pixel_streams(1024, 512, frame, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_as_device_scene_lands_on_card():
+    from clraytracer_tpu_torch.scene.types import as_device_scene
+
+    dev = _card()
+    scene = as_device_scene(build_scene("two", device="cpu"))
+    assert scene.device == dev
+    assert scene.tris.v0.device == scene.materials.albedo.device == dev
+
+
+@pytest.mark.cuda
+def test_entry_frame_matches_plain_on_card():
+    """``entry()``'s frame: one K2.2 launch (the default instantiation),
+    which holds against ``render_fused_plain`` on the same inputs by the
+    plane rule; a finite 192x256 frame on the card."""
+    from chip_smoke import compare_options
+
+    from clraytracer_tpu_torch import entry
+
+    dev = _card()
+    fn, (scene, frame) = entry.entry()
+    assert scene.device == dev
+    rec = []
+    real = rf.render_cuda
+
+    def recorder(*args, **kw):
+        out = real(*args, **kw)
+        rec.append((args, kw, out))
+        return out
+
+    recorder.launches, recorder.variant_launches = 0, {}
+    rf.render_cuda = recorder
+    try:
+        img = fn(scene, frame)
+        torch.cuda.synchronize()
+    finally:
+        rf.render_cuda = real
+    assert img.shape == (192, 256, 3) and img.device == dev
+    assert torch.isfinite(img).all()
+    (args, kw, out), = rec
+    assert kw.get("rays") is None and kw.get("atlas_mode", 0) == 0
+    assert compare_options(out, rf.render_fused_plain(*args, dev, **kw), 0, False)["ok"]
+
+
+@pytest.mark.cuda
+def test_render_profile_dir_trace_holds_k22(tmp_path):
+    """``cli render --profile-dir`` on the card: the trace holds CUDA
+    kernel events, K2.2's ``render_kernel`` among them."""
+    import json
+
+    from clraytracer_tpu_torch import cli
+
+    _card()
+    prof = tmp_path / "prof"
+    assert cli.main(["render", "--scene", "two", "--width", "160", "--height", "120",
+                     "--profile-dir", str(prof), "-o", str(tmp_path / "two.png")]) == 0
+    (trace,) = prof.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("render_kernel" in k for k in kernels), kernels[:20]

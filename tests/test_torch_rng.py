@@ -1,8 +1,10 @@
-"""The port's GI random streams (clraytracer_tpu_torch.ops.rng) against the
+"""The port's random streams (clraytracer_tpu_torch.ops.rng) against the
 JAX package's ``ops/rng.py`` and ``render_pallas._gi_seed_rows`` on the
 same seeded uint32 inputs: the integer parts bit for bit, the tangent
 frame and the hemisphere sample to atol 1e-6 (their sqrt, cos and sin may
-round differently)."""
+round differently); the host-side generators (``pixel_streams``,
+``PCG32``, ``MTwister``, ``MTwister64``) draw for draw against the JAX
+classes and against the reference's golden draws of tests/test_rng.py."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import jax.numpy as jnp
 from clraytracer_tpu.ops import rng as jrng
 from clraytracer_tpu.ops.render_pallas import _gi_seed_rows
 from clraytracer_tpu_torch.ops import rng as trng
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N = 4096
 
@@ -111,3 +114,61 @@ def test_fused_gi_sample_matches_hemisphere_sample(states):
     d_got, w = _gi_sample([nt[0], nt[1], nt[2]], _t(states))
     np.testing.assert_allclose(torch.stack(d_got).numpy(), flipped, rtol=0, atol=1e-6)
     np.testing.assert_allclose(w.numpy(), 2.0 * np.abs(dot), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("w,h,frame", [(16, 16, 3), (1024, 512, 0), (1024, 512, 2**32 - 1)])
+def test_pixel_streams_bit_exact(w, h, frame):
+    """``wang_hash(i * 9999 + frame)`` in uint32: at 1024x512 the product
+    passes 2^32 from pixel 429,540 on, and frame 2^32 - 1 wraps every sum."""
+    ref = np.asarray(jrng.pixel_streams(w, h, frame))
+    got = trng.pixel_streams(w, h, frame, device="cpu")
+    assert got.shape == (h, w) and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), ref)
+
+
+@pytest.mark.parametrize("form", ["default", "seed", "seed_initstate", "lanes", "seed_lanes"])
+def test_pcg32_lane_for_lane(form):
+    """The three constructor forms, scalar and vectorised, 40 draws and the
+    float draw, every lane equal."""
+    lanes = np.arange(6, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15) + np.uint64(1)
+    kw = {"default": {}, "seed": {"seed": np.uint64(42)},
+          "seed_initstate": {"seed": np.uint64(42), "initstate": np.uint64(12345)},
+          "lanes": {"seed": lanes, "initstate": lanes[::-1].copy()},
+          "seed_lanes": {"seed": lanes}}[form]
+    a, b = trng.PCG32(**kw), jrng.PCG32(**kw)
+    for _ in range(40):
+        x, y = a.next(), b.next()
+        assert x.dtype == y.dtype == np.uint32
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a.state, b.state)
+    np.testing.assert_array_equal(a.next_float01(), b.next_float01())
+
+
+@pytest.mark.parametrize("cls,seed", [("MTwister", 4586), ("MTwister", 1), ("MTwister64", 4357),
+                                      ("MTwister64", 1), ("MTwister64", 987654321)])
+def test_mersenne_twisters_draw_for_draw(cls, seed):
+    """1300 draws, across a refill of the 624-word state (and for
+    MTwister64 its double-processed index 257 and the read one past the
+    array), then ``next64`` across the next refill."""
+    a, b = getattr(trng, cls)(seed), getattr(jrng, cls)(seed)
+    assert [a.next() for _ in range(1300)] == [b.next() for _ in range(1300)]
+    assert [a.next64() for _ in range(700)] == [b.next64() for _ in range(700)]
+
+
+def test_mersenne_twisters_golden():
+    """The reference's own draws (tests/test_rng.py's golden values, from
+    Random.hpp compiled with g++), ``Next64``'s ``&`` combine included."""
+    m = trng.MTwister()
+    assert [m.next() for _ in range(4)] == [1586803154, 3398496343, 3681244880, 689747524]
+    mb = trng.MTwister(123456789)
+    assert [mb.next() for _ in range(4)] == [2288500408, 4254805660, 2294099250, 56498137]
+    mc = trng.MTwister(77)
+    assert [mc.next64() for _ in range(4)] == [0, 0, 0, 0]
+    m6 = trng.MTwister64()
+    assert [m6.next() for _ in range(4)] == [1464053668, 2092294200, 3487852631, 1350858567]
+    m6b = trng.MTwister64(987654321)
+    assert [m6b.next() for _ in range(4)] == [4076952483, 1994907941, 3747183639, 1822789853]
+    m6c = trng.MTwister64(1)
+    assert [m6c.next() for _ in range(1300)][-1] == 2325004920
+    md = trng.MTwister(1)
+    assert [md.next() for _ in range(1300)][-1] == 2604647584
