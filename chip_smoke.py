@@ -117,12 +117,18 @@ K2.2 atlas-1 launch a frame, no K2.1, counts from zero); the host's import
 seconds by step (OBJ parser and image decoder named), the hit share of the
 camera rays (at least half), frame ms, the host's issue ms, K2.2's ms and
 bound, its ``_finish_frame`` tail, the idle share, K2.2 against its plain
-version on a 16-row band of its own launch, the snapshot's seconds, bytes
+version on a 16-row band of its own launch, K2.2's bounce 0 alone (a
+launch of one bounce: call and device ms, the counters of each bounce and
+``walk_figures`` of them, ``bounce_split``), K2.1 through the hit-query
+entry ``ops.trace.trace`` on the frame's camera rays (counts from zero: one
+K2.1 launch a call; its ms, counters and bound, and against its plain
+version on MUSEUM_RAYS of those rays), the snapshot's seconds, bytes
 and bit-equal frame; the reference tracers on the card: ``render_frame``
 through ``trace_wavefront`` at 320x240, ``trace_wavefront``, ``trace_bvh``
 and ``trace_brute`` on 4096 seeded camera rays against K2.1 (rays that
 differ counted; brute within FRAME_MISMATCH_MAX). The kernels line adds
-(t)'s launches to the atlas-1 instantiation's entry.
+(t)'s launches to the atlas-1 instantiation's entry, and an entry of K2.1
+at (t)'s camera rays.
 
 After (t), (u) engine: ``engine.Engine`` on (a)'s scene at 1920x1080,
 ``tracer="best"``, the reference's 80 ms frame watchdog armed: each frame
@@ -205,7 +211,10 @@ PEAK_BYTES = 3.35e12
 # square root counts as one); the first four of the kernels' int64[6]
 # counters (ops.trace.COUNTER_NAMES) count the units: box tests, triangle
 # tests, ray transforms, interpolated hits. The last two count the warps'
-# 32-child node tests and the clusters they staged in shared memory.
+# 32-child node tests and the clusters they staged in shared memory. Box
+# tests are the (ray, box) slab tests the rays' walks need, an instance's
+# union box and its hyper boxes included; the rays-outer child test's
+# second ray of a pass, repeated where a mask has an odd count, is not one.
 BOX_OPS = 27  # slab: 6 sub + 6 mul + 12 min/max + 3 compares
 TRI_OPS = 45  # plane test: den 5 + b_n 6 + t 2 + u 13 + v 13 + u+v 1 + 5 cmp
 XFORM_OPS = 36  # ray to object space: origin 18 + direction 15 + 3 reciprocals
@@ -1004,6 +1013,33 @@ def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi, key=Non
         out["bound_ms_nearest_hit_shadow_counts"] = max(
             t_bytes, operations(old) / PEAK_F32 * 1e3)
     return out
+
+
+def walk_figures(counts, rays: int) -> dict:
+    """Per-ray figures of one walk's six counters (``COUNTER_NAMES``) over
+    ``rays`` rays: box and triangle tests a ray, rays per node step (box
+    tests over 32 per step: a step tests one node's 32 children against
+    the warp's rays) and staged clusters a ray."""
+    boxes, tris, _xforms, _hits, steps, staged = (int(c) for c in counts)
+    per = lambda x: x / rays if rays else None
+    return {"rays": rays, "box_tests_per_ray": per(boxes), "tri_tests_per_ray": per(tris),
+            "rays_per_node_step": boxes / (32 * steps) if steps else None,
+            "staged_per_ray": per(staged)}
+
+
+def bounce_split(frame_counts, bounce0_counts, camera_rays: int) -> dict:
+    """A two-bounce K2.2 frame's counters by bounce: bounce 0's from a
+    launch of that bounce alone, bounce 1's the frame's less those; each
+    with ``walk_figures`` over its rays (the launch's camera rays, its
+    rows_total * 128 lanes; then bounce 0's shaded hits, the rays that go
+    on)."""
+    from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
+
+    b1 = [int(a) - int(b) for a, b in zip(frame_counts, bounce0_counts)]
+    return {name: {"counts": dict(zip(COUNTER_NAMES, (int(x) for x in c))),
+                   **walk_figures(c, rays)}
+            for name, c, rays in (("bounce0", bounce0_counts, camera_rays),
+                                  ("bounce1", b1, int(bounce0_counts[3])))}
 
 
 def phase_option_cells(dev, results) -> None:
@@ -2402,11 +2438,37 @@ def phase_kernels(dev, results) -> None:
             "shape": f"{w}x{h}x2 bounces, {spec} {scene.tris.count} tris",
         },
         *option_kernel_entries(results),
+        imported_k21_entry(results),
         *twophase_kernel_entries(results),
         *split_kernel_entries(results),
         *diff_kernel_entries(results),
         *sharded_kernel_entries(results),
     ]})
+
+
+def imported_k21_entry(results) -> dict:
+    """K2.1's kernels-line entry at (t)'s 1080p camera rays: its launches
+    through the hit-query entry ``ops.trace.trace`` there, its time and
+    bound at those rays, its error against the plain version on
+    MUSEUM_RAYS of them."""
+    t = results["imported"]
+    k = t["k21"]
+    return {
+        "name": "K2.1 trace (hit record), imported scene", "route": "cuda",
+        "source": "clraytracer_tpu_torch/csrc/trace.cu",
+        "replaces": "clraytracer_tpu/ops/trace_pallas.py:928",
+        "launches": k["launches"]["K2.1"],
+        "path": (f"(t) ops.trace.trace, {t['width']}x{t['height']} camera rays of the "
+                 "imported museum-class scene"),
+        "max_abs_err": k["check"]["max_abs_err"],
+        "tolerance": (f"hit rule of tests/test_trace.py; <= {FRAME_MISMATCH_MAX} "
+                      "rays not exact in (t, slot, instance); attrs rtol 1e-5 atol 1e-6"),
+        "ms": k["kernel_ms"], "device_ms": k["kernel_device_ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound"]["bound_ms"], "bound_by": k["bound"]["bound_by"],
+        "library_ms": None,
+        "shape": f"{k['rays']} camera rays, {t['triangles']} tris in {t['instances']} instances",
+        "plain_shape": f"{k['check']['rays']} of those rays",
+    }
 
 
 def twophase_kernel_entries(results) -> list:
@@ -2965,6 +3027,16 @@ def phase_imported(dev, results) -> None:
         kdev = device_ms(lambda: rf.render_cuda(*args, **opts))
         cnt = counters.cpu().tolist()
         kb = variant_bound(kt, ft, cnt, clusters, slots, n, cfg.bounces, mode, False)
+        # ---- the walk by bounce: K2.2's bounce 0 alone (a launch of one
+        # bounce), its time and counters beside the frame's
+        args0 = option_args(scene, frame, w, h, 1)
+        counters0 = torch.zeros(6, dtype=torch.int64, device=dev)
+        rf.render_cuda(*args0, counters0, **opts)
+        split = {"k22_frame_ms": kms, "k22_frame_device_ms": kdev,
+                 "k22_bounce0_ms": event_ms(lambda: rf.render_cuda(*args0, **opts), 10, 2)[0],
+                 "k22_bounce0_device_ms": device_ms(lambda: rf.render_cuda(*args0, **opts))}
+        split["bounce1_share_device_ms"] = 1.0 - split["k22_bounce0_device_ms"] / kdev
+        split.update(bounce_split(cnt, counters0.cpu().tolist(), n))
         # K2.2 against its plain version on a band of its own launch,
         # centred on the camera rays' hits
         y0 = band_start(hit0, w, h, trows, CHECK_BAND_ROWS)
@@ -2981,6 +3053,33 @@ def phase_imported(dev, results) -> None:
         prof = device_profile(lambda: render_frame(scene, frame, cfg), 5, ms)
         img = render_frame(scene, frame, cfg)
         finite = bool(torch.isfinite(img).all())
+
+        # ---- K2.1 on the same camera rays, through the hit-query entry
+        # ``ops.trace.trace`` (counts from zero): not on (t)'s frame path,
+        # measured because it walks the same hierarchy as K2.2
+        o3, d3 = rays[0:3], rays[3:6]
+        reset_counts()
+        q_ms, q_times = event_ms(lambda: tr.trace(scene, o3, d3), FRAMES, WARMUP)
+        q_launches = {"K2.1": tr.trace_cuda.launches, "K2.2": rf.render_cuda.launches}
+        counters1 = torch.zeros(6, dtype=torch.int64, device=dev)
+        tr.trace_cuda(kt, rays, None, counters1)
+        nr = rays.shape[1]
+        k21 = {"entry": "ops.trace.trace", "rays": nr, "call_ms": q_ms,
+               "call_ms_min": q_times[0], "call_ms_max": q_times[-1],
+               "launches": q_launches, "calls": FRAMES + WARMUP,
+               "kernel_ms": event_ms(lambda: tr.trace_cuda(kt, rays), 10, 2)[0],
+               "kernel_device_ms": device_ms(lambda: tr.trace_cuda(kt, rays))}
+        c1 = counters1.cpu().tolist()
+        k21["bound"] = walk_bound(("K2.1", "t", tris),
+                                  6 * nr * 4 + walk_bytes(kt, clusters, slots) + 11 * nr * 4, c1)
+        k21.update(walk_figures(c1, nr))
+        # against its plain version on MUSEUM_RAYS seeded rays of those
+        g = torch.Generator(device="cpu").manual_seed(1)
+        sub1 = rays[:, torch.randperm(nr, generator=g)[:MUSEUM_RAYS].to(dev)].contiguous()
+        keep = []
+        k21["plain_ms"] = event_ms(lambda: keep.append(tr.trace_plain(kt, sub1)), 1, 0)[0]
+        k21["check"] = {"rays": MUSEUM_RAYS,
+                        **compare_trace(tr.trace_cuda(kt, sub1), keep.pop())}
 
         # ---- the snapshot round trip
         t0 = time.perf_counter()
@@ -3029,7 +3128,8 @@ def phase_imported(dev, results) -> None:
         "frame_host_ms": frame_host_ms, "mrays_per_s": w * h * cfg.bounces / (ms * 1e-3) / 1e6,
         "kernel_ms": kms, "kernel_device_ms": kdev, "plain_ms": plain_ms,
         "kernel_bound_ms": kb["bound_ms"], "kernel_bound_by": kb["bound_by"],
-        "kernel_bound": kb, "finish_ms": finish_ms, "launches": launches, "frames": frames,
+        "kernel_bound": kb, "walk_split": split, "k21": k21,
+        "finish_ms": finish_ms, "launches": launches, "frames": frames,
         "band_check": {"frame": f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-"
                        f"{y0 + CHECK_BAND_ROWS - 1}) of {w}x{h}", "band_hits": band_hits,
                        **band_check},
@@ -3052,9 +3152,11 @@ def phase_imported(dev, results) -> None:
         and launches["K2.2"] == frames and launches["K2.2_variants"] == {name: frames}
         and launches["K2.1"] == 0 and wave_launches == (0, 0)
         and tracers["brute"]["rays_differing"] <= FRAME_MISMATCH_MAX
+        and k21["check"]["ok"] and q_launches == {"K2.1": FRAMES + WARMUP, "K2.2": 0}
     )
     results["imported"] = line
     results["fused_err"] = max(results["fused_err"], band_check["max_abs_err_within"])
+    results["trace_err"] = max(results["trace_err"], k21["check"]["max_abs_err"])
     emit(line)
     if not line["ok"]:
         raise SystemExit("imported cell (t) failed")

@@ -525,26 +525,30 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
 }
 
 // Register bounds, one per kind of instantiation. Without shadows: 128
-// threads and no floor on resident blocks, under which ptxas keeps the
-// default frame at 126 registers without spills (16 warps an SM). With
-// shadows the two walks' state overlaps on bounce 0, and the same bound
-// made ptxas cap them at 96 registers and spill 170-182 bytes; a floor of
-// one resident block lets them take what they need (a floor of 4, capping
-// them at 128 registers, was slower: PERF.md). Ray mode and carry-in keep
-// the bound of the camera mode they share their options with. Carry-out
-// holds the continuation state to the end: under the same bound ptxas
-// capped it at 96 registers and spilled 186 bytes, so it too takes a floor
-// of one resident block (118 registers, none spilled); the minimum 0 of the
-// others sets no floor, as before.
+// threads and a floor of 4 resident blocks, so at most 128 registers (16
+// warps an SM): the walk's rays-outer test two rays a pass and its
+// rays-by-triangles leaf test took them to 116-124 registers without
+// spills, where the bare bound had let ptxas cap them at 96 and spill
+// 102-214 bytes; a floor of 5 (at most 102 registers) spilled 46-62 bytes
+// and made atlas mode 1 on (h) 8% slower (PERF.md). With shadows the two
+// walks' state overlaps on bounce 0, and the bare bound made ptxas cap
+// them at 96 registers and spill 170-182 bytes; under a floor of one
+// resident block the present walk took them to 135-137 registers, 3
+// blocks an SM, and shadows with GI 9% slower than the walk before it, so
+// they too take a floor of 4 (at most 128 registers, none spilled). Ray mode and
+// carry-in keep the bound of the camera mode they share their options
+// with. Carry-out holds the continuation state to the end: under the bare
+// bound ptxas capped it at 96 registers and spilled 186 bytes, so it takes
+// a floor of one resident block (118 registers, none spilled).
 template <int ATLAS, bool GI, bool RAYS, int CARRY>
-__global__ void __launch_bounds__(128, CARRY == CARRY_OUT ? 1 : 0)
+__global__ void __launch_bounds__(128, CARRY == CARRY_OUT ? 1 : 4)
 render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
               unsigned long long* counters) {
   render_frame<ATLAS, false, GI, RAYS, CARRY>(s, p, out, counters, nullptr);
 }
 
 template <int ATLAS, bool GI, bool RAYS, int CARRY>
-__global__ void __launch_bounds__(128, 1)
+__global__ void __launch_bounds__(128, 4)
 render_shadow_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
                      unsigned long long* counters,
                      unsigned long long* shadow_counters) {

@@ -9,9 +9,9 @@
 //
 // Bound on the H100: its least time is the 68 B/ray of rays in and planes
 // out where most rays miss, the walk's operations in a large scene; what
-// holds it above both is latency (traverse.cuh): a warp's ray loads, its
+// holds it above both is the walk (traverse.cuh): a warp's ray loads, its
 // instance row, its boxes and its stores form one dependent chain, hidden
-// only by the 24 warps an SM keeps resident. Design: one thread per ray,
+// only by the 20 warps an SM keeps resident. Design: one thread per ray,
 // 128 threads per block, each warp walking its 32 rays together (rays
 // i .. i + 31 are neighbours in screen order when the caller gives camera
 // rays); rays arrive as six [n] planes so neighbouring threads read
@@ -22,12 +22,14 @@
 // (no FMA contraction: parity with the JAX reference's expression order).
 #include "traverse.cuh"
 
-// Six blocks of 128 threads resident per SM: registers capped at 80 (a few
-// bytes spill), 24 warps to hide the walk's latency, measured faster than
-// 16 warps without spills at the main path's shapes (PERF.md). render.cu,
-// which holds shading state across the walk, measured the other way and
-// keeps its registers.
-__global__ void __launch_bounds__(128, 6)
+// Five blocks of 128 threads resident per SM: registers capped at 96, none
+// spilled, 20 warps to hide the walk's latency. Six blocks (80 registers,
+// a few bytes spilled) measured faster than 16 warps with the walk before
+// the present one; with the present one they spilled 42 bytes and ran the
+// ground's shadow rays 7% slower than it, five 2% faster (PERF.md).
+// render.cu, which holds shading state across the walk, measured the other
+// way and keeps its registers.
+__global__ void __launch_bounds__(128, 5)
 trace_kernel(SceneTables s, const float* __restrict__ rays,
              const float* __restrict__ live, int n, float* __restrict__ out,
              unsigned long long* counters) {

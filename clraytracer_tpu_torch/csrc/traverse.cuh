@@ -11,38 +11,47 @@
 // survivors as bitmasks, front to back by min-tnear keys, occlusion skip,
 // leaf geometry copied asynchronously into fast memory), not its TPU layout.
 //
-// What bounds it on the H100: latency, not bytes or FP32 rate. The walk
-// is a chain of dependent steps (load a node's boxes, test, pick the next
-// node) with few warps per SM to hide it, and in a large scene it stays
-// far above its operation bound. A walk of one ray per thread in index
-// order (this file before) ran the union of 32 lanes' nested loops one node
-// at a time, with a dependent global load per box and triangle: 44x its
-// operation bound on the 1M-triangle sphere. The hierarchy's branching
-// factor is 32 at every level, the warp's width, so:
+// What bounds it on the H100: the instructions it issues, not bytes or
+// FP32 rate. Where a scene is large or the camera stands inside it, the
+// warps test hundreds of boxes a ray (about 490 a pixel over two bounces in
+// the museum-class scene of chip_smoke.py's cell (t)), and the child test
+// that runs them is most of the issued instructions; the leaf tests most
+// of the rest. A walk of one ray per thread in index order (this file
+// before) ran the union of 32 lanes' nested loops one node at a time, with
+// a dependent global load per box and triangle: 44x its operation bound on
+// the 1M-triangle sphere. The hierarchy's branching factor is 32 at every
+// level, the warp's width, so:
 //  * the warp is the tile: lane r carries ray r, and when the warp opens a
 //    node, lane k loads child k's 32-byte box (two coalesced float4 loads);
 //  * a node's children are tested in one of two orders, whichever runs
 //    fewer iterations: each lane tests its child box against every ray of
-//    the parent's mask, reading the rays from shared memory as broadcasts
-//    (rays outer), or each lane tests its own ray against every child box,
-//    shuffled from its lane, with a ballot and a min-reduce per child
-//    (children outer). Either gives, per child, the mask of rays that pass
-//    and the least tnear over them (the child's key);
-//  * an instance of several hyper groups is first tested as one box, the
-//    union of its hyper boxes, so that warps whose rays all miss it test
-//    one box instead of every hyper box;
+//    the parent's mask, reading the rays from shared memory as broadcasts,
+//    CLRT_RAYS_PER_PASS rays a pass (rays outer), or each lane tests its
+//    own ray against every child box, read from shared memory as
+//    broadcasts, with a ballot and a min-reduce per child (children
+//    outer). Either gives, per child, the mask of rays that pass and the
+//    least tnear over them (the child's key). The slab test's NaN-carrying
+//    min and max are one instruction each (min.NaN / max.NaN);
+//  * an instance of at most CLRT_FQ hyper groups tests them in one step,
+//    then the supers of every hyper group a ray passes, and pops those
+//    supers in one key order across the instance (an interior scene's
+//    instance boxes all hold the camera, so no hyper group is skipped and
+//    a per-hyper order would walk far supers before near ones); an
+//    instance of more is first tested as one box, the union of its hyper
+//    boxes, then walked hyper by hyper;
 //  * survivors are visited in key order (warp min-reduce over
 //    order-preserving integer keys), and a node is skipped when no ray of
 //    its mask still has best t >= its key (occlusion); once no live ray of
 //    the warp has, the rest of that level is skipped;
 //  * a surviving cluster's 32 triangles (1536 contiguous bytes of `planes`)
 //    are copied by cp.async into one of two shared-memory slots while the
-//    previous cluster is tested. Few of a warp's rays reach a given cluster
-//    (4.5 on average on the 1M-triangle sphere), so a cluster that few rays
-//    reached is tested rays outer (lane k holds triangle k and tests each
-//    of those rays, a warp min-reduce picks each ray's winner), one that
-//    many reached triangles outer (each lane its own ray against the 32
-//    staged triangles, as broadcast reads); padding triangles are skipped.
+//    previous cluster is tested. A cluster that more than 16 of the warp's
+//    rays reached is tested triangles outer (each lane its own ray against
+//    the 32 staged triangles, as broadcast reads); one that fewer reached
+//    as a tile of rays x triangles (each of those rays on 32 / P lanes, P
+//    its count rounded up to a power of two, each lane P of the
+//    triangles, the winners merged by shuffles): P triangle iterations
+//    instead of 32. Padding triangles are skipped.
 // Every lane stays in the walk, dead, finished and out-of-range rays
 // included (as rays that pass nothing), so the warp collectives always run
 // with the full mask. Measured choices (thresholds, registers, what was
@@ -80,7 +89,10 @@
 // in both modes alike: a leaf tested triangles outer also tests lanes whose
 // own boxes culled it, so a hit behind a box that a float slab test culls
 // may be found in one mode and not the other; the grazing case the frame
-// rule of K2.1 and K2.2 allows against their plain versions.) With ANY =
+// rule of K2.1 and K2.2 allows against their plain versions.) The argument
+// holds for any visit order: the supers popped in one order across an
+// instance, and the rays-by-triangles leaf test (which tests only the
+// lanes whose boxes reached the leaf), leave it as it is. With ANY =
 // false every `if constexpr` drops out and the walk compiles as before.
 //
 // Build with --fmad=false: the JAX reference evaluates these expressions
@@ -98,6 +110,10 @@
 // hyper groups of an instance held in registers at once, 32 per chunk;
 // instances with more are walked in batches of CLRT_HQ * 32
 #define CLRT_HQ 2
+// an instance of at most CLRT_FQ hyper groups pops its supers in one order
+#define CLRT_FQ 3
+// rays a pass of the rays-outer child test (4 measured slower, PERF.md)
+#define CLRT_RAYS_PER_PASS 2
 
 struct SceneTables {
   const float* inst;         // [I, 17]: inverse transform (row-major) | mat_start
@@ -131,17 +147,13 @@ struct TestCount {
 #define CLRT_COUNTERS 6
 
 // A warp's shared memory: its object-space rays, read by the lanes that
-// test them for other lanes, and two leaf slots.
+// test them for other lanes, the boxes of the node it tests children
+// outer, read by every lane, and two leaf slots.
 struct WarpStage {
   float4 ray[32][3];                // (ox, oy, oz, best t) | 1 / d | (dx, dy, dz, 0)
+  float4 box[32][2];                // child k's lo | hi
   float4 tri[2][CLRT_CLUSTER * 3];  // one cluster's planes: N | U | V per slot
 };
-
-// A staged cluster is tested with the triangles outer (each lane its own
-// ray against the 32 triangles) when more than this many of the warp's
-// rays reached it, else with the rays outer (each lane its own triangle
-// against each of those rays, a warp min-reduce per ray)
-#define CLRT_LEAF_RAYS_OUTER 12
 
 // jnp.minimum / jnp.maximum: NaN in either operand gives NaN
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -155,6 +167,21 @@ struct ObjRay {
   float ox, oy, oz, dx, dy, dz, idx, idy, idz;
 };
 
+// nan_min / nan_max as one instruction each (min.NaN / max.NaN, sm_80 and
+// later): NaN if either operand is NaN. They may differ from nan_min /
+// nan_max only in the sign of a zero result, which the slab test's
+// comparisons do not see; the shading keeps nan_min / nan_max.
+__device__ __forceinline__ float box_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float box_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // box (lo = min xyz | max x, hi = max yz | pad) against one ray
 __device__ __forceinline__ bool slab(const float4& lo, const float4& hi,
                                      float ox, float oy, float oz, float idx,
@@ -166,10 +193,10 @@ __device__ __forceinline__ bool slab(const float4& lo, const float4& hi,
   float t1y = (hi.x - oy) * idy;
   float t0z = (lo.z - oz) * idz;
   float t1z = (hi.y - oz) * idz;
-  tnear = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                  nan_min(t0z, t1z));
-  float tfar = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                       nan_max(t0z, t1z));
+  tnear = box_max(box_max(box_min(t0x, t1x), box_min(t0y, t1y)),
+                  box_min(t0z, t1z));
+  float tfar = box_min(box_min(box_max(t0x, t1x), box_max(t0y, t1y)),
+                       box_max(t0z, t1z));
   return (tnear <= tfar) && (tfar > 0.0f) && (tnear <= bt);
 }
 
@@ -231,29 +258,45 @@ struct Walk {
     if (np <= n) {  // rays outer: lane k tests child k against each ray
       __syncwarp();  // the rays' best t, as the last leaf tests left them
       uint32_t m = pmask;
+      float kmin = CLRT_BIG;
       while (m) {
-        const int q = __ffs(m) - 1;
+        // CLRT_RAYS_PER_PASS rays a pass (the last ray again where fewer
+        // are left: it sets the same bit and key)
+        int q[CLRT_RAYS_PER_PASS];
+        q[0] = __ffs(m) - 1;
         m &= m - 1u;
-        const float4 a = ws.ray[q][0];
-        const float4 b = ws.ray[q][1];
-        float tn;
-        if (slab(lo, hi, a.x, a.y, a.z, b.x, b.y, b.z, a.w, tn) && valid) {
-          cmask |= 1u << q;
-          ckey = min(ckey, key_of(tn));
+#pragma unroll
+        for (int k = 1; k < CLRT_RAYS_PER_PASS; ++k) {
+          q[k] = m ? __ffs(m) - 1 : q[0];
+          m &= m - 1u;
+        }
+        float4 a[CLRT_RAYS_PER_PASS], b[CLRT_RAYS_PER_PASS];
+#pragma unroll
+        for (int k = 0; k < CLRT_RAYS_PER_PASS; ++k) {
+          a[k] = ws.ray[q[k]][0];
+          b[k] = ws.ray[q[k]][1];
+        }
+#pragma unroll
+        for (int k = 0; k < CLRT_RAYS_PER_PASS; ++k) {
+          float tn;
+          if (slab(lo, hi, a[k].x, a[k].y, a[k].z, b[k].x, b[k].y, b[k].z, a[k].w, tn)) {
+            cmask |= 1u << q[k];
+            kmin = fminf(kmin, tn);
+          }
         }
       }
+      if (!valid) cmask = 0u;
+      if (cmask) ckey = key_of(kmin);
     } else {  // children outer: each lane tests its own ray against child j
+      // the boxes go through shared memory, each read by all lanes at once
+      __syncwarp();  // every lane is done reading the last node's boxes
+      ws.box[lane][0] = lo;
+      ws.box[lane][1] = hi;
+      __syncwarp();
       const bool in = (pmask >> lane) & 1u;
       for (int j = 0; j < n; ++j) {
-        float4 blo, bhi;
-        blo.x = __shfl_sync(CLRT_FULL, lo.x, j);
-        blo.y = __shfl_sync(CLRT_FULL, lo.y, j);
-        blo.z = __shfl_sync(CLRT_FULL, lo.z, j);
-        blo.w = __shfl_sync(CLRT_FULL, lo.w, j);
-        bhi.x = __shfl_sync(CLRT_FULL, hi.x, j);
-        bhi.y = __shfl_sync(CLRT_FULL, hi.y, j);
-        bhi.z = 0.0f;
-        bhi.w = 0.0f;
+        const float4 blo = ws.box[j][0];
+        const float4 bhi = ws.box[j][1];
         float tn;
         const bool pass =
             slab(blo, bhi, r.ox, r.oy, r.oz, r.idx, r.idy, r.idz, h.t, tn) && in;
@@ -367,48 +410,82 @@ struct Walk {
     ws.ray[lane][0].w = h.t;
   }
 
-  // Rays outer: lane k's triangle of cluster c in `slot` against each ray q
-  // of `m` (read from shared memory); the least (t, slot) that accepts goes
-  // to lane q, which keeps it if it beats its best by the tie rule. The
-  // arithmetic per (ray, triangle) is test_leaf's, bit for bit.
-  __device__ __forceinline__ void test_leaf_rays(int c, int slot, uint32_t m) {
+  // Rays x triangles, for a cluster that at most 16 rays reached: the np
+  // rays of m take P ray slots (np rounded up to a power of two) and the
+  // warp's lanes split into 32 / P groups; lane l tests the ray of slot
+  // l % P against triangles l / P, l / P + 32 / P, ... (P of them, in
+  // rising order), so the warp runs P triangle iterations where test_leaf
+  // runs 32. The groups' winners (least t, then least slot) merge by
+  // butterfly shuffles, and each ray's own lane takes its slot's and keeps
+  // it if it beats its best by the tie rule. The arithmetic per (ray,
+  // triangle) is test_leaf's, bit for bit.
+  __device__ __forceinline__ void test_leaf_tiles(int c, int slot, uint32_t m, int np) {
+    const int P = np <= 1 ? 1 : 1 << (32 - __clz(np - 1));
+    const int g = 32 / P;
+    const int rs = lane & (P - 1);
+    const bool has = rs < np;
+    const int q = has ? (int)__fns(m, 0, rs + 1) : 0;
+    const float4 a = ws.ray[q][0];
+    const float4 e = ws.ray[q][2];
     const float4* tri = ws.tri[slot];
-    const float4 N = tri[3 * lane];
-    const float4 U = tri[3 * lane + 1];
-    const float4 V = tri[3 * lane + 2];
-    // padding (and degenerate) triangles never accept: keep their lanes off
-    // the division's slow path
-    const bool real = !(N.x == 0.0f && N.y == 0.0f && N.z == 0.0f);
-    while (m) {
-      const int q = __ffs(m) - 1;
-      m &= m - 1u;
-      const float4 a = ws.ray[q][0];
-      const float4 e = ws.ray[q][2];
-      float den = e.x * N.x + e.y * N.y + e.z * N.z;
-      float b_n = a.x * N.x + a.y * N.y + a.z * N.z + N.w;
-      float t = b_n * (-1.0f / (real ? den : 1.0f));
-      float u = (a.x * U.x + a.y * U.y + a.z * U.z + U.w) +
-                t * (e.x * U.x + e.y * U.y + e.z * U.z);
-      float v = (a.x * V.x + a.y * V.y + a.z * V.z + V.w) +
-                t * (e.x * V.x + e.y * V.y + e.z * V.z);
-      const bool ok = real && (t > 0.0f) && (u >= 0.0f) && (v >= 0.0f) &&
-                      (u + v <= 1.0f);
-      if constexpr (ANY) {
-        // ray q is open (h.t = CLRT_BIG): one accept below that resolves it
-        const bool acc = __ballot_sync(CLRT_FULL, ok && t < CLRT_BIG) != 0u;
-        if (acc && lane == q) h.t = -CLRT_BIG;
-        continue;
+    uint32_t kb = CLRT_NOKEY;  // the least accepted t's bits (t > 0)
+    int kslot = 0;
+    float bu = 0.0f, bv = 0.0f;
+    if (has) {
+      for (int k = lane / P; k < CLRT_CLUSTER; k += g) {
+        const float4 N = tri[3 * k];
+        const float4 U = tri[3 * k + 1];
+        const float4 V = tri[3 * k + 2];
+        if (N.x == 0.0f && N.y == 0.0f && N.z == 0.0f) continue;
+        float den = e.x * N.x + e.y * N.y + e.z * N.z;
+        float b_n = a.x * N.x + a.y * N.y + a.z * N.z + N.w;
+        float t = b_n * (-1.0f / den);
+        float u = (a.x * U.x + a.y * U.y + a.z * U.z + U.w) +
+                  t * (e.x * U.x + e.y * U.y + e.z * U.z);
+        float v = (a.x * V.x + a.y * V.y + a.z * V.z + V.w) +
+                  t * (e.x * V.x + e.y * V.y + e.z * V.z);
+        const bool ok = (t > 0.0f) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
+        if constexpr (ANY) {
+          // ray q is open (h.t = CLRT_BIG): one accept below that resolves it
+          if (ok && t < CLRT_BIG) {
+            kb = 0u;
+            break;
+          }
+        } else {
+          const uint32_t kt = ok ? __float_as_uint(t) : CLRT_NOKEY;
+          if (kt < kb) {  // rising k: an equal t keeps the lower slot
+            kb = kt;
+            kslot = k;
+            bu = u;
+            bv = v;
+          }
+        }
       }
-      // t > 0: its bits order as its values; NaN never passes `ok`
-      const uint32_t kt = ok ? __float_as_uint(t) : CLRT_NOKEY;
-      const uint32_t kmin = __reduce_min_sync(CLRT_FULL, kt);
-      if (kmin == CLRT_NOKEY) continue;
-      const int win = __ffs(__ballot_sync(CLRT_FULL, kt == kmin)) - 1;
-      const float wu = __shfl_sync(CLRT_FULL, u, win);
-      const float wv = __shfl_sync(CLRT_FULL, v, win);
-      if (lane == q) {
-        const float tw = __uint_as_float(kmin);
-        const int slot_id = c * CLRT_CLUSTER + win;
+    }
+    for (int off = P; off < 32; off <<= 1) {
+      const uint32_t ok_ = __shfl_xor_sync(CLRT_FULL, kb, off);
+      const int os = __shfl_xor_sync(CLRT_FULL, kslot, off);
+      const float ou = __shfl_xor_sync(CLRT_FULL, bu, off);
+      const float ov = __shfl_xor_sync(CLRT_FULL, bv, off);
+      if (ok_ < kb || (ok_ == kb && os < kslot)) {
+        kb = ok_;
+        kslot = os;
+        bu = ou;
+        bv = ov;
+      }
+    }
+    // lane q's slot is its rank among the rays of m
+    const int mine = __popc(m & ((1u << lane) - 1u));
+    const uint32_t wk = __shfl_sync(CLRT_FULL, kb, mine);
+    const int wslot = __shfl_sync(CLRT_FULL, kslot, mine);
+    const float wu = __shfl_sync(CLRT_FULL, bu, mine);
+    const float wv = __shfl_sync(CLRT_FULL, bv, mine);
+    if (((m >> lane) & 1u) && wk != CLRT_NOKEY) {
+      if constexpr (ANY) {
+        h.t = -CLRT_BIG;
+      } else {
+        const float tw = __uint_as_float(wk);
+        const int slot_id = c * CLRT_CLUSTER + wslot;
         const bool closer =
             (tw < h.t) ||
             (tw == h.t && (inst < h.inst || (inst == h.inst && slot_id < h.slot)));
@@ -457,10 +534,10 @@ struct Walk {
               __popc(__ballot_sync(CLRT_FULL, !(N.x == 0.0f && N.y == 0.0f && N.z == 0.0f)));
           if (lane == 0) cnt.tris += (unsigned long long)(real * np);
         }
-        if (np > CLRT_LEAF_RAYS_OUTER) {
+        if (np > 16) {
           test_leaf(c0 + cur, slot);
         } else {
-          test_leaf_rays(c0 + cur, slot, m_cur);
+          test_leaf_tiles(c0 + cur, slot, m_cur, np);
         }
       }
       if (nxt < 0) return;
@@ -505,15 +582,50 @@ struct Walk {
         CLRT_FULL, slab(lo, hi, r.ox, r.oy, r.oz, r.idx, r.idy, r.idz, h.t, tn) && in);
   }
 
+  // Super sj (local index) of an instance whose clusters start at cl0
+  // (cl_n of them): its clusters, then their leaves, for the rays of m.
+  __device__ __forceinline__ void super_node(int sj, int cl0, int cl_n, uint32_t m) {
+    const int c_first = sj * CLRT_GROUP;  // local cluster index
+    uint32_t ck[1], cm[1];
+    test_children(s.cluster_box, cl0 + c_first,
+                  max(0, min(CLRT_GROUP, cl_n - c_first)), m, cm[0], ck[0]);
+    leaves(cl0 + c_first, ck, cm);
+  }
+
   // One instance's hierarchy, the warp's live rays `live`.
   __device__ __forceinline__ void instance(uint32_t live) {
     const int* rg = s.ranges + inst * 4;
     const int sc0 = rg[0], sc_n = rg[1], cl0 = rg[2], cl_n = rg[3];
     const int hy0 = sc0 / CLRT_GROUP;
     const int n_hyper = (sc_n + CLRT_GROUP - 1) / CLRT_GROUP;
-    // several hyper groups: first the box around them all, so that a warp
+    if (n_hyper <= CLRT_FQ) {
+      // few hyper groups: one step tests them (lane q holds hyper q), then
+      // the supers of each hyper that any ray passes, with that hyper's
+      // rays, and the warp pops those supers in one key order across the
+      // whole instance (super q * 32 + k is slot q, lane k)
+      uint32_t hk0, hm0;
+      test_children(s.hyper_box, hy0, n_hyper, live, hm0, hk0);
+      uint32_t sk[CLRT_FQ], sm[CLRT_FQ];
+#pragma unroll
+      for (int q = 0; q < CLRT_FQ; ++q) {
+        const uint32_t mq = __shfl_sync(CLRT_FULL, hm0, q);
+        sm[q] = 0u;
+        sk[q] = CLRT_NOKEY;
+        if (q < n_hyper && mq != 0u) {
+          test_children(s.super_box, sc0 + q * 32, min(32, sc_n - q * 32), mq, sm[q], sk[q]);
+        }
+      }
+      for (;;) {
+        uint32_t m_s;
+        float k_s;
+        const int sj = pop(sk, sm, m_s, k_s);
+        if (sj < 0) return;
+        super_node(sj, cl0, cl_n, m_s);
+      }
+    }
+    // many hyper groups: first the box around them all, so that a warp
     // whose rays all miss the instance tests one box, not n_hyper
-    if (n_hyper > 1) live = root(hy0, n_hyper, live);
+    live = root(hy0, n_hyper, live);
     if (live == 0u) return;
     for (int hb = 0; hb < n_hyper; hb += CLRT_HQ * 32) {
       uint32_t hk[CLRT_HQ], hm[CLRT_HQ];
@@ -541,11 +653,7 @@ struct Walk {
           float k_s;
           const int sj = pop(sk, sm, m_s, k_s);
           if (sj < 0) break;
-          const int c_first = (s_first + sj) * CLRT_GROUP;  // local cluster index
-          uint32_t ck[1], cm[1];
-          test_children(s.cluster_box, cl0 + c_first,
-                        max(0, min(CLRT_GROUP, cl_n - c_first)), m_s, cm[0], ck[0]);
-          leaves(cl0 + c_first, ck, cm);
+          super_node(s_first + sj, cl0, cl_n, m_s);
         }
       }
     }

@@ -1238,3 +1238,126 @@ def test_render_profile_dir_trace_holds_k22(tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("render_kernel" in k for k in kernels), kernels[:20]
+
+
+# An interior scene: the camera inside a walled room (a cube of half
+# INTERIOR_ROOM, double-sided), instances in back-to-front index order
+INTERIOR_CAMERA = CameraConfig(position=(0.0, 0.5, 4.5))
+INTERIOR_ROOM = 6.0
+
+
+def _interior_builder(atlas: bool):
+    """Instance 0: a dense sphere (67,600 triangles, three hyper groups)
+    outside the room, behind its back wall; 1: the room, whose box holds
+    the camera; 2: the dense sphere again, inside the room; 3: a small
+    sphere in front of the camera. Imported textures (atlas mode 1) or
+    procedural ones (mode 0)."""
+    from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.scene import SceneBuilder
+    from clraytracer_tpu_torch.scene import procedural_tex as ptex
+    from clraytracer_tpu_torch.scene.procedural import cube, uv_sphere
+    from clraytracer_tpu_torch.scene.textures import checkerboard, gradient_sky
+
+    b = SceneBuilder()
+    if atlas:
+        b.import_texture(gradient_sky(64, 32))
+        tex = b.import_texture(checkerboard(32, 4))
+    else:
+        b.import_procedural(ptex.sky_gradient(64, 32))
+        tex = b.import_procedural(ptex.checker(16, 4))
+    wall = b.create_material(albedo=(0.8, 0.8, 0.7), albedo_tex=tex)
+    ball = b.create_material(albedo=(0.9, 0.3, 0.2))
+    dense = b.add_mesh(uv_sphere(1.5, n_lat=131, n_lon=260), materials_start=ball)
+    b.add_instance(dense, math3d.translation(0.0, 0.0, -INTERIOR_ROOM - 3.0))
+    b.add_instance(b.add_mesh(cube(INTERIOR_ROOM), materials_start=wall))
+    b.add_instance(dense, math3d.translation(-1.0, -2.0, -3.0))
+    b.add_instance(b.add_mesh(uv_sphere(0.6, n_lat=10, n_lon=20), materials_start=ball),
+                   math3d.translation(0.8, 0.5, 2.0))
+    return b
+
+
+def _interior_args(scene, dev):
+    from chip_smoke import camera_rays, option_args
+
+    frame = trender.frame_inputs_from_camera(Camera.create(INTERIOR_CAMERA, W, H), -1.96)
+    rays, _ = camera_rays(W, H, dev, frame)
+    return option_args(scene, frame, W, H), rays
+
+
+@pytest.mark.cuda
+def test_interior_scene_trace_kernel_exact_on_card():
+    """K2.1 from inside the room: exact against trace_plain; the room
+    (instance 1) and the dense sphere inside it (3 hyper groups) take hits,
+    the sphere behind the back wall none."""
+    dev = _card()
+    scene = _interior_builder(atlas=False).build(device=dev)
+    kt = tr.kernel_tables(scene)
+    assert -(-kt.ranges_host[0][1] // 32) == 3 and kt.ranges_host[0] == kt.ranges_host[2]
+    _, rays = _interior_args(scene, dev)
+    got = tr.trace_cuda(kt, rays)
+    ref = tr.trace_plain(kt, rays)
+    torch.cuda.synchronize()
+    _assert_trace_exact(got, ref, min_hits=W * H // 2)
+    inst = got[4].view(torch.int32)[got[0].abs() < tr.BIG]
+    assert int((inst == 1).sum()) > 1000 and int((inst == 2).sum()) > 1000
+    assert int((inst == 0).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("atlas,shadows", [(False, False), (False, True), (True, False),
+                                           (True, True)])
+def test_interior_scene_render_kernel_matches_plain_on_card(atlas, shadows):
+    """K2.2 in atlas modes 0 and 1, with and without the any-hit shadow
+    walk, from inside the room against render_fused_plain (whose shadow ray
+    is a nearest-hit trace): pool indices exact, at most FRAME_MISMATCH_MAX
+    rays over 1e-5. The room's walls shadow many bounce-0 hits."""
+    from chip_smoke import compare_options, shadowed_hits
+
+    dev = _card()
+    scene = _interior_builder(atlas).build(device=dev)
+    mode = rf.atlas_mode_of(scene)
+    assert mode == (1 if atlas else 0)
+    args, rays = _interior_args(scene, dev)
+    if shadows:
+        in_shadow, hits = shadowed_hits(args[0], rays, args[2].sun)
+        assert hits > W * H // 2 and in_shadow > 1000, (in_shadow, hits)
+    opts = dict(atlas_mode=mode, shadows=shadows)
+    got = rf.render_cuda(*args, **opts)
+    ref = rf.render_fused_plain(*args, dev, **opts)
+    torch.cuda.synchronize()
+    case = compare_options(got, ref, mode, False)
+    assert case["ok"], case
+
+
+@pytest.mark.cuda
+def test_interior_scene_tie_rule_across_instances_on_card():
+    """tests/_torch_ties.py's equal-t scene inside a room (half 8: the
+    rays start inside it), with the dense sphere of three hyper groups
+    added twice under one transform: every hit on it ties across two
+    instances whose supers the walk pops in one order. K2.1 picks the least
+    (t, instance, slot), as the brute-force rule does."""
+    from _torch_ties import lex_nearest, package, tie_recipe, tie_rays
+
+    from clraytracer_tpu_torch import math3d
+    from clraytracer_tpu_torch.scene.procedural import cube, uv_sphere
+
+    dev = _card()
+    b = tie_recipe(package("clraytracer_tpu_torch"))
+    mat = b.create_material(albedo=(0.5, 0.5, 0.5))
+    dense = b.add_mesh(uv_sphere(1.2, n_lat=131, n_lon=260), materials_start=mat)
+    at = math3d.translation(-1.2, 0.0, 1.3)
+    b.add_instance(dense, at)
+    b.add_instance(b.add_mesh(cube(8.0), materials_start=mat))
+    b.add_instance(dense, at)
+    kt = tr.kernel_tables(b.build(device=dev))
+    rays = torch.from_numpy(tie_rays(2048, seed=3)).to(dev)
+    got = tr.trace_cuda(kt, rays)
+    ref = tr.trace_plain(kt, rays)
+    torch.cuda.synchronize()
+    _assert_trace_exact(got, ref, min_hits=2000)
+    t_ref, inst_ref, slot_ref, at_best = lex_nearest(kt, rays)
+    hit = torch.isfinite(t_ref)
+    assert torch.equal(got[4].view(torch.int32)[hit].long(), inst_ref[hit])
+    assert torch.equal(got[3].view(torch.int32)[hit].long(), slot_ref[hit])
+    on_dense = (inst_ref == 3) & hit
+    assert int(on_dense.sum()) > 100 and bool((at_best[on_dense] > 1).all())
