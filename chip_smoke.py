@@ -312,13 +312,18 @@ TWO_PHASE_CELLS = (
 RAY_CELL = ("r", "sphere", 4096, 1920, 1080)
 # (s): ops.render_fused.render_fused_camera(split_rebin=True), 2 bounces,
 # against the unsplit frame: (tag, scene of ``option_scene``, --tris,
-# width, height, shadows). (a) and (c) as in MAIN, (k0) and (k) (k)'s
-# ground without and with shadows, the mixed-surface procedural class
+# width, height, shadows, plain check on a band of CHECK_BAND_ROWS rows).
+# (a) and (c) as in MAIN, (k0) and (k) (k)'s ground without and with
+# shadows, (field) ``cli.build_scene("field")``: 36 spheres of 960
+# triangles in one mesh, the mixed-surface procedural class the JAX
+# package keeps the split for (render_pallas.py:889-906), checked on a
+# band (its plain brute force over 34,560 triangles at 1080p is minutes)
 SPLIT_CELLS = (
-    ("a", "sphere", 4096, 1920, 1080, False),
-    ("c", "sphere", TRIS_LARGE, 1920, 1080, False),
-    ("k0", "ground", 4096, 1920, 1080, False),
-    ("k", "ground", 4096, 1920, 1080, True),
+    ("a", "sphere", 4096, 1920, 1080, False, False),
+    ("c", "sphere", TRIS_LARGE, 1920, 1080, False, True),
+    ("k0", "ground", 4096, 1920, 1080, False, False),
+    ("k", "ground", 4096, 1920, 1080, True, False),
+    ("field", "field", 4096, 1920, 1080, False, True),
 )
 # Above this many triangles a cell's plain version runs on a band of
 # CHECK_BAND_ROWS image rows through the middle of the frame, held against
@@ -868,13 +873,29 @@ def phase_options(dev, results) -> None:
     results["options"] = cases
 
 
+def carry_view(first):
+    """A carry-out buffer [19, n] as planes to compare, in ray order: the 9
+    frame planes, the continuation where the ray's key is live (zeros
+    elsewhere: the kernel leaves a dead ray's unwritten) and the key, from
+    its thread order, as a float (keys below 2^24 and KEY_DEAD differ by at
+    least 1 where they differ)."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import render_fused as rf
+
+    key = rf.keys_by_ray(first)
+    cont = torch.where(key != rf.KEY_DEAD, first[9:rf.CARRY_PLANES - 1], 0.0)
+    return torch.cat([first[:9], cont, key.double().float()[None]])
+
+
 def carry_cases(dev, wh=CHECK_WH) -> list:
     """The carry instantiations against their plain versions at ``wh``:
-    the carry-out launch (bounce 0, camera mode, 19 planes) without and
-    with shadows, and the carry-in launch (ray mode from global bounce 1)
-    on the rows ``rebin_rows`` re-bins from the plain carry-out's output,
-    so that both versions resume from the same state; the carry-in also
-    over 2 remaining bounces (the atmospheric chain from bounce 1 on)."""
+    the carry-out launch (bounce 0, camera mode; ``carry_view``'s planes)
+    without and with shadows, and the carry-in launch (ray mode from
+    global bounce 1, in place) over the keys ``sort_keys`` sorts from the
+    plain carry-out's buffer, each version on its own copy of it, so that
+    both resume from the same state; the carry-in also over 2 remaining
+    bounces (the atmospheric chain from bounce 1 on)."""
     import torch
 
     from clraytracer_tpu_torch.ops import render_fused as rf
@@ -889,17 +910,17 @@ def carry_cases(dev, wh=CHECK_WH) -> list:
         torch.cuda.synchronize()
         cases.append({"scene": spec, "atlas_mode": 0, "shadows": sh, "gi_seed": None,
                       "sample": None, "variant": rf.variant(0, sh, False, carry="out"),
-                      **compare_options(got, ref, 0, False)})
-        rays, carry, _inv = rf.rebin_rows(ref, args[6])
+                      **compare_options(carry_view(got), carry_view(ref), 0, False)})
+        keys, order = rf.sort_keys(ref)
         args2 = args[:7] + (rest,)
-        kw = dict(rays=rays, carry=carry, start_bounce=1, shadows=sh)
-        got = rf.render_cuda(*args2, **kw)
-        ref = rf.render_fused_plain(*args2, dev, **kw)
+        kw = dict(keys=keys, order=order, start_bounce=1, shadows=sh)
+        got = rf.render_cuda(*args2, carry=ref.clone(), **kw)
+        want = rf.render_fused_plain(*args2, dev, carry=ref.clone(), **kw)
         torch.cuda.synchronize()
         cases.append({"scene": spec, "atlas_mode": 0, "shadows": sh, "gi_seed": None,
                       "sample": None, "variant": rf.variant(0, False, False, True, "in"),
-                      "bounces": rest, "live_rays": int((carry[12] > 0.5).sum()),
-                      **compare_options(got, ref, 0, False)})
+                      "bounces": rest, "live_rays": int((keys != rf.KEY_DEAD).sum()),
+                      **compare_options(got, want, 0, False)})
     return cases
 
 
@@ -974,23 +995,36 @@ def band_start(mask, w: int, h: int, trows: int, rows: int) -> int:
 
 
 def variant_bound(kt, ft, counts, clusters, slots, n, bounces, mode, gi, key=None,
-                  shadow_counts=None, rays=False, carry=None) -> dict:
+                  shadow_counts=None, rays=False, carry=None, live=0) -> dict:
     """A K2.2 instantiation's bound: the bytes the scene's data needs
     (``walk_bytes``) plus its 9 + K*B output planes (and in ray mode,
-    ``rays``, its 6 input planes; ``carry`` "out": 10 more output planes,
-    "in": 13 more input planes), and the operations of this run's counts
+    ``rays``, its 6 input planes); ``carry`` "out": the key plane of every
+    ray and the 9 continuation planes of the ``live`` rays (alive after
+    the launch) more; "in" (one bounce; its rays are the carry's own):
+    instead, the sorted key of every ray (a warp of dead keys reads no
+    more), the int64 order entry, the o | d | energy | result planes in and
+    result out of the ``live`` rays and the 6 miss planes of those that
+    miss (live less this run's shaded hits). The operations are this run's counts'
     (the shadow walk's included) with the shading of its atlas mode and GI
     per shaded hit and, in camera mode, the raygen per ray.
     ``shadow_counts``: the shadow walk's own counts, printed apart with the
     primary walks' (the rest). ``key`` (kernel, cell, triangles): where
     ``NEAREST_SHADOW_WALK_COUNTS`` holds it, the bound those counts give is
     printed beside this run's."""
-    from clraytracer_tpu_torch.ops.render_fused import deferred_planes
+    from clraytracer_tpu_torch.ops.render_fused import CARRY_PLANES, deferred_planes
     from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
 
-    planes = 9 + deferred_planes(mode, gi) * bounces + (10 if carry == "out" else 0)
-    inputs = (6 if rays else 0) + (13 if carry == "in" else 0)
-    bytes_moved = walk_bytes(kt, clusters, slots, ft) + (planes + inputs) * n * 4
+    frame = 9 + deferred_planes(mode, gi) * bounces
+    if carry == "in":
+        if bounces != 1:
+            raise ValueError("the carry-in's misses are counted for one bounce")
+        io = 4 * n + (2 + 12 + 3) * 4 * live + 6 * 4 * (live - int(counts[3]))
+    else:
+        io = (frame + (6 if rays else 0)) * n * 4
+        if carry == "out":
+            io += 4 * n + 9 * 4 * live
+    planes = frame + (CARRY_PLANES - 9 if carry == "out" else 0)
+    bytes_moved = walk_bytes(kt, clusters, slots, ft) + io
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
 
     def operations(c):
@@ -1420,38 +1454,41 @@ def phase_ray_cell(dev, results) -> None:
         raise SystemExit("ray cell r failed")
 
 
-def split_plain_check(args, first, second, rays, carry, sh, tris: int, dev) -> dict:
+def split_plain_check(args, first, second, keys, order, sh, band: bool, dev) -> dict:
     """The two launches of a split frame against their plain versions on
     the same inputs, each timed once: the carry-out launch (``args``, one
-    bounce) and the carry-in launch on its re-binned rays and carry. Above
-    PLAIN_FULL_MAX_TRIS triangles on a band of CHECK_BAND_ROWS image rows
-    of the carry-out launch (``band_args``) and on as many rays, the first
-    rows of the carry-in launch, whose live rows the re-bin put first (a
-    ray-mode ray's planes depend on its inputs alone)."""
+    bounce; ``first``, its buffer before the carry-in; ``carry_view``'s
+    planes) and the carry-in launch (``second``, the same buffer after it)
+    against the plain carry-in on a copy of ``first`` over the same sorted
+    ``keys`` and ``order``, on the rays it walked. With ``band`` on a band
+    of CHECK_BAND_ROWS image rows of the carry-out launch (``band_args``)
+    and on the first as many sorted keys of the carry-in (a ray's planes
+    depend on its own inputs alone)."""
     from clraytracer_tpu_torch.ops import render_fused as rf
 
     _kt, _ft, _cr, w, h, trows, rows_total, _b = args
-    pargs, p_first, what = args, first, f"{w}x{h}"
-    rows2 = rows_total
-    if tris > PLAIN_FULL_MAX_TRIS:
+    n = rows_total * 128
+    pargs, view, what, n2 = args, carry_view(first), f"{w}x{h}", n
+    if band:
         y0 = (h - CHECK_BAND_ROWS) // 2
         pargs = band_args(args, y0, CHECK_BAND_ROWS)
-        p_first = first[:, band_index(w, trows, y0, CHECK_BAND_ROWS, dev)]
-        rows2 = min(rows_total, CHECK_BAND_ROWS * -(-w // 128))
+        view = view[:, band_index(w, trows, y0, CHECK_BAND_ROWS, dev)]
+        n2 = min(n, CHECK_BAND_ROWS * -(-w // 128) * 128)
         what = (f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-{y0 + CHECK_BAND_ROWS - 1}); "
-                f"carry-in on its first {rows2} rows")
+                f"carry-in on its first {n2} sorted keys")
     keep = []
     out_ms, _ = event_ms(lambda: keep.append(
         rf.render_fused_plain(*pargs, dev, carry_out=True, shadows=sh)), 1, 0)
-    out_check = compare_options(p_first, keep.pop(), 0, False)
-    n2 = rows2 * 128
-    r2, c2 = rays[:, :n2].contiguous(), carry[:, :n2].contiguous()
-    args2 = args[:6] + (rows2, 1)
-    in_ms, _ = event_ms(lambda: keep.append(rf.render_fused_plain(
-        *args2, dev, rays=r2, carry=c2, start_bounce=1)), 1, 0)
-    in_check = compare_options(second[:, :n2], keep.pop(), 0, False)
+    out_check = compare_options(view, carry_view(keep.pop()), 0, False)
+    keys2 = keys.clone()
+    keys2[n2:] = rf.KEY_DEAD
+    buf = first.clone()
+    in_ms, _ = event_ms(lambda: rf.render_fused_plain(
+        *args[:7], 1, dev, carry=buf, keys=keys2, order=order, start_bounce=1), 1, 0)
+    walked = rf.sorted_rays(keys2, order)
+    in_check = compare_options(second[:9, walked], buf[:9, walked], 0, False)
     return {"checked": what, "carry_out": {"plain_ms": out_ms, **out_check},
-            "carry_in": {"plain_ms": in_ms, "rays": n2, **in_check},
+            "carry_in": {"plain_ms": in_ms, "rays": int(walked.numel()), **in_check},
             "ok": out_check["ok"] and in_check["ok"]}
 
 
@@ -1459,15 +1496,17 @@ def phase_split_cell(dev, results) -> None:
     """(s) ``render_fused_camera(split_rebin=True)`` at 1920x1080, 2
     bounces, on SPLIT_CELLS: per scene the split frame's main-path run
     (counts from zero: per frame one carry-out and one carry-in launch, no
-    K2.1), the split and the unsplit frame timed in turns (unsplit, split,
-    split, unsplit), each launch's call ms and device ms, the re-bin glue's
-    ms (``rebin_rows`` and the inverse row gather; in the first cell
-    torch.profiler over 5 re-bins), the second launch's six
+    K2.1), two split frames bit-equal and the split frame's rays against
+    the unsplit frame's (at most FRAME_MISMATCH_MAX over 1e-5), the split
+    and the unsplit frame timed in turns (unsplit, split, split,
+    unsplit), each launch's call ms and device ms, the glue's (the key
+    sort, ``sort_keys``: call ms, device ms and its kernels by
+    torch.profiler), the live rays after bounce 0 and the warps that walk
+    bounce 1 split (those of the sorted keys with a live one) against
+    unsplit (the bounce-0 tiles with a live ray), the second launch's six
     counters beside the unsplit frame's bounce-1 share (its counts less
-    its bounce 0 alone), the rays of the split frame that differ from the
-    unsplit frame's (at most FRAME_MISMATCH_MAX over 1e-5), a finite image,
-    both launches against their plain versions (``split_plain_check``) and
-    their bounds."""
+    its bounce 0 alone), a finite image, both launches against their
+    plain versions (``split_plain_check``) and their bounds."""
     import torch
 
     from clraytracer_tpu_torch.ops import render_fused as rf
@@ -1475,15 +1514,18 @@ def phase_split_cell(dev, results) -> None:
     from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
 
     results["split_cells"] = []
-    for tag, spec, tris, w, h, sh in SPLIT_CELLS:
+    for tag, spec, tris, w, h, sh, band in SPLIT_CELLS:
         scene = option_scene(spec, tris, device=dev)
         frame = option_frame(spec, w, h)
         frame_fn = lambda split: (lambda: rf.render_fused_camera(
             scene, frame, w, h, 2, enable_shadows=sh, split_rebin=split)[0])
         split, unsplit = frame_fn(True), frame_fn(False)
         img = split()  # first frame: tables upload
-        unsplit()
+        img_again, img_unsplit = split(), unsplit()
         torch.cuda.synchronize()
+        deterministic = torch.equal(img, img_again)
+        frame_differing = int(((img - img_unsplit).abs() > 1e-5).any(dim=0).sum())
+        del img_again, img_unsplit
         # ---- the main path's own run: counts from zero
         reset_counts()
         ms, times = event_ms(split, FRAMES, WARMUP)
@@ -1500,26 +1542,25 @@ def phase_split_cell(dev, results) -> None:
         n = rows_total * 128
         c_first = torch.zeros(6, dtype=torch.int64, device=dev)
         c_second = torch.zeros(6, dtype=torch.int64, device=dev)
-        first = rf.render_cuda(*args1, c_first, carry_out=True, shadows=sh)
-        rays, carry, inv = rf.rebin_rows(first, rows_total)
-        kw2 = dict(rays=rays, carry=carry, start_bounce=1)
-        second = rf.render_cuda(*args1, c_second, **kw2)
+        second = rf.render_cuda(*args1, c_first, carry_out=True, shadows=sh)
+        keys, order = rf.sort_keys(second)
+        first = second.clone()  # the carry-out's buffer before the carry-in
+        kw2 = dict(keys=keys, order=order, start_bounce=1)
+        rf.render_cuda(*args1, c_second, carry=second, **kw2)
+        scratch = first.clone()  # the timed carry-ins rewrite its frame planes
         launch1 = lambda: rf.render_cuda(*args1, carry_out=True, shadows=sh)
-        launch2 = lambda: rf.render_cuda(*args1, **kw2)
-        put_back = lambda: second.reshape(9, rows_total, 128)[:, inv]
+        launch2 = lambda: rf.render_cuda(*args1, carry=scratch, **kw2)
+        glue = lambda: rf.sort_keys(first)
         launches = {
             "carry_out_ms": event_ms(launch1, 10, 2)[0],
             "carry_out_device_ms": device_ms(launch1),
             "carry_in_ms": event_ms(launch2, 10, 2)[0],
             "carry_in_device_ms": device_ms(launch2),
-            "glue_rebin_ms": event_ms(lambda: rf.rebin_rows(first, rows_total), 10, 2)[0],
-            "glue_put_back_ms": event_ms(put_back, 10, 2)[0],
+            "glue_ms": event_ms(glue, 10, 2)[0],
+            "glue_device_ms": device_ms(glue),
         }
-        launches["glue_ms"] = launches["glue_rebin_ms"] + launches["glue_put_back_ms"]
-        glue_profile = None
-        if tag == SPLIT_CELLS[0][0]:  # where the glue's time goes, once
-            glue_profile = device_profile(lambda: rf.rebin_rows(first, rows_total), 5,
-                                          launches["glue_rebin_ms"])
+        del scratch
+        glue_profile = device_profile(glue, 5, launches["glue_ms"])
         # ---- the unsplit launch and its bounce 0 alone: the bounce-1 share
         args2 = args1[:7] + (2,)
         c_whole = torch.zeros(6, dtype=torch.int64, device=dev)
@@ -1528,8 +1569,7 @@ def phase_split_cell(dev, results) -> None:
         rf.render_cuda(*args1, c_b0, shadows=sh)
         launches["unsplit_ms"] = event_ms(lambda: rf.render_cuda(*args2, shadows=sh), 10, 2)[0]
         launches["unsplit_device_ms"] = device_ms(lambda: rf.render_cuda(*args2, shadows=sh))
-        split9 = put_back().reshape(9, -1)
-        vs_unsplit = compare_options(split9, whole, 0, False)
+        vs_unsplit = compare_options(second[:9], whole, 0, False)
         cw, cb0 = c_whole.cpu().tolist(), c_b0.cpu().tolist()
         cnt1, cnt2 = c_first.cpu().tolist(), c_second.cpu().tolist()
         counters = {
@@ -1539,21 +1579,30 @@ def phase_split_cell(dev, results) -> None:
             "unsplit_bounce0": dict(zip(COUNTER_NAMES, cb0)),
             "unsplit_bounce1_share": dict(zip(COUNTER_NAMES, (a - b for a, b in zip(cw, cb0)))),
         }
-        del whole, split9
+        del whole
+        # ---- live rays and the warps that walk bounce 1
+        live_sorted = keys != rf.KEY_DEAD
+        live_tiles = first[rf.CARRY_PLANES - 1].view(torch.int32) != rf.KEY_DEAD
+        live_rays = int(live_sorted.sum())
+        warps_bounce1 = {
+            "split": int(live_sorted.reshape(-1, 32).any(dim=1).sum()),
+            "unsplit": int(live_tiles.reshape(-1, 32).any(dim=1).sum()),
+            "launched": n // 32,
+        }
         # ---- bounds: bounce 0's winners for the carry-out launch, those of
-        # the carried live rays for the carry-in launch
+        # the live rays' bounce 1 for the carry-in launch
         kt, ft = args1[0], args1[1]
         cam_rays, _cam = camera_rays(w, h, dev, frame)
         cl1, sl1 = winners(tr.trace_cuda(kt, cam_rays))
         del cam_rays
-        cl2, sl2 = winners(tr.trace_cuda(kt, rays, (carry[12] > 0.5).float()))
-        bound1 = variant_bound(kt, ft, cnt1, cl1, sl1, n, 1, 0, False, carry="out")
-        bound2 = variant_bound(kt, ft, cnt2, cl2, sl2, n, 1, 0, False, rays=True, carry="in")
-        plain = split_plain_check(args1, first, second, rays, carry, sh,
-                                  int(scene.tris.count), dev)
-        live_rays = int((carry[12] > 0.5).sum())
-        live_rows = int((carry[12].reshape(rows_total, 128).amax(dim=1) > 0.5).sum())
-        del first, second, rays, carry, inv
+        walked = rf.sorted_rays(keys, order)
+        cl2, sl2 = winners(tr.trace_cuda(kt, first[9:15, walked].contiguous()))
+        bound1 = variant_bound(kt, ft, cnt1, cl1, sl1, n, 1, 0, False, carry="out",
+                               live=live_rays)
+        bound2 = variant_bound(kt, ft, cnt2, cl2, sl2, n, 1, 0, False, rays=True, carry="in",
+                               live=live_rays)
+        plain = split_plain_check(args1, first, second, keys, order, sh, band, dev)
+        del first, second, keys, order, walked
         finite = bool(torch.isfinite(img).all()) and tuple(img.shape) == (3, rows_total, 128)
         torch.cuda.synchronize()
         out_name = rf.variant(0, sh, False, carry="out")
@@ -1566,14 +1615,16 @@ def phase_split_cell(dev, results) -> None:
             "turns": turns, "launches": counts, "frames": frames,
             "k22_variant_launches": variants, "kernels": launches,
             "glue_profile": glue_profile, "counters": counters,
-            "live_rows_after_bounce0": live_rows, "live_rays_after_bounce0": live_rays,
+            "live_rays_after_bounce0": live_rays, "warps_bounce1": warps_bounce1,
+            "deterministic": deterministic, "frame_rays_differing": frame_differing,
             "vs_unsplit": vs_unsplit, "plain": plain,
             "carry_out_bound": bound1, "carry_in_bound": bound2,
             "carry_out_variant": out_name, "carry_in_variant": in_name,
             "finite": finite, "mean": float(img.mean()),
         }
         line["ok"] = (
-            finite and vs_unsplit["ok"] and plain["ok"]
+            finite and deterministic and frame_differing <= FRAME_MISMATCH_MAX
+            and vs_unsplit["ok"] and plain["ok"]
             and counts == {"K2.1": 0, "K2.2": 2 * frames, "K2.3": 0, "K2.4": 0}
             and variants == {out_name: frames, in_name: frames}
         )

@@ -29,15 +29,27 @@
 //    throughput colour * 2 cos(theta) (render_pallas.py:542-604), from a
 //    per-ray Wang-hash/xorshift32 stream seeded by the ray's strip index;
 //  * carry (render_fused_camera's split_rebin, render_pallas.py:121-123,
-//    :284-309, :707-715; atlas mode 0 without GI only): a CARRY_OUT launch
-//    (camera mode) appends the continuation state after its last bounce,
-//    o(3) | d(3) | energy(3) | alive(1) at planes 9..18; a CARRY_IN launch
-//    (ray mode) starts from RenderParams::carry, [13, n] result(3) |
-//    men(3) | mdir(3) | energy(3) | alive(1), at global bounce
-//    start_bounce >= 1 instead of fresh: its lanes dead on entry keep their
-//    miss planes and skip the walk as dead lanes, the live ones take
-//    light = d (the bounce epilogue set both). Shadows are gated to global
-//    bounce 0, so a carry-in launch has no shadow walk and no shadow twin.
+//    :284-309, :707-715; atlas mode 0 without GI only), laid out for the
+//    card rather than the TPU's 128-ray rows. The CARRY_OUT launch (camera
+//    mode) writes, after its last bounce, the continuation o(3) | d(3) |
+//    energy(3) at planes 9..17 of the rays still alive (at their strip
+//    index i, as the 9 frame planes; a dead ray's are left unwritten) and
+//    at plane 18 one i32 sort key per ray in thread order (blockIdx * 128
+//    + threadIdx, so 32 consecutive keys are one warp's 8 x 4 tile):
+//    ray_key of the ray's own direction octant and coarse origin cells,
+//    CLRT_KEY_DEAD for a ray that missed. The host sorts the key plane
+//    (stable); the CARRY_IN launch (ray mode) takes the sorted keys
+//    (RenderParams::keys) and the thread index each came from
+//    (RenderParams::order). Its thread t is the t-th sorted ray: a warp
+//    whose 32 keys are dead returns before any other read (dead keys sort
+//    last), a live lane maps its index back to the ray's strip index i and
+//    reads o | d (RenderParams::rays, the carry's planes 9..14) and energy
+//    (RenderParams::carry, planes 15..17) at i, walks from global bounce
+//    start_bounce >= 1 with light = d, and reads its running result and
+//    writes it, and its miss planes when it misses, in place at i through
+//    out, which is the carry buffer. A live ray has not
+//    missed, so the carry-out wrote its miss planes as zeros. Shadows are
+//    gated to global bounce 0, so a carry-in launch has no shadow walk.
 // Every shading formula
 // keeps the JAX kernel's expression tree (which replicates ops/shade.py);
 // the equirect sky stays outside the kernel: each ray's throughput and
@@ -56,8 +68,9 @@
 //
 // Bound on the H100: its least time is the output bytes in a small scene
 // (36 B/ray, plus 4 K B bytes a ray in the atlas modes, plus the 24 B/ray
-// of input planes in ray mode; carry-out 40 B/ray more out, carry-in 52
-// B/ray more in) and the walk's
+// of input planes in ray mode; carry-out 4 B/ray of keys and 36 B more a
+// live ray, carry-in 4 B/ray of keys, then a live ray's 8 B index, 48 B
+// in and 12 B out, 24 B more where it misses) and the walk's
 // operations in a large one; shading is a few hundred FP32 operations per
 // hit ray, GI about 80 more. What holds it above both is the traversal's
 // latency (traverse.cuh). Design here: a block of 128 threads is four
@@ -108,13 +121,34 @@ struct RenderParams {
   int gi;                   // Monte-Carlo GI continuation
   unsigned int gi_base;     // GI seed base of bounce 0 (+1237 per bounce)
   const float* rays;        // ray mode: [6, n_rays] origin xyz | direction xyz
-  const float* carry;       // carry-in: [13, n_rays], see the header
+  const float* carry;       // carry-in: the carry-out's [19, n_rays] buffer (== out)
   int start_bounce;         // carry-in: global index of the first bounce (>= 1)
-  int carry_out;            // carry-out: 10 continuation planes after the 9
+  int carry_out;            // carry-out: continuation and key planes after the 9
+  const int* keys;          // carry-in: [n_rays] the key plane, sorted
+  const long long* order;   // carry-in: [n_rays] the thread index of each sorted key
 };
 
 // The carry mode of an instantiation (template parameter CARRY)
 enum { CARRY_NONE = 0, CARRY_OUT = 1, CARRY_IN = 2 };
+// The sort key of a ray that is dead after the carry-out's bounce
+#define CLRT_KEY_DEAD 0x7FFFFFFF
+
+// The strip index of thread tid of block b: block b takes strip rows
+// 4 (b / 4) .. + 3, columns 32 (b % 4) .. + 31, and its warp w columns
+// + 8 w .. + 8 w + 7 of those rows, one 8 x 4 tile
+__device__ __forceinline__ int strip_ray(int b, int tid) {
+  const int warp = tid >> 5, wl = tid & 31;
+  return ((b >> 2) * 4 + (wl >> 3)) * 128 + (b & 3) * 32 + warp * 8 + (wl & 7);
+}
+
+// rebin_key (render_pallas.py:850) of one ray: its direction octant in
+// bits 18-20, then its three 6-bit wrapped coarse origin cells
+// floor(o * 0.25) & 63, x highest
+__device__ __forceinline__ int ray_key(const float (&o)[3], const float (&d)[3]) {
+  int key = ((d[0] > 0.0f) << 20) | ((d[1] > 0.0f) << 19) | ((d[2] > 0.0f) << 18);
+  for (int c = 0; c < 3; ++c) key |= ((int)floorf(o[c] * 0.25f) & 63) << (6 * (2 - c));
+  return key;
+}
 
 // procedural_tex.descriptor_row columns
 enum {
@@ -244,12 +278,22 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
   constexpr int K = Defer<ATLAS, GI>::K;
   __shared__ WarpStage stage[4];
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  // block b: strip rows 4 (b / 4) .. + 3, columns 32 (b % 4) .. + 31; its
-  // warp w takes columns + 8 w .. + 8 w + 7 of those rows
+  // strip_ray's mapping: block b takes strip rows 4 (b / 4) .. + 3,
+  // columns 32 (b % 4) .. + 31; its warp w columns + 8 w .. + 8 w + 7
   const int r = (blockIdx.x >> 2) * 4 + (wl >> 3);
   const int lane = (blockIdx.x & 3) * 32 + warp * 8 + (wl & 7);
-  const int i = r * 128 + lane;
-  const bool valid = i < p.n_rays;
+  int i = r * 128 + lane;
+  bool valid = i < p.n_rays;
+  if constexpr (CARRY == CARRY_IN) {
+    // the thread's sorted key: a live one is a carried ray, at the strip
+    // index of the carry-out thread it came from. A warp of dead keys has
+    // nothing to do (its counts are zero, and the carry-in counts by warp)
+    const int t = blockIdx.x * 128 + threadIdx.x;
+    valid = t < p.n_rays && p.keys[t] != CLRT_KEY_DEAD;
+    if (!__any_sync(CLRT_FULL, valid)) return;
+    const int from = valid ? (int)p.order[t] : 0;
+    i = strip_ray(from >> 7, from & 127);
+  }
   TestCount cnt = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
 
   float d[3], o[3];
@@ -301,19 +345,17 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
   bool alive = valid;  // no miss yet
   bool missed = false;
   if constexpr (CARRY == CARRY_IN) {
-    // resume from the carried state; a lane dead on entry missed before:
-    // its miss planes go out as they came, and it walks as a dead lane
+    // resume a live carried ray (its o and d came in through p.rays). Its
+    // running result is read through out, which writes it back: the
+    // planes out writes are accessed through out alone, and those that
+    // p.rays and p.carry read (9..17) are not written here
     if (valid) {
-      const float* cin = p.carry;
       for (int c = 0; c < 3; ++c) {
-        result[c] = cin[c * N + i];
-        out[(3 + c) * N + i] = cin[(3 + c) * N + i];
-        out[(6 + c) * N + i] = cin[(6 + c) * N + i];
-        energy[c] = cin[(9 + c) * N + i];
+        result[c] = out[c * N + i];
+        energy[c] = p.carry[(15 + c) * N + i];
       }
-      alive = cin[12 * N + i] > 0.5f;
     }
-    missed = true;  // the miss planes hold the carry's: no zeroing below
+    missed = true;  // the carry-out zeroed its miss planes: no zeroing below
   }
   int b = 0;
   for (; b < p.bounces; ++b) {
@@ -511,17 +553,29 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
         out[(6 + c) * N + i] = 0.0f;
       }
     }
-    if constexpr (CARRY == CARRY_OUT) {
-      // the continuation state of the re-binned second launch
+  }
+  if constexpr (CARRY == CARRY_OUT) {
+    // the continuation of a ray still alive, and every ray's sort key in
+    // thread order
+    int key = CLRT_KEY_DEAD;
+    if (alive) {
       for (int c = 0; c < 3; ++c) {
         out[(9 + c) * N + i] = o[c];
         out[(12 + c) * N + i] = d[c];
         out[(15 + c) * N + i] = energy[c];
       }
-      out[18 * N + i] = alive ? 1.0f : 0.0f;
+      key = ray_key(o, d);
+    }
+    const int t = blockIdx.x * 128 + threadIdx.x;
+    if (t < p.n_rays) reinterpret_cast<int*>(out)[18 * N + t] = key;
+  }
+  if (counters != nullptr) {
+    if constexpr (CARRY == CARRY_IN) {
+      add_counts_warp(counters, cnt);  // whole dead warps have returned
+    } else {
+      add_counts(counters, cnt);
     }
   }
-  if (counters != nullptr) add_counts(counters, cnt);
 }
 
 // Register bounds, one per kind of instantiation. Without shadows: 128
@@ -539,7 +593,8 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
 // carry-in keep the bound of the camera mode they share their options
 // with. Carry-out holds the continuation state to the end: under the bare
 // bound ptxas capped it at 96 registers and spilled 186 bytes, so it takes
-// a floor of one resident block (118 registers, none spilled).
+// a floor of one resident block (118 registers, none spilled, before the
+// per-ray key).
 template <int ATLAS, bool GI, bool RAYS, int CARRY>
 __global__ void __launch_bounds__(128, CARRY == CARRY_OUT ? 1 : 4)
 render_kernel(SceneTables s, RenderParams p, float* __restrict__ out,
@@ -593,8 +648,11 @@ static int dispatch(int sel, const SceneTables* s, const RenderParams* p, float*
 // shadow_counters: optional int64[6], the shadow walk's counts alone (it
 // needs p->shadows; counters, when given, count both walks as before).
 // p->rays selects ray mode; p->carry_out (camera mode) and p->carry (ray
-// mode, with start_bounce >= 1 and p->shadows off) the carry
-// instantiations, which take atlas mode 0 without GI.
+// mode, with start_bounce >= 1, p->shadows off, the sorted keys and their
+// order, out the carry buffer itself and p->rays its planes 9..14) the
+// carry instantiations, which take atlas mode 0 without GI and n_rays a
+// multiple of 512 (whole blocks: the key plane's thread order covers
+// every ray).
 extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
                            float* out, unsigned long long* counters,
                            unsigned long long* shadow_counters, void* stream) {
@@ -603,15 +661,18 @@ extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
   const int rows = (p->n_rays + 127) / 128;
   const int blocks = (rows + 3) / 4 * 4;  // four blocks per 4 strip rows
   cudaStream_t st = (cudaStream_t)stream;
-  if (p->carry != nullptr || p->carry_out || p->start_bounce != 0) {
-    const bool plain_opts = p->atlas_mode == 0 && !p->gi;
-    if (p->carry != nullptr && plain_opts && p->rays != nullptr && !p->carry_out &&
-        !p->shadows && p->start_bounce >= 1) {
+  if (p->carry != nullptr || p->carry_out || p->start_bounce != 0 || p->keys != nullptr ||
+      p->order != nullptr) {
+    const bool plain_opts = p->atlas_mode == 0 && !p->gi && p->n_rays % 512 == 0;
+    const size_t n = (size_t)p->n_rays;
+    if (p->carry != nullptr && plain_opts && p->carry == out && p->rays == out + 9 * n &&
+        p->keys != nullptr && p->order != nullptr && !p->carry_out && !p->shadows &&
+        p->start_bounce >= 1) {
       return launch<0, false, false, true, CARRY_IN>(s, p, out, counters, nullptr, st,
                                                      blocks);
     }
-    if (p->carry == nullptr && plain_opts && p->rays == nullptr && p->carry_out &&
-        p->start_bounce == 0) {
+    if (p->carry == nullptr && plain_opts && p->rays == nullptr && p->keys == nullptr &&
+        p->order == nullptr && p->carry_out && p->start_bounce == 0) {
       return p->shadows ? launch<0, true, false, false, CARRY_OUT>(
                               s, p, out, counters, shadow_counters, st, blocks)
                         : launch<0, false, false, false, CARRY_OUT>(

@@ -16,9 +16,10 @@
   launch, then ``_finish_frame``: the deferred sky add, and in the atlas
   modes the one combined texel gather of every bounce. With
   ``split_rebin`` the camera entry makes two: bounce 0 in camera mode with
-  the continuation state carried out, whole 128-ray rows re-binned by
-  ``rebin_key`` (``rebin_rows``), the remaining bounces in ray mode resumed
-  from the carried state.
+  the continuation of the live rays and a per-ray ``rebin_key`` carried
+  out, one stable sort of the keys (``sort_keys``), the remaining bounces
+  in ray mode over the live rays in key order, resumed from the carried
+  state and written back in place.
 """
 
 from __future__ import annotations
@@ -224,32 +225,76 @@ def check_rays(rays: torch.Tensor, rows_total: int) -> int:
     return n
 
 
-#: the carry-in state's planes, [13, n]: result rgb | miss energy rgb |
-#: miss dir xyz | energy rgb | alive (render_pallas.py:284-296)
-CARRY_PLANES = 13
+#: the carry-out launch's planes, [19, n] (csrc/render.cu's header): the
+#: frame's 9 (result rgb | miss energy rgb | miss dir xyz), the
+#: continuation o xyz | d xyz | energy rgb of the rays still alive (a dead
+#: ray's are not written) and, last, every ray's i32 sort key in the
+#: launch's thread order (``thread_rays``)
+CARRY_PLANES = 19
+#: the sort key of a ray that is dead after bounce 0: it sorts last
+#: (render_pallas.py:1347)
+KEY_DEAD = 0x7FFFFFFF
+
+
+def thread_rays(n: int, device) -> torch.Tensor:
+    """The strip index of each of a launch's n threads, [n] int64
+    (csrc/render.cu ``strip_ray``): thread t of block t // 128 is lane
+    t % 32 of warp (t % 128) // 32, and block b takes strip rows 4 (b // 4)
+    .. + 3, columns 32 (b % 4) .. + 31, its warp w one 8 x 4 tile of them
+    at columns + 8 w .. + 8 w + 7. A bijection of range(n) when n is a
+    multiple of 512."""
+    t = torch.arange(n, device=device)
+    b, warp, wl = t >> 7, (t & 127) >> 5, t & 31
+    return ((b >> 2) * 4 + (wl >> 3)) * 128 + (b & 3) * 32 + warp * 8 + (wl & 7)
+
+
+def keys_by_ray(first: torch.Tensor) -> torch.Tensor:
+    """The carry-out buffer's key plane (its last, in thread order) in ray
+    order, [n] i32."""
+    n = first.shape[1]
+    key = torch.empty(n, dtype=torch.int32, device=first.device)
+    key[thread_rays(n, first.device)] = first[CARRY_PLANES - 1].view(torch.int32)
+    return key
+
+
+def sorted_rays(keys: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """The strip index of the ray of each live sorted key (``sort_keys``'
+    keys and order), in key order: the rays a carry-in walks."""
+    return thread_rays(keys.numel(), keys.device)[order[keys != KEY_DEAD]]
 
 
 def check_carry(n: int, atlas_mode: int, gi: bool, rays, carry_out: bool, carry,
-                start_bounce: int) -> None:
+                start_bounce: int, keys=None, order=None) -> None:
     """The carry's arguments (render_pallas.py:121-123): ``carry_out`` in
-    camera mode at bounce 0; ``carry`` [13, n] in ray mode at global bounce
-    ``start_bounce`` >= 1; both in atlas mode 0 without GI, the split's
-    gate (render_pallas.py:1290-1291) and the kernel's instantiations."""
-    if not (carry_out or carry is not None or start_bounce):
+    camera mode at bounce 0; ``carry``, the carry-out's [19, n] buffer, with
+    its sorted ``keys`` [n] i32 and their ``order`` [n] int64
+    (``sort_keys``), at global bounce ``start_bounce`` >= 1, its rays the
+    carry's own planes (no ``rays``); both in atlas mode 0 without GI (the
+    split's gate, render_pallas.py:1290-1291, and the kernel's
+    instantiations) over n a multiple of 512 (whole blocks, so that the key
+    plane's thread order covers every ray)."""
+    if not (carry_out or carry is not None or start_bounce or keys is not None
+            or order is not None):
         return
     if atlas_mode != 0 or gi:
         raise ValueError("the carry takes atlas mode 0 without GI")
+    if n % 512:
+        raise ValueError(f"the carry takes whole blocks of 512 rays, not {n}")
     if carry is None:
-        if start_bounce != 0 or rays is not None:
-            raise ValueError("carry_out is camera mode from bounce 0; "
-                             "start_bounce needs a carry")
+        if start_bounce != 0 or rays is not None or keys is not None or order is not None:
+            raise ValueError("carry_out is camera mode from bounce 0; start_bounce, "
+                             "keys and order need a carry")
         return
-    if carry_out or rays is None or start_bounce < 1:
-        raise ValueError("a carry resumes in ray mode at start_bounce >= 1")
+    if carry_out or rays is not None or start_bounce < 1:
+        raise ValueError("a carry resumes from its own rays at start_bounce >= 1")
     if carry.dtype != torch.float32 or tuple(carry.shape) != (CARRY_PLANES, n) or (
-            not carry.is_contiguous()) or carry.device != rays.device:
-        raise ValueError(f"carry must be a contiguous [{CARRY_PLANES}, {n}] f32 tensor "
-                         "beside the rays")
+            not carry.is_contiguous()):
+        raise ValueError(f"carry must be a contiguous [{CARRY_PLANES}, {n}] f32 tensor")
+    for t, dtype, name in ((keys, torch.int32, "keys"), (order, torch.int64, "order")):
+        if t is None or t.dtype != dtype or tuple(t.shape) != (n,) or (
+                not t.is_contiguous()) or t.device != carry.device:
+            raise ValueError(f"{name} must be a contiguous [{n}] {dtype} tensor "
+                             "beside the carry")
 
 
 # ---------------------------------------------------------------------------
@@ -286,19 +331,30 @@ def render_fused_plain(
     carry_out: bool = False,
     carry: torch.Tensor | None = None,
     start_bounce: int = 0,
+    keys: torch.Tensor | None = None,
+    order: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain version of K2.2 → [9 + K*bounces, n] f32 (result rgb |
     miss energy rgb | miss dir xyz | K deferred planes per bounce,
     csrc/render.cu's layout), op for op the kernel's expressions. Camera
     mode: n = rows_total*128 rays of the camera row's raygen. Ray mode
     (``rays`` [6, n], ``check_rays``): the given rays; of ``cr`` only the
-    sun is read. ``carry_out`` appends the continuation state, o xyz | d
-    xyz | energy rgb | alive: [19, n]. ``carry`` ([13, n], ``CARRY_PLANES``)
-    replaces the fresh start, at global bounce ``start_bounce``
-    (``check_carry``)."""
+    sun is read. ``carry_out`` appends the live rays' continuation and the
+    key plane (``CARRY_PLANES``: [19, n]; a dead ray's continuation is
+    zero here). ``carry`` (the carry-out's [19, n], with ``keys`` and
+    ``order``, ``check_carry``) resumes the live rays, in sorted order, at
+    global bounce ``start_bounce`` and writes their 9 planes back into
+    ``carry`` in place → ``carry[:9]``."""
     gi = gi_seed is not None
-    if rays is None:
-        n = rows_total * 128
+    n = rows_total * 128 if rays is None else check_rays(rays, rows_total)
+    check_carry(n, atlas_mode, gi, rays, carry_out, carry, start_bounce, keys, order)
+    ray_index = torch.arange(n, device=device)  # the rays walked, by strip index
+    if carry is not None:
+        # the live carried rays in key order
+        ray_index = sorted_rays(keys, order)
+        o = [carry[9 + c, ray_index] for c in range(3)]
+        d = [carry[12 + c, ray_index] for c in range(3)]
+    elif rays is None:
         cam = torch.tensor(cr.cam, dtype=torch.float32, device=device)
         px, py = tile_pixels(width, trows, rows_total, device, row0=cr.cam[35])
         d = unproject(
@@ -307,32 +363,29 @@ def render_fused_plain(
         d = [d[0], d[1], d[2]]
         o = [cam[32 + c].expand(n) for c in range(3)]
     else:
-        n = check_rays(rays, rows_total)
         o = [rays[c] for c in range(3)]
         d = [rays[3 + c] for c in range(3)]
-    check_carry(n, atlas_mode, gi, rays, carry_out, carry, start_bounce)
-    zero = torch.zeros(n, device=device)
+    walked = ray_index.numel()
+    zero = torch.zeros(walked, device=device)
     if carry is None:
         light = [zero, zero + cr.sun[0], zero + cr.sun[1]]
         result = [zero, zero, zero]
         energy = [zero + 1.0, zero + 1.0, zero + 1.0]
-        men = [zero, zero, zero]
-        mdir = [zero, zero, zero]
-        alive = torch.ones(n, dtype=torch.bool, device=device)
     else:
-        # resume from the carried state; alive lanes left the previous
-        # bounce with light == direction
-        result, men, mdir, energy = ([carry[k + c] for c in range(3)] for k in (0, 3, 6, 9))
-        alive = carry[12] > 0.5
+        # a live ray left bounce 0 with light == direction and no miss yet
         light = list(d)
+        result = [carry[c, ray_index] for c in range(3)]
+        energy = [carry[15 + c, ray_index] for c in range(3)]
+    men = [zero, zero, zero]
+    mdir = [zero, zero, zero]
+    alive = torch.ones(walked, dtype=torch.bool, device=device)
     deferred = []
     # the global bounce's atmospheric constants: the chain's iterated f32
     # multiplies from bounce 0 (render_pallas.py:304-310)
     atm = atm_table(start_bounce + bounces)[start_bounce:]
     seeds = rng.gi_seed_rows(gi_seed, bounces) if gi else None
-    ray_index = torch.arange(n, device=device)
     n_mat = ft.mat_rows.shape[0]
-    for b in range(bounces):
+    for b in range(bounces if walked else 0):
         gb = b + start_bounce  # the global bounce
         hs = trace_plain(kt, torch.stack(o + d).contiguous(),
                          None if gb == 0 else alive.float())
@@ -440,18 +493,22 @@ def render_fused_plain(
                 ) + spec_light
             result[c] = torch.where(live, result[c] + contrib, result[c])
             if gi:
-                carry = gi_weight if atlas_mode else color[c] * gi_weight
+                gain = gi_weight if atlas_mode else color[c] * gi_weight
             else:
-                carry = 0.2 * spec_s
-            energy[c] = torch.where(live, energy[c] * carry, energy[c])
+                gain = 0.2 * spec_s
+            energy[c] = torch.where(live, energy[c] * gain, energy[c])
             new_d = gdir[c] if gi else d[c] - nn[c] * (2.0 * ndd)
             o[c] = torch.where(live, new_o[c], o[c])
             d[c] = torch.where(live, new_d, d[c])
             light[c] = torch.where(live, new_d, light[c])
         alive = live
     planes = result + men + mdir + deferred
+    if carry is not None:
+        carry[:9, ray_index] = torch.stack(planes)
+        return carry[:9]
     if carry_out:
-        planes += o + d + energy + [alive.float()]
+        planes += [torch.where(alive, x, zero) for x in o + d + energy]
+        planes.append(ray_keys(o, d, alive)[thread_rays(n, device)].view(torch.float32))
     return torch.stack(planes)
 
 
@@ -479,14 +536,18 @@ def render_cuda(
     carry_out: bool = False,
     carry: torch.Tensor | None = None,
     start_bounce: int = 0,
+    keys: torch.Tensor | None = None,
+    order: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K2.2 (csrc/render.cu) → [9 + K*bounces, n] f32 on the
     tables' CUDA device (K = ``deferred_planes(atlas_mode, gi)``). Camera
     mode: n = rows_total*128 rays of the in-kernel raygen. Ray mode
     (``rays`` [6, n] on the device, ``check_rays``): the given rays, and
-    of ``cr`` only the sun is read. ``carry_out``, ``carry`` and
-    ``start_bounce`` as ``render_fused_plain``'s: the carry-out launch
-    ([19, n]) and the carry-in launch, which has no shadow walk (shadows
+    of ``cr`` only the sun is read. ``carry_out``, ``carry``, ``keys``,
+    ``order`` and ``start_bounce`` as ``render_fused_plain``'s: the
+    carry-out launch ([19, n]; a dead ray's continuation planes are left
+    unwritten) and the carry-in launch, in ray mode over the carry's own
+    planes, in place (→ ``carry[:9]``), which has no shadow walk (shadows
     are gated to global bounce 0), so ``shadows`` is dropped there.
     ``gi_seed`` None turns GI off; the seed is a launch parameter, so every
     seed runs the same compiled instantiation. ``counters``: optional int64
@@ -515,16 +576,23 @@ def render_cuda(
         if rays.device != dev:
             raise ValueError("rays must lie on the tables' device")
     gi = gi_seed is not None
-    check_carry(n, atlas_mode, gi, rays, carry_out, carry, start_bounce)
+    check_carry(n, atlas_mode, gi, rays, carry_out, carry, start_bounce, keys, order)
     if carry is not None:
+        if carry.device != dev:
+            raise ValueError("the carry must lie on the tables' device")
         if shadow_counters is not None:
             raise ValueError("a carry-in launch walks no shadow ray")
         shadows = False
+        out = carry  # in place; its rays are its planes 9..14
+        rays_ptr = carry[9].data_ptr()
+    else:
+        out = torch.empty(
+            (9 + deferred_planes(atlas_mode, gi) * bounces
+             + (CARRY_PLANES - 9 if carry_out else 0), n),
+            dtype=torch.float32, device=dev,
+        )
+        rays_ptr = kernels.ptr(rays)
     lib = kernels.build_all()["render.cu"]
-    out = torch.empty(
-        (9 + deferred_planes(atlas_mode, gi) * bounces + (10 if carry_out else 0), n),
-        dtype=torch.float32, device=dev,
-    )
     # the kernel indexes the constants by its own bounce: start at the
     # global bounce's
     atm = _atm_tensor(start_bounce + bounces, str(dev))[start_bounce:]
@@ -534,8 +602,9 @@ def render_cuda(
         ft.mat_rows.shape[0], ft.tex.shape[0],
         trows, -(-width // 128), width, height, n, bounces,
         atlas_mode, int(shadows), int(gi),
-        rng.gi_seed_rows(gi_seed, 1)[0] if gi else 0, kernels.ptr(rays),
-        kernels.ptr(carry), start_bounce, int(carry_out),
+        rng.gi_seed_rows(gi_seed, 1)[0] if gi else 0, rays_ptr,
+        kernels.ptr(carry), start_bounce, int(carry_out), kernels.ptr(keys),
+        kernels.ptr(order),
     )
     tables = kt.as_c()
     code = lib.clrt_render(
@@ -544,10 +613,10 @@ def render_cuda(
     )
     kernels.check(code, "clrt_render")
     render_cuda.launches += 1
-    name = variant(atlas_mode, shadows, gi, rays is not None,
+    name = variant(atlas_mode, shadows, gi, rays is not None or carry is not None,
                    "in" if carry is not None else "out" if carry_out else None)
     render_cuda.variant_launches[name] = render_cuda.variant_launches.get(name, 0) + 1
-    return out
+    return out if carry is None else out[:9]
 
 
 render_cuda.launches = 0
@@ -646,32 +715,28 @@ def rebin_key(dm: torch.Tensor, om: torch.Tensor) -> torch.Tensor:
             | (cell[0] << 12) | (cell[1] << 6) | cell[2])
 
 
+def ray_keys(o: list, d: list, live: torch.Tensor) -> torch.Tensor:
+    """Per-ray sort keys [n] i32 in ray order: ``rebin_key`` of each live
+    ray's own direction (its octant) and origin xyz planes, ``KEY_DEAD``
+    for the others (csrc/render.cu ``ray_key``)."""
+    return torch.where(live, rebin_key(torch.stack(d), torch.stack(o)), KEY_DEAD)
+
+
+def sort_keys(first: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The glue between the split's launches: one stable sort of the
+    carry-out's key plane (its last, in thread order) → (the sorted keys
+    [n] i32, the thread index each came from [n] int64). Ties keep thread
+    order, so rays of one key stay in their bounce-0 tiles; dead rays sort
+    last. The JAX package's argsort is XLA outside its kernel too
+    (render_pallas.py:1345-1346)."""
+    return torch.sort(first[CARRY_PLANES - 1].view(torch.int32), stable=True)
+
+
 def split_rebin_preferred(scene: Scene) -> bool:
     """The default of ``render_fused_camera``'s ``split_rebin``
     (render_pallas.py:889): off for every scene, as in the JAX package."""
     del scene
     return False
-
-
-def rebin_rows(first: torch.Tensor, rows_total: int):
-    """The re-bin between the split's launches (render_pallas.py:1325-1364)
-    on the carry-out launch's [19, n] output → (rays [6, n], carry [13, n],
-    inv [rows_total]). Whole 128-ray rows are sorted (stably) by
-    ``rebin_key`` of their mean sign(d) and mean o; rows with no live lane
-    key last (0x7FFFFFFF), so that whole warps of them skip the walk. The
-    rays and the carried state are gathered in that order; ``inv`` puts
-    the second launch's rows back."""
-    st = first.reshape(-1, rows_total, 128)
-    key = torch.where(st[18].amax(dim=1) > 0.5,
-                      rebin_key(torch.sign(st[12:15]).mean(dim=2), st[9:12].mean(dim=2)),
-                      0x7FFFFFFF)
-    perm = torch.argsort(key, stable=True)
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(rows_total, device=perm.device)
-    g = st.index_select(1, perm)
-    rays = g[9:15].reshape(6, -1)
-    carry = torch.cat([g[0:9], g[15:19]]).reshape(CARRY_PLANES, -1)
-    return rays, carry, inv
 
 
 def _launch(dev: torch.device, *args, **opts) -> torch.Tensor:
@@ -706,9 +771,12 @@ def render_fused_camera(
 
     ``split_rebin`` (None: ``split_rebin_preferred``; taken only for
     ``bounces >= 2`` in atlas mode 0 without GI, render_pallas.py:1288-1291):
-    bounce 0 as one camera-mode launch that carries its state out,
-    ``rebin_rows``, the remaining bounces as one ray-mode launch resumed
-    from the carried state at global bounce 1, the rows put back in order."""
+    bounce 0 as one camera-mode launch that carries out the live rays'
+    state and every ray's sort key, ``sort_keys``, the remaining bounces as
+    one ray-mode launch over the live rays in key order from global bounce
+    1, written back in place into the first launch's frame planes. The
+    JAX package re-bins whole 128-ray rows instead (the TPU's vector
+    width); the frame is the same."""
     win_height = local_height if local_height is not None else height
     trows = tile_rows(width * win_height)
     tiles_x = -(-width // 128)
@@ -725,11 +793,10 @@ def render_fused_camera(
     opts = dict(atlas_mode=mode, shadows=enable_shadows, gi_seed=gi_seed)
     if split_rebin:
         first = _launch(dev, *args, 1, carry_out=True, **opts)
-        rays, carry, inv = rebin_rows(first, rows_total)
-        del first
-        second = _launch(dev, *args, bounces - 1, rays=rays, carry=carry, start_bounce=1,
-                         **opts)
-        out = second.reshape(9, rows_total, 128)[:, inv]
+        keys, order = sort_keys(first)
+        _launch(dev, *args, bounces - 1, carry=first, keys=keys, order=order, start_bounce=1,
+                **opts)
+        out = first[:9].reshape(9, rows_total, 128)
     else:
         out = _launch(dev, *args, bounces, **opts).reshape(-1, rows_total, 128)
     img = _finish_frame(scene, out, mode, gi_seed is not None)

@@ -79,6 +79,8 @@ class RenderParamsC(ctypes.Structure):
         ("carry", ctypes.c_void_p),
         ("start_bounce", ctypes.c_int),
         ("carry_out", ctypes.c_int),
+        ("keys", ctypes.c_void_p),
+        ("order", ctypes.c_void_p),
     ]
 
 

@@ -750,10 +750,12 @@ CARRY_CASES = [("sphere", False, 2), ("ground", False, 1), ("ground", True, 1)]
 def test_carry_instantiations_match_plain_on_card(spec, shadows, rest):
     """The split-rebin carry's three instantiations against their plain
     versions at 320x240, to the frame rule: the carry-out launch (camera
-    mode, bounce 0, 19 planes) without and with shadows, and the carry-in
-    launch (ray mode from global bounce 1, over ``rest`` bounces) on the
-    rows that ``rebin_rows`` re-bins from the plain carry-out's output."""
-    from chip_smoke import compare_options, option_args, option_frame, option_scene
+    mode, bounce 0; its 9 frame planes, the live rays' continuation and
+    the key plane, ``chip_smoke.carry_view``) without and with shadows,
+    and the carry-in launch (ray mode from global bounce 1, over ``rest``
+    bounces, in place) over the keys ``sort_keys`` sorts from the plain
+    carry-out's buffer, each on its own copy of it."""
+    from chip_smoke import carry_view, compare_options, option_args, option_frame, option_scene
 
     dev = _card()
     w, h = 320, 240
@@ -763,16 +765,19 @@ def test_carry_instantiations_match_plain_on_card(spec, shadows, rest):
     got = rf.render_cuda(*args, carry_out=True, shadows=shadows)
     ref = rf.render_fused_plain(*args, dev, carry_out=True, shadows=shadows)
     torch.cuda.synchronize()
-    assert got.shape == (19, args[6] * 128)
-    case = compare_options(got, ref, 0, False)
+    assert got.shape == (rf.CARRY_PLANES, args[6] * 128)
+    case = compare_options(carry_view(got), carry_view(ref), 0, False)
     assert case["ok"], case
-    rays, carry, _inv = rf.rebin_rows(ref, args[6])
-    assert 0 < int((carry[12] > 0.5).sum()) < carry.shape[1]
-    kw = dict(rays=rays, carry=carry, start_bounce=1, shadows=shadows)
-    got = rf.render_cuda(*args[:7], rest, **kw)
-    ref = rf.render_fused_plain(*args[:7], rest, dev, **kw)
+    keys, order = rf.sort_keys(ref)
+    assert 0 < int((keys != rf.KEY_DEAD).sum()) < keys.numel()
+    kw = dict(keys=keys, order=order, start_bounce=1, shadows=shadows)
+    buf = ref.clone()
+    got = rf.render_cuda(*args[:7], rest, carry=buf, **kw)
+    want = rf.render_fused_plain(*args[:7], rest, dev, carry=ref.clone(), **kw)
     torch.cuda.synchronize()
-    case = compare_options(got, ref, 0, False)
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[9:].view(torch.int32), ref[9:].view(torch.int32))
+    case = compare_options(got, want, 0, False)
     assert case["ok"], case
     out_name = rf.variant(0, shadows, False, carry="out")
     in_name = rf.variant(0, False, False, True, "in")
@@ -780,7 +785,7 @@ def test_carry_instantiations_match_plain_on_card(spec, shadows, rest):
     assert after[out_name] == before.get(out_name, 0) + 1
     assert after[in_name] == before.get(in_name, 0) + 1
     with pytest.raises(ValueError):  # the carry-in launch walks no shadow ray
-        rf.render_cuda(*args[:7], rest, shadow_counters=torch.zeros(
+        rf.render_cuda(*args[:7], rest, carry=buf, shadow_counters=torch.zeros(
             6, dtype=torch.int64, device=dev), **kw)
 
 
@@ -789,10 +794,10 @@ def test_carry_instantiations_match_plain_on_card(spec, shadows, rest):
                                           ("ground", False), ("ground", True)])
 def test_split_frame_matches_unsplit_on_card(spec, shadows):
     """render_fused_camera(split_rebin=True) on the card: exactly two K2.2
-    launches (carry-out in camera mode, then carry-in in ray mode) and no
-    K2.1 nor any plain version; its image within the frame rule of the
-    unsplit frame's (a re-binned warp holds other rays, and a
-    triangles-outer leaf tests lanes whose own boxes culled it)."""
+    launches (carry-out in camera mode, then carry-in in ray mode over the
+    sorted live rays) and no K2.1 nor any plain version; its image within
+    the frame rule of the unsplit frame's (a sorted warp holds other rays,
+    and a triangles-outer leaf tests lanes whose own boxes culled it)."""
     from chip_smoke import option_frame, option_scene
 
     dev = _card()
@@ -826,8 +831,8 @@ def test_row_windows_stack_to_the_full_frame_on_card(split):
     """row0/local_height on the card: rows 0-79, 80-159 and 160-239 of a
     320x240 frame, each rendered alone and untiled, stack to the full
     frame: bit for bit unsplit (a window's warps hold the full frame's 8x4
-    pixel tiles), within the frame rule split (the re-bin groups rows
-    otherwise)."""
+    pixel tiles), within the frame rule split (a window's key sort groups
+    its bounce-1 rays otherwise)."""
     from chip_smoke import option_frame, option_scene
 
     dev = _card()
@@ -848,6 +853,95 @@ def test_row_windows_stack_to_the_full_frame_on_card(split):
         assert torch.equal(got, want)
     bad = ((got - want).abs() > 1e-5).any(dim=0)
     assert int(bad.sum()) <= FRAME_MISMATCH_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,shadows", [("sphere", False), ("ground", True), ("field", False)])
+def test_split_frames_are_bit_equal_on_card(spec, shadows):
+    """Two split frames of one scene and camera on the card are bit-equal:
+    no atomic decides an order (the key sort is stable, and each sorted
+    ray writes only its own planes)."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    w, h = 320, 240
+    scene = option_scene(spec, device=dev)
+    frame = option_frame(spec, w, h)
+    one = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=shadows,
+                                 split_rebin=True)[0]
+    two = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=shadows,
+                                 split_rebin=True)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(one).all() and torch.equal(one, two)
+
+
+def _device_work(fn, tmp_path):
+    """One call of ``fn`` under torch.profiler → (the device's kernels,
+    copies and fills by name in launch order, {torch op: calls} of the ops
+    with device time of their own); up to three sessions, the first whose
+    trace holds device events (chip_smoke.device_profile's reading)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = tmp_path / f"trace{attempt}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        work = sorted((e for e in events if e.get("ph") == "X"
+                       and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                      key=lambda e: float(e["ts"]))
+        if work:
+            break
+    ops = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            ops[e.key] = int(e.count)
+    return [e["name"] for e in work], ops
+
+
+@pytest.mark.cuda
+def test_split_frame_runs_two_k22_kernels_and_the_sort_on_card(tmp_path):
+    """torch.profiler over one split frame on the card: its device work is
+    the unsplit frame's (one K2.2 kernel and ``_finish_frame``'s) with one
+    K2.2 kernel more and the key sort's (``sort_keys`` alone): two K2.2
+    kernels, carry-out then carry-in, and no row gather
+    (``index_select``), argsort, put-back gather nor ``cat`` beyond
+    ``_finish_frame``'s own."""
+    from chip_smoke import option_args, option_frame, option_scene
+
+    dev = _card()
+    w, h = 320, 240
+    scene = option_scene("sphere", device=dev)
+    frame = option_frame("sphere", w, h)
+    frame_fn = lambda split: (lambda: rf.render_fused_camera(
+        scene, frame, w, h, 2, split_rebin=split)[0])
+    first = rf.render_cuda(*option_args(scene, frame, w, h, bounces=1), carry_out=True)
+    frame_fn(True)()
+    frame_fn(False)()
+    rf.sort_keys(first)
+    before = dict(rf.render_cuda.variant_launches)
+    split, split_ops = _device_work(frame_fn(True), tmp_path)
+    after = rf.render_cuda.variant_launches
+    unsplit, unsplit_ops = _device_work(frame_fn(False), tmp_path)
+    sort, sort_ops = _device_work(lambda: rf.sort_keys(first), tmp_path)
+    print(f"split: {len(split)} kernels {split}; sort: {len(sort)} {sort}")
+    k22 = [k for k in split if "render_kernel" in k or "render_shadow_kernel" in k]
+    assert len(k22) == 2 and len([k for k in unsplit if "render_kernel" in k]) == 1
+    for name in ("carry_out", "rays+carry_in"):
+        assert after[name] == before.get(name, 0) + 1
+    assert len(split) == len(unsplit) + 1 + len(sort)
+    assert "aten::sort" in split_ops and "aten::sort" not in unsplit_ops
+    assert not set(split_ops) & {"aten::index_select", "aten::argsort", "aten::gather",
+                                 "aten::index", "aten::index_put_"}, split_ops
+    assert split_ops.get("aten::cat", 0) == unsplit_ops.get("aten::cat", 0)
 
 
 def _small_obj(tmp_path):

@@ -1,10 +1,12 @@
 """K2.2's split-rebin carry on the CPU: ``render_fused_camera(split_rebin=
-True)`` (bounce 0 with the state carried out, whole rows re-binned by
-``rebin_key``, the remaining bounces resumed in ray mode) through the
+True)`` (bounce 0 with the live rays' state and a per-ray ``rebin_key``
+carried out, one stable sort of the keys, the remaining bounces resumed
+over the live rays in key order and written back in place) through the
 plain versions, against the unsplit frame bit for bit and against the JAX
 package's split frame (its fused kernel in Pallas interpret mode); the
-re-bin key against JAX's; the split's gate; the carry's arguments; and the
-``row0``/``local_height`` row windows.
+re-bin key and the per-ray key plane against JAX's ``rebin_key``; the
+carry-in's independence of the order it walks in; the split's gate; the
+carry's arguments; and the ``row0``/``local_height`` row windows.
 
 The plain K2.2 traces each ray by brute force, so the split cannot change
 a ray's hit: the carried f32 state round-trips exactly and the split
@@ -23,6 +25,7 @@ from clraytracer_tpu.config import CameraConfig as JCameraConfig
 from clraytracer_tpu.ops import render_pallas as jrp
 from clraytracer_tpu.render import frame_inputs_from_camera as j_frame_inputs
 import chip_smoke as cs
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from clraytracer_tpu_torch import render as trender
 from clraytracer_tpu_torch.camera import Camera as TCamera
 from clraytracer_tpu_torch.config import CameraConfig as TCameraConfig
@@ -106,10 +109,12 @@ SPLIT_CASES = [
                          ids=[f"{n}-{w}x{h}-{'shadows' if s else 'plain'}-b{b}"
                               for n, w, h, s, b in SPLIT_CASES])
 def test_plain_split_equals_unsplit(name, w, h, shadows, bounces, request, monkeypatch):
-    """The plain split frame (carry-out launch, re-bin, carry-in launch at
-    global bounce 1) equals the plain unsplit frame bit for bit, with
-    shadows on and off and over 3 bounces. The procedural scene's rows mix
-    live and dead lanes after bounce 0, and some are wholly dead."""
+    """The plain split frame (carry-out launch, key sort, carry-in launch at
+    global bounce 1, in place) equals the plain unsplit frame bit for bit,
+    with shadows on and off and over 3 bounces. The procedural scene's
+    bounce-0 warps mix live and dead lanes, and some are wholly dead; the
+    stable sort puts the live keys first, in order, ties in thread order,
+    so that only as many warps as the live rays fill walk bounce 1."""
     ts = scenes(name, request)[1]
     frame = port_inputs(name, w, h)
     calls = counting_plain(monkeypatch)
@@ -122,15 +127,20 @@ def test_plain_split_equals_unsplit(name, w, h, shadows, bounces, request, monke
     first, second = calls[1:]
     assert first["carry_out"] and first["bounces"] == 1 and "rays" not in first
     assert second["start_bounce"] == 1 and second["bounces"] == bounces - 1
-    assert second["carry"].shape == (rf.CARRY_PLANES, second["rays"].shape[1])
+    keys, order = second["keys"], second["order"]
+    assert second["carry"].shape == (rf.CARRY_PLANES, keys.shape[0]) and "rays" not in second
     np.testing.assert_array_equal(split.numpy(), one.numpy())
-    alive = second["carry"][12].reshape(-1, 128)
+    # the key plane in thread order: 32 keys a bounce-0 warp
+    warps = (second["carry"][rf.CARRY_PLANES - 1].view(torch.int32) != rf.KEY_DEAD)
+    warps = warps.reshape(-1, 32)
     if name == "procedural_scene":
-        assert ((alive.amax(dim=1) == 0)).any()  # wholly dead rows
-        assert ((alive.amax(dim=1) > 0) & (alive.amin(dim=1) == 0)).any()  # mixed rows
-    # the re-bin put every wholly dead row after every live one
-    live_rows = alive.amax(dim=1) > 0
-    assert not (live_rows[1:] & ~live_rows[:-1]).any()
+        assert (~warps.any(dim=1)).any()  # wholly dead warps
+        assert (warps.any(dim=1) & ~warps.all(dim=1)).any()  # mixed warps
+    live = keys != rf.KEY_DEAD
+    tie = keys[1:] == keys[:-1]
+    assert (keys[1:] >= keys[:-1]).all() and (order[1:][tie] > order[:-1][tie]).all()
+    assert int(live.reshape(-1, 32).any(dim=1).sum()) == -(-int(live.sum()) // 32)
+    assert int(live.sum()) == int(warps.sum())
 
 
 def test_split_matches_jax_split(request):
@@ -184,49 +194,140 @@ def test_split_gate_runs_one_launch(label, name, kw, request, monkeypatch):
 
 
 def test_carry_out_planes_hold_the_continuation_state(request):
-    """carry_out appends o | d | energy | alive after the 9 planes, which
-    equal the launch's without it; lanes that missed keep the camera's
-    origin and their own direction, lanes that hit leave from the offset
-    hit point with the reflected direction and light 0.2 * spec_s."""
+    """carry_out appends o | d | energy of the rays still alive and the key
+    plane after the 9 planes, which equal the launch's without it: lanes
+    that hit leave from the offset hit point with the reflected direction
+    and light 0.2 * spec_s, and key as ``rebin_key`` of that origin and
+    direction; lanes that missed key ``KEY_DEAD`` (the plain version zeroes
+    their continuation, which the kernel leaves unwritten)."""
     ts = scenes("procedural_scene", request)[1]
     w, h = 64, 48
     args = cs.option_args(ts, port_inputs("procedural_scene", w, h), w, h, bounces=1)
     cpu = torch.device("cpu")
     plain = rf.render_fused_plain(*args, cpu)
     out = rf.render_fused_plain(*args, cpu, carry_out=True)
-    assert out.shape == (19, args[6] * 128)
+    assert out.shape == (rf.CARRY_PLANES, args[6] * 128)
     np.testing.assert_array_equal(out[:9].numpy(), plain.numpy())
     rays, _cam = cs.camera_rays(w, h, cpu, port_inputs("procedural_scene", w, h))
     hit = tr.trace_plain(args[0], rays)[0] < tr.BIG
-    alive = out[18]
-    assert torch.equal(alive, hit.float())
-    np.testing.assert_array_equal(out[9:15][:, ~hit].numpy(), rays[:, ~hit].numpy())
+    key = rf.keys_by_ray(out)
+    assert torch.equal(key != rf.KEY_DEAD, hit) and 0 < int(hit.sum()) < hit.numel()
+    assert (out[9:18][:, ~hit] == 0.0).all()
     assert (out[9:12][:, hit] != rays[0:3][:, hit]).any(dim=0).all()
-    assert (out[15:18][:, ~hit] == 1.0).all() and (out[15:18][:, hit] < 1.0).all()
+    assert (out[15:18][:, hit] < 1.0).all()
+    assert torch.equal(key[hit], rf.rebin_key(out[12:15][:, hit], out[9:12][:, hit]))
+
+
+def test_key_plane_matches_jax_rebin_key(request):
+    """The plain carry-out's key plane, in ray order, equals JAX
+    ``rebin_key`` of the same per-ray directions and origins where the ray
+    is alive, ``KEY_DEAD`` elsewhere; and ``ray_keys`` equals it on seeded
+    per-ray arrays with exact zeros and both signs in the direction and
+    origins past 4096, all exactly."""
+    ts = scenes("procedural_scene", request)[1]
+    w, h = 64, 48
+    args = cs.option_args(ts, port_inputs("procedural_scene", w, h), w, h, bounces=1)
+    out = rf.render_fused_plain(*args, torch.device("cpu"), carry_out=True)
+    key = rf.keys_by_ray(out).numpy()
+    o, d = out[9:12].numpy(), out[12:15].numpy()
+    ref = np.asarray(jrp.rebin_key(tuple(jnp.asarray(x) for x in d),
+                                   tuple(jnp.asarray(x) for x in o)))
+    live = key != rf.KEY_DEAD
+    np.testing.assert_array_equal(key, np.where(live, ref, rf.KEY_DEAD))
+    assert live.any() and (~live).any()
+    g = np.random.default_rng(11)
+    n = 4096
+    d = g.choice(np.float32([-1.0, -0.25, -0.0, 0.0, 1e-30, 0.5, 1.0]), (3, n))
+    o = np.concatenate([g.uniform(-20.0, 20.0, (3, n // 2)),
+                        g.uniform(-1e6, 1e6, (3, n // 2))], axis=1).astype(np.float32)
+    o[:, :8] = np.float32([-4096.25, -4.0, -0.0])[:, None]  # floor edges
+    alive = g.random(n) < 0.7
+    ref = np.asarray(jrp.rebin_key(tuple(jnp.asarray(x) for x in d.astype(np.float32)),
+                                   tuple(jnp.asarray(x) for x in o)))
+    got = rf.ray_keys(list(torch.from_numpy(o)), list(torch.from_numpy(d.astype(np.float32))),
+                      torch.from_numpy(alive))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.where(alive, ref, rf.KEY_DEAD))
+
+
+def test_plain_carry_in_is_order_free(request):
+    """The plain carry-in over 2 bounces from one carry-out, through the
+    sorted keys, a seeded shuffle of them and ray order, each in place on
+    its own copy of the buffer: the three buffers are bit-equal, and only
+    the frame planes of the live rays changed."""
+    ts = scenes("procedural_scene", request)[1]
+    w, h = 64, 48
+    args = cs.option_args(ts, port_inputs("procedural_scene", w, h), w, h, bounces=1)
+    cpu = torch.device("cpu")
+    first = rf.render_fused_plain(*args, cpu, carry_out=True)
+    n = first.shape[1]
+    tkeys = first[rf.CARRY_PLANES - 1].view(torch.int32)
+    shuffle = torch.from_numpy(np.random.default_rng(5).permutation(n))
+    by_ray = torch.argsort(rf.thread_rays(n, cpu))  # the thread of each ray
+    orders = [rf.sort_keys(first), (tkeys[shuffle], shuffle), (rf.keys_by_ray(first), by_ray)]
+    outs = []
+    for keys, order in orders:
+        buf = first.clone()
+        got = rf.render_fused_plain(*args[:7], 2, cpu, carry=buf, keys=keys.contiguous(),
+                                    order=order.contiguous(), start_bounce=1)
+        assert got.data_ptr() == buf.data_ptr()  # in place
+        outs.append(buf)
+    for buf in outs[1:]:
+        np.testing.assert_array_equal(buf.view(torch.int32).numpy(),
+                                      outs[0].view(torch.int32).numpy())
+    live = rf.keys_by_ray(first) != rf.KEY_DEAD
+    changed = (outs[0][:9] != first[:9]).any(dim=0)
+    assert changed.any() and not changed[~live].any()
+    assert torch.equal(outs[0][9:].view(torch.int32), first[9:].view(torch.int32))
+
+
+def test_plain_split_equals_unsplit_on_field(monkeypatch):
+    """``field`` (36 spheres of 960 triangles in one mesh, the
+    mixed-surface procedural class JAX keeps the split for) at 32x24: the
+    plain split frame in two launches equals the plain unsplit frame bit
+    for bit, and some of its rays go on past bounce 0."""
+    from clraytracer_tpu_torch.cli import build_scene
+
+    ts = build_scene("field", device="cpu")
+    w, h = 32, 24
+    frame = port_inputs("procedural_scene", w, h)
+    calls = counting_plain(monkeypatch)
+    one, lay1 = rf.render_fused_camera(ts, frame, w, h, 2, split_rebin=False)
+    split, lay2 = rf.render_fused_camera(ts, frame, w, h, 2, split_rebin=True)
+    assert lay1 == lay2 and len(calls) == 3 and calls[1]["carry_out"]
+    np.testing.assert_array_equal(split.numpy(), one.numpy())
+    assert (calls[2]["keys"] != rf.KEY_DEAD).any() and int(ts.tris.count) > 30000
 
 
 def test_carry_arguments_are_checked():
-    """The carry's arguments (``check_carry``): a carry resumes in ray mode
-    at start_bounce >= 1; carry_out is camera mode at bounce 0; both take
-    atlas mode 0 without GI; the carry is a contiguous [13, n] f32 tensor.
-    The kernel wrapper refuses them too, and CPU tensors, launching
-    nothing."""
-    n = 256
-    rays = torch.zeros(6, n)
+    """The carry's arguments (``check_carry``): a carry resumes from its own
+    rays at start_bounce >= 1 with its sorted keys ([n] i32) and their
+    order ([n] int64); carry_out is camera mode at bounce 0; both take
+    atlas mode 0 without GI and whole blocks of 512 rays; the carry is a
+    contiguous [19, n] f32 tensor. The kernel wrapper refuses them too, and
+    CPU tensors, launching nothing."""
+    n = 512
     carry = torch.zeros(rf.CARRY_PLANES, n)
-    ok = dict(atlas_mode=0, gi=False, rays=rays, carry_out=False, carry=carry,
-              start_bounce=1)
+    keys, order = torch.zeros(n, dtype=torch.int32), torch.arange(n)
+    ok = dict(atlas_mode=0, gi=False, rays=None, carry_out=False, carry=carry,
+              start_bounce=1, keys=keys, order=order)
     rf.check_carry(n, **ok)
     rf.check_carry(n, 0, False, None, True, None, 0)
-    rf.check_carry(n, 2, True, None, False, None, 0)  # no carry: anything goes
+    rf.check_carry(256, 2, True, torch.zeros(6, 256), False, None, 0)  # no carry: anything
     bad = [
-        dict(ok, atlas_mode=1), dict(ok, gi=True), dict(ok, rays=None),
+        dict(ok, atlas_mode=1), dict(ok, gi=True), dict(ok, rays=torch.zeros(6, n)),
         dict(ok, start_bounce=0), dict(ok, carry_out=True),
-        dict(ok, carry=carry[:12].contiguous()), dict(ok, carry=carry.double()),
+        dict(ok, carry=carry[:18].contiguous()), dict(ok, carry=carry.double()),
         dict(ok, carry=torch.zeros(n, rf.CARRY_PLANES).t()),
         dict(ok, carry=None, start_bounce=2),
-        dict(ok, carry=None, carry_out=True, start_bounce=0),  # carry-out with rays
+        dict(ok, carry=None, carry_out=True, start_bounce=0),  # carry-out with keys
+        dict(ok, keys=None), dict(ok, order=None), dict(ok, keys=keys.long()),
+        dict(ok, order=order.int()), dict(ok, keys=keys[:256]),
+        dict(atlas_mode=0, gi=False, rays=torch.zeros(6, n), carry_out=True, carry=None,
+             start_bounce=0),  # carry-out with rays
     ]
+    with pytest.raises(ValueError):  # not whole blocks of 512
+        rf.check_carry(256, 0, False, None, True, None, 0)
     for kw in bad:
         with pytest.raises(ValueError):
             rf.check_carry(n, **kw)
@@ -266,8 +367,11 @@ def test_row_windows_stack_to_the_full_frame(split, request):
 def test_chip_smoke_names_and_bounds_the_carry_instantiations():
     """k22_registers reads the carry instantiations' ptxas names (and the
     names without the carry parameter); variant_bound counts the carry's
-    planes: carry-out 19 output planes (76 B a ray), carry-in 6 + 13 input
-    and 9 output planes (112 B a ray)."""
+    bytes: carry-out the 9 frame planes and the key of every ray (40 B a
+    ray) and the 9 continuation planes of a live one (36 B); carry-in (one
+    bounce) the sorted keys (4 B a ray), then a live ray's int64 order
+    entry (8 B), o, d, energy and result in (48 B) and result out (12 B),
+    and the 6 miss planes of a live ray that misses (24 B)."""
     regs = cs.k22_registers([
         {"kernel": "_Z13render_kernelILi0ELb0ELb0ELi0EEv11SceneTables12RenderParamsPfPy",
          "registers": 126, "spill_stores": 0, "spill_loads": 0},
@@ -286,14 +390,18 @@ def test_chip_smoke_names_and_bounds_the_carry_instantiations():
         "rays+atlas1": 127}
     ts = cs.option_scene("ground", device="cpu")
     kt, ft = tr.kernel_tables(ts), rf.frame_tables(ts)
-    n = 1920 * 1088
+    n, live, hits = 1920 * 1088, 90_000, 60_000
     counts = [0, 0, 0, 0, 0, 0]  # bytes alone
     base = cs.walk_bytes(kt, 3, 40, ft)
     plain = cs.variant_bound(kt, ft, counts, 3, 40, n, 1, 0, False)
-    out = cs.variant_bound(kt, ft, counts, 3, 40, n, 1, 0, False, carry="out")
-    cin = cs.variant_bound(kt, ft, counts, 3, 40, n, 1, 0, False, rays=True, carry="in")
+    out = cs.variant_bound(kt, ft, counts, 3, 40, n, 1, 0, False, carry="out", live=live)
+    cin = cs.variant_bound(kt, ft, [0, 0, 0, hits, 0, 0], 3, 40, n, 1, 0, False, rays=True,
+                           carry="in", live=live)
     assert (plain["bytes"] - base, out["bytes"] - base, cin["bytes"] - base) == (
-        36 * n, 76 * n, 112 * n)
+        36 * n, 40 * n + 36 * live, 4 * n + 68 * live + 24 * (live - hits))
     assert out["output_planes"] == 19 and cin["output_planes"] == 9
     assert out["operations"] == plain["operations"] == n * cs.RAYGEN_OPS
-    assert cin["operations"] == 0
+    assert cin["operations"] == hits * (cs.INTERP_OPS + cs.SHADE_OPS)
+    with pytest.raises(ValueError):  # the carry-in's misses are counted for one bounce
+        cs.variant_bound(kt, ft, counts, 3, 40, n, 2, 0, False, rays=True, carry="in",
+                         live=live)

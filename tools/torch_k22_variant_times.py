@@ -27,7 +27,15 @@ with shadows (a_sh, c_sh) and with shadows under a sun behind the sphere
 the ground scene without shadows (k0), with shadows (k) and with shadows
 and GI (k_gi); the museum-class imported scene (t: ``chip_smoke``'s
 ``write_museum`` written into a temporary directory and built by
-``build_museum``, atlas mode 1, its camera inside the atrium).
+``build_museum``, atlas mode 1, its camera inside the atrium). The split
+cases of ``chip_smoke.py``'s cell (s) (sa, sc, sk0, sk, sfield: (a),
+(c), (k0), (k) and ``field``) time ``render_fused_camera`` with
+``split_rebin`` off and on, in turns (unsplit, split, split, unsplit), by
+call ms and device ms, and the split's parts by device ms: the carry-out
+launch, the glue between the launches and the carry-in launch, in the
+tree's own design (the per-ray key sort, ``sort_keys``, in place; in
+trees before it the row re-bin, ``rebin_rows``, and the put-back
+gather), with the glue's launches by torch.profiler.
 
 ``--walk-stats`` adds a ``walk`` line per case: K2.2's frame and its
 bounce 0 alone (a launch of 1 bounce), each by call ms (``event_ms``) and
@@ -79,6 +87,11 @@ CASES = (
     ("k_gi", "ground", 4096, 1920, 1080, None, {"shadows": True, "gi_seed": 0}),
     ("t", "museum", 0, 1920, 1080, None, {}),
     ("r", "sphere", 4096, 1920, 1080, None, {"rays": True}),
+    ("sa", "sphere", 4096, 1920, 1080, None, {"split": True}),
+    ("sc", "sphere", TRIS_LARGE, 1920, 1080, None, {"split": True}),
+    ("sk0", "ground", 4096, 1920, 1080, None, {"split": True}),
+    ("sk", "ground", 4096, 1920, 1080, None, {"split": True, "shadows": True}),
+    ("sfield", "field", 4096, 1920, 1080, None, {"split": True}),
 )
 # the line of traverse.cuh that opens the children-outer test, and the
 # ray-transform count that the statistics build moves there
@@ -186,6 +199,43 @@ def walk_line(tag, frame, fargs, opts, w, h, dev, stats_libs) -> dict:
     return line
 
 
+def split_line(tag, scene, frame, w, h, shadows) -> dict:
+    """A split case's line (see the module's docstring)."""
+    from clraytracer_tpu_torch.ops import render_fused as rf
+
+    frame_fn = lambda split: (lambda: rf.render_fused_camera(
+        scene, frame, w, h, 2, enable_shadows=shadows, split_rebin=split)[0])
+    line = {"cell": tag, "variant": "split", "triangles": int(scene.tris.count),
+            "width": w, "height": h, "shadows": shadows}
+    for k, name in enumerate(("unsplit", "split", "split", "unsplit")):
+        fn = frame_fn(name == "split")
+        line[f"{k}_{name}_ms"] = cs.event_ms(fn, 20, 3)[0]
+        line[f"{k}_{name}_device_ms"] = cs.device_ms(fn)
+    args = cs.option_args(scene, frame, w, h, bounces=1)
+    rows_total = args[6]
+    carry_out = lambda: rf.render_cuda(*args, carry_out=True, shadows=shadows)
+    first = carry_out()
+    if hasattr(rf, "sort_keys"):
+        keys, order = rf.sort_keys(first)
+        buf = first.clone()
+        glue = lambda: rf.sort_keys(first)
+        carry_in = lambda: rf.render_cuda(*args, carry=buf, keys=keys, order=order,
+                                          start_bounce=1)
+    else:  # the row re-bin of trees before the per-ray key
+        rays, carry, inv = rf.rebin_rows(first, rows_total)
+        second = rf.render_cuda(*args, rays=rays, carry=carry, start_bounce=1)
+        glue = lambda: (rf.rebin_rows(first, rows_total),
+                        second.reshape(9, rows_total, 128)[:, inv])
+        carry_in = lambda: rf.render_cuda(*args, rays=rays, carry=carry, start_bounce=1)
+    for name, fn in (("carry_out", carry_out), ("glue", glue), ("carry_in", carry_in)):
+        line[f"{name}_device_ms"] = cs.device_ms(fn)
+    prof = cs.device_profile(glue, 5, 1.0)
+    line["glue_profile_ms"] = prof["device_busy_ms_per_call"]
+    line["glue_launches"] = prof["device_launches_per_call"]
+    line["glue_kernels"] = prof["kernels"]
+    return line
+
+
 def museum_scene(root: Path, dev):
     """(t)'s scene as ``chip_smoke.phase_imported`` builds it: the files
     (``write_museum``), the figure's ``.clm`` and the gallery's ``.clmz``
@@ -234,6 +284,10 @@ def run(args, tmp: Path) -> int:
             else:
                 scenes[(spec, tris)] = cs.option_scene(spec, tris, device=dev)
         scene = scenes[(spec, tris)]
+        if kw.get("split"):
+            print(json.dumps(split_line(tag, scene, cs.option_frame(spec, w, h), w, h,
+                                        kw.get("shadows", False))), flush=True)
+            continue
         ray_mode = kw.get("rays", False)
         kw = {k: v for k, v in kw.items() if k != "rays"}
         frames, cams, sopts = {}, {}, {}
