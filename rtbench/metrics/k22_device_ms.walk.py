@@ -1,0 +1,18 @@
+"""Device ms a frame of K2.2 (``render_kernel*`` / ``render_shadow_kernel*``
+launched inside ``render_frame``), over the profiled frames."""
+
+import re
+
+#: K2.2's instantiations as the trace names them ("void render_kernel<1, ...>(...)")
+K22 = re.compile(r"(void )?render_(shadow_)?kernel<")
+
+
+def read(ctx):
+    tl = ctx.get("timeline")
+    if tl is None or ctx.get("kind") != "frames":
+        return None
+    inside, _ = tl.inside(lambda n: n == "rtbench.render_frame")
+    ops = [op for op in inside if K22.match(op.name)]
+    if not ops:
+        return None
+    return sum(op.dur for op in ops) * 1e-3 / ctx["units"]
