@@ -49,6 +49,7 @@ from clraytracer_tpu_torch.ops.trace import (
 )
 from clraytracer_tpu_torch.scene import procedural_tex as ptex
 from clraytracer_tpu_torch.scene.types import Scene
+from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
 #: the TPU kernel selects material rows with a static loop, bounded here:
 #: imported-texture scenes with more materials take atlas mode 2, which
@@ -152,11 +153,12 @@ def frame_tables(scene: Scene) -> FrameTables:
     cached = scene.packed.__dict__.get("_frame_tables")
     if cached is not None:
         return cached
-    dev = scene.packed.mat_rows.device
-    descs, tex = _descriptor_table(scene, dev)
-    ft = FrameTables(
-        mat_rows=scene.packed.mat_rows.float().contiguous(), tex=tex, descs=descs
-    )
+    with ScopeTimer("tables.frame", log=False):
+        dev = scene.packed.mat_rows.device
+        descs, tex = _descriptor_table(scene, dev)
+        ft = FrameTables(
+            mat_rows=scene.packed.mat_rows.float().contiguous(), tex=tex, descs=descs
+        )
     scene.packed.__dict__["_frame_tables"] = ft
     return ft
 
@@ -777,29 +779,32 @@ def render_fused_camera(
     1, written back in place into the first launch's frame planes. The
     JAX package re-bins whole 128-ray rows instead (the TPU's vector
     width); the frame is the same."""
-    win_height = local_height if local_height is not None else height
-    trows = tile_rows(width * win_height)
-    tiles_x = -(-width // 128)
-    tiles_y = -(-win_height // trows)
-    rows_total = tiles_y * tiles_x * trows
-    kt = kernel_tables(scene)
-    ft = frame_tables(scene)
-    dev = kt.planes.device
-    mode = atlas_mode_of(scene)
-    if split_rebin is None:
-        split_rebin = split_rebin_preferred(scene)
-    split_rebin = split_rebin and bounces >= 2 and mode == 0 and gi_seed is None
-    args = (kt, ft, camera_row(frame, row0), width, height, trows, rows_total)
-    opts = dict(atlas_mode=mode, shadows=enable_shadows, gi_seed=gi_seed)
-    if split_rebin:
-        first = _launch(dev, *args, 1, carry_out=True, **opts)
-        keys, order = sort_keys(first)
-        _launch(dev, *args, bounces - 1, carry=first, keys=keys, order=order, start_bounce=1,
-                **opts)
-        out = first[:9].reshape(9, rows_total, 128)
-    else:
-        out = _launch(dev, *args, bounces, **opts).reshape(-1, rows_total, 128)
-    img = _finish_frame(scene, out, mode, gi_seed is not None)
+    with ScopeTimer("render.prepare", log=False):
+        win_height = local_height if local_height is not None else height
+        trows = tile_rows(width * win_height)
+        tiles_x = -(-width // 128)
+        tiles_y = -(-win_height // trows)
+        rows_total = tiles_y * tiles_x * trows
+        kt = kernel_tables(scene)
+        ft = frame_tables(scene)
+        dev = kt.planes.device
+        mode = atlas_mode_of(scene)
+        if split_rebin is None:
+            split_rebin = split_rebin_preferred(scene)
+        split_rebin = split_rebin and bounces >= 2 and mode == 0 and gi_seed is None
+        args = (kt, ft, camera_row(frame, row0), width, height, trows, rows_total)
+        opts = dict(atlas_mode=mode, shadows=enable_shadows, gi_seed=gi_seed)
+    with ScopeTimer("render.k22", log=False):
+        if split_rebin:
+            first = _launch(dev, *args, 1, carry_out=True, **opts)
+            keys, order = sort_keys(first)
+            _launch(dev, *args, bounces - 1, carry=first, keys=keys, order=order,
+                    start_bounce=1, **opts)
+            out = first[:9].reshape(9, rows_total, 128)
+        else:
+            out = _launch(dev, *args, bounces, **opts).reshape(-1, rows_total, 128)
+    with ScopeTimer("render.finish", log=False):
+        img = _finish_frame(scene, out, mode, gi_seed is not None)
     return img, (trows, tiles_x, tiles_y)
 
 

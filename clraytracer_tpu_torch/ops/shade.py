@@ -29,6 +29,7 @@ import torch
 
 from clraytracer_tpu_torch.device import const
 from clraytracer_tpu_torch.ops import gather, planar
+from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
 _U8 = 1.0 / 255.0
 
@@ -204,7 +205,8 @@ def refresh_packed(scene):
     material rows are new."""
     if scene.packed is None:
         return scene
-    tabs = build_shading_tables(scene)
+    with ScopeTimer("tables.shading", log=False):
+        tabs = build_shading_tables(scene)
     packed = dataclasses.replace(
         scene.packed,
         tri_attr=tabs.tri_attr,

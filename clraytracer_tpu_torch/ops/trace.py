@@ -26,6 +26,7 @@ import torch
 
 from clraytracer_tpu_torch.ops.clusters import CLUSTER_SIZE
 from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
+from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
 BIG = 1e30  # rounds to the f32 miss sentinel of the kernels
 #: the kernels' optional int64 counters (csrc/traverse.cuh TestCount): work
@@ -148,13 +149,14 @@ def kernel_tables(scene: Scene) -> KernelTables:
     cached = pk.__dict__.get("_kernel_tables")
     if cached is not None and cached[0] is cl and cached[1] == mesh_index:
         return cached[2]
-    ranges_host, ranges = _ranges(cl, mesh_index)
-    kt = KernelTables(
-        inst=pk.inst_rows.float().contiguous(),
-        ranges=ranges,
-        ranges_host=ranges_host,
-        **_geometry(cl),
-    )
+    with ScopeTimer("tables.kernel", log=False):
+        ranges_host, ranges = _ranges(cl, mesh_index)
+        kt = KernelTables(
+            inst=pk.inst_rows.float().contiguous(),
+            ranges=ranges,
+            ranges_host=ranges_host,
+            **_geometry(cl),
+        )
     pk.__dict__["_kernel_tables"] = (cl, mesh_index, kt)
     return kt
 

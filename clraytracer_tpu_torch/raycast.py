@@ -30,6 +30,7 @@ from clraytracer_tpu_torch.ops.shade import (
 from clraytracer_tpu_torch.ops.trace_ref import trace_bvh
 from clraytracer_tpu_torch.render import Tracer
 from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
+from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
 #: Reference RayacastMissDistance (CPURayTrace.hpp:14).
 MISS = float(MISS_DISTANCE)
@@ -106,9 +107,11 @@ def pick(
     Math/Camera.hpp:121) and raycast it, the reference's LMB flow
     (Engine.cpp:112-126). Returns one ray's HitRecord as host numpy
     values."""
-    o, d = screen_point_to_ray(camera, x, y)
-    dev = scene.device
-    rec = raycast(
-        scene, torch.from_numpy(o)[None].to(dev), torch.from_numpy(d)[None].to(dev), tracer
-    )
-    return HitRecord(*(np.asarray(t.cpu())[0] for t in rec))
+    with ScopeTimer("pick.trace", log=False):
+        o, d = screen_point_to_ray(camera, x, y)
+        dev = scene.device
+        rec = raycast(
+            scene, torch.from_numpy(o)[None].to(dev), torch.from_numpy(d)[None].to(dev), tracer
+        )
+    with ScopeTimer("pick.readback", log=False):
+        return HitRecord(*(np.asarray(t.cpu())[0] for t in rec))

@@ -43,6 +43,7 @@ from clraytracer_tpu_torch.ops.trace import SceneHit, trace
 from clraytracer_tpu_torch.ops.trace_ref import trace_brute, trace_bvh
 from clraytracer_tpu_torch.ops.trace_wavefront import trace_wavefront
 from clraytracer_tpu_torch.scene.types import Scene
+from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
 #: A tracer maps (scene, origins [3, ...], directions [3, ...], live=None)
 #: → SceneHit with [...]-shaped fields; ``live`` is a [...] bool mask of the
@@ -250,16 +251,20 @@ def render_frame(
             acc = img if acc is None else acc + img
         img = acc * (1.0 / config.samples)
         if config.enable_post:
-            img = post_process(img, enable_fxaa=config.enable_fxaa)
+            with ScopeTimer("render.post", log=False):
+                img = post_process(img, enable_fxaa=config.enable_fxaa)
         return img
     if config.enable_post and not config.enable_fxaa:
         # the post chain on the tile layout: one relayout a frame
         result, layout = _trace_tiled(scene, frame, w, h, gi_seed=config.gi_seed, **opts)
-        result = post_process_tiled(result, w, h, layout)
-        return _untile(result, layout, h, w).permute(1, 2, 0)
+        with ScopeTimer("render.post", log=False):
+            result = post_process_tiled(result, w, h, layout)
+        with ScopeTimer("render.untile", log=False):
+            return _untile(result, layout, h, w).permute(1, 2, 0)
     img = trace_image(scene, frame, w, h, gi_seed=config.gi_seed, **opts)
     if config.enable_post:
-        img = post_process(img, enable_fxaa=config.enable_fxaa)
+        with ScopeTimer("render.post", log=False):
+            img = post_process(img, enable_fxaa=config.enable_fxaa)
     return img
 
 

@@ -294,8 +294,9 @@ def test_builder_edits_equal_jax():
 
 
 def test_timers_and_logger_match_jax():
-    """``ScopeTimer`` and ``timed`` record into ``profiler_stats`` under the
-    same names as the JAX package's; ``timed`` returns the call's value;
+    """``ScopeTimer`` records into ``profiler_stats`` under the same name
+    in both packages; the JAX package's ``timed`` returns the call's value
+    (the port has no ``timed``: ``test_torch_surface.MISSING_ON_PURPOSE``);
     the logger is the ``clraytracer`` one."""
     from clraytracer_tpu.utils import timer as jtimer
     from clraytracer_tpu_torch.utils import get_logger, log_info
@@ -304,10 +305,10 @@ def test_timers_and_logger_match_jax():
     for mod in (jtimer, ttimer):
         with mod.ScopeTimer("scope.test", log=False):
             sum(range(1000))
-        fn = mod.timed("timed.test")(lambda x: x * 2)
-        assert int(fn(21)) == 42
-        assert {"scope.test", "timed.test"} <= set(mod.profiler_stats)
-        assert all(mod.profiler_stats[k] >= 0.0 for k in ("scope.test", "timed.test"))
+        assert mod.profiler_stats["scope.test"] >= 0.0
+    fn = jtimer.timed("timed.test")(lambda x: x * 2)
+    assert int(fn(21)) == 42
+    assert jtimer.profiler_stats["timed.test"] >= 0.0
     assert get_logger().name == "clraytracer"
     assert get_logger("clraytracer.engine").parent.name == "clraytracer"
     log_info("logged %d", 7)  # the stream handler writes it without raising

@@ -14,6 +14,7 @@
 
 import ast
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -112,6 +113,9 @@ def test_render_profile_dir_writes_trace(tmp_path):
     traces = list(prof.glob("*.pt.trace.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
     assert (tmp_path / "two.png").stat().st_size > 0
+    # the program's spans ride in the exported trace
+    names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    assert {"render.prepare", "render.k22", "render.finish", "render.post"} <= names
 
 
 SIZE = ["--width", "32", "--height", "24", "--device", "cpu"]
@@ -159,6 +163,8 @@ _TPU_TILING = ("the Pallas kernel's TPU tiling, VMEM budget or streaming choice:
                "kernel's launch geometry replaces it (ROADMAP: drop the TPU layout workarounds)")
 _TPU_GATHER = ("a TPU gather strategy or its threshold: the port computes the function "
                "through K2.3/K2.4")
+_SYNC_TIMER = ("it synchronised the whole card after each call and nothing in the port read "
+               "it; the port's spans are ScopeTimer's, on the profiler's clock")
 #: (JAX file, name) → why the port has no such name; a file with name None
 #: has no port at all. The test fails if an entry is not missing any more.
 MISSING_ON_PURPOSE = {
@@ -172,6 +178,8 @@ MISSING_ON_PURPOSE = {
     ("utils/pytree.py", None): "JAX pytree registration; the port's dataclasses need none",
     ("utils/__init__.py", "pytree_dataclass"): "re-export of utils/pytree.py",
     ("utils/__init__.py", "static_field"): "re-export of utils/pytree.py",
+    ("utils/timer.py", "timed"): _SYNC_TIMER,
+    ("utils/__init__.py", "timed"): _SYNC_TIMER,
     **{("ops/gather_pallas.py", n): _TPU_TILING for n in (
         "TILE", "CHUNK", "TABLE_MAX_ROWS", "WMAX", "supported")},
     **{("ops/trace_pallas.py", n): _TPU_TILING for n in (
