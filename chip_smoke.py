@@ -36,7 +36,9 @@ line per phase:
    1920x1080; frame ms (CUDA events, median of 20 after 3 warm-ups),
    Mrays/s = W*H*bounces/dt (no clamp), the host's time to issue a frame,
    K2.2 launches per frame (must be 1), work counts per frame, K2.2 and
-   the frame's torch tail piece by piece, K2.2's bounce 0 alone, K2.1 on
+   the frame finish (``finish_tail``: the kernel, radiance and finished
+   image, bit-equal to the torch tail and timed beside it, piece by piece;
+   one finish launch a frame), K2.2's bounce 0 alone, K2.1 on
    the frame's camera rays and on its hits and its misses alone, finite
    image and its mean, and both kernels against their plain versions on
    that configuration's scene (K2.1 on 4096 seeded camera rays, K2.2 on a
@@ -47,7 +49,7 @@ line per phase:
    atlas mode 1), (i) ``atlas65`` (mode 2), (j) ``sphere`` with GI
    (bench.py's gi row), (k) the shadowed ground, (l) and (m) (a)'s and
    (c)'s spheres with shadows (in each shadow cell the bounce-0 hits in
-   shadow must be > 0); frame ms, K2.2 ms, the tail piece by piece, the
+   shadow must be > 0); frame ms, K2.2 ms, ``finish_tail``, the
    host's time to issue a frame, K2.2's six counters and bound (the shadow
    walk's counts apart, and the same frame without shadows timed beside),
    the device's idle share and time by kernel, one launch of the cell's
@@ -71,7 +73,8 @@ line per phase:
    carry-in) and no K2.1 (counts from zero), the split and the unsplit
    frame in turns, each launch's ms and device ms, the re-bin glue's ms,
    the carry-in launch's counters beside the unsplit frame's bounce-1
-   share, the rays that differ from the unsplit frame (at most
+   share, ``finish_tail`` on the split frame's planes (one radiance finish
+   launch a frame), the rays that differ from the unsplit frame (at most
    FRAME_MISMATCH_MAX), both launches against their plain versions (on a
    band above PLAIN_FULL_MAX_TRIS triangles) and their bounds
 5. profile: torch.profiler over 10 frames of (a), device time by kernel
@@ -116,7 +119,9 @@ port's procedural meshes, quad faces and usemtl groups, 42 materials with
 K2.2 atlas-1 launch a frame, no K2.1, counts from zero); the host's import
 seconds by step (OBJ parser and image decoder named), the hit share of the
 camera rays (at least half), frame ms, the host's issue ms, K2.2's ms and
-bound, its ``_finish_frame`` tail, the idle share, K2.2 against its plain
+bound, the frame finish kernel (``clrt_finish``, ``finish_figures``: with
+the post chain and the untiling) bit-equal to the torch tail, timed beside
+it with its byte bound, the idle share, K2.2 against its plain
 version on a 16-row band of its own launch, K2.2's bounce 0 alone (a
 launch of one bounce: call and device ms, the counters of each bounce and
 ``walk_figures`` of them, ``bounce_split``), K2.1 through the hit-query
@@ -1081,9 +1086,9 @@ def phase_option_cells(dev, results) -> None:
     at full width with the counts from zero: (h) ``atlas`` (mode 1), (i)
     ``atlas65`` (mode 2), (j) ``sphere`` with GI (bench.py's gi row), (k)
     the shadowed ground, sun overhead, (l) and (m) (a)'s and (c)'s spheres
-    with shadows. Per cell: frame ms, K2.2 ms, the tail after it (texel
-    gather / sky, post, untile), the host's time to issue a frame, K2.2's
-    six counters, its bound, torch.profiler over 5 frames (device time by
+    with shadows. Per cell: frame ms, K2.2 ms, the finish after it
+    (``finish_tail``; one finish launch a frame), the host's time to issue
+    a frame, K2.2's six counters, its bound, torch.profiler over 5 frames (device time by
     kernel, idle share), K2.2 against its plain version at the cell's own
     shapes (above PLAIN_FULL_MAX_TRIS triangles on a band of the same
     launch's rays, ``band_args``; the plain run also gives plain_ms) and on
@@ -1096,8 +1101,7 @@ def phase_option_cells(dev, results) -> None:
     from clraytracer_tpu_torch.config import RenderConfig
     from clraytracer_tpu_torch.ops import render_fused as rf
     from clraytracer_tpu_torch.ops import trace as tr
-    from clraytracer_tpu_torch.ops.post import post_process_tiled
-    from clraytracer_tpu_torch.render import _untile, render_frame
+    from clraytracer_tpu_torch.render import render_frame
 
     results["option_cells"] = []
     for tag, spec, tris, w, h, cfg_kw in OPTION_CELLS:
@@ -1119,7 +1123,9 @@ def phase_option_cells(dev, results) -> None:
         ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
         frames = FRAMES + WARMUP
         launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
-                    "K2.2_variants": dict(rf.render_cuda.variant_launches)}
+                    "K2.2_variants": dict(rf.render_cuda.variant_launches),
+                    "finish": rf.finish_cuda.launches,
+                    "finish_variants": dict(rf.finish_cuda.variant_launches)}
         frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
         args = option_args(scene, frame, w, h, cfg.bounces)
         kt, ft, rows_total = args[0], args[1], args[6]
@@ -1183,19 +1189,9 @@ def phase_option_cells(dev, results) -> None:
         del p_out
         out3 = out.reshape(-1, rows_total, 128)
         trows = args[5]
-        layout = ("strip", trows, -(-w // 128), -(-h // trows))
-        fin = lambda: rf._finish_frame(scene, out3, mode, gi)
-        res = fin()
-        post = lambda: post_process_tiled(res, w, h, layout)
-        pp = post()
-        tail = {
-            "finish_ms": event_ms(fin, 10, 2)[0],
-            "post_ms": event_ms(post, 10, 2)[0],
-            "untile_ms": event_ms(
-                lambda: _untile(pp, layout, h, w).permute(1, 2, 0).contiguous(), 10, 2
-            )[0],
-        }
-        del out, out3, res, pp
+        tail = finish_tail(scene, ft, out3, mode, gi, w, h,
+                           ("strip", trows, -(-w // 128), -(-h // trows)))
+        del out, out3
         prof = device_profile(lambda: render_frame(scene, frame, cfg), 5, ms)
         img = render_frame(scene, frame, cfg)
         finite = bool(torch.isfinite(img).all())
@@ -1226,6 +1222,8 @@ def phase_option_cells(dev, results) -> None:
         line["ok"] = (
             finite and check["ok"] and full["ok"] and launches["K2.2"] == frames
             and launches["K2.2_variants"] == {name: frames} and launches["K2.1"] == 0
+            and launches["finish_variants"] == {tail["variant"]: frames}
+            and all(tail["bit_equal"].values())
             and (shadow is None or shadow["bounce0_hits_in_shadow"] > 0)
             and (shadow is None or band is None or shadow["band_bounce0_hits_in_shadow"] > 0)
         )
@@ -1506,7 +1504,9 @@ def phase_split_cell(dev, results) -> None:
     unsplit (the bounce-0 tiles with a live ray), the second launch's six
     counters beside the unsplit frame's bounce-1 share (its counts less
     its bounce 0 alone), a finite image, both launches against their
-    plain versions (``split_plain_check``) and their bounds."""
+    plain versions (``split_plain_check``) and their bounds, and
+    ``finish_tail`` on the split frame's planes (one radiance finish
+    launch a frame)."""
     import torch
 
     from clraytracer_tpu_torch.ops import render_fused as rf
@@ -1532,13 +1532,14 @@ def phase_split_cell(dev, results) -> None:
         frames = FRAMES + WARMUP
         counts = read_counts()
         variants = dict(rf.render_cuda.variant_launches)
+        finish_variants = dict(rf.finish_cuda.variant_launches)
         turns = {}
         for k, (name, fn) in enumerate((("unsplit", unsplit), ("split", split),
                                         ("split", split), ("unsplit", unsplit))):
             turns[f"{k}_{name}_ms"] = event_ms(fn, 10, 2)[0]
         # ---- the two launches, the glue between them, their counts
         args1 = option_args(scene, frame, w, h, bounces=1)
-        rows_total = args1[6]
+        kt, ft, rows_total = args1[0], args1[1], args1[6]
         n = rows_total * 128
         c_first = torch.zeros(6, dtype=torch.int64, device=dev)
         c_second = torch.zeros(6, dtype=torch.int64, device=dev)
@@ -1570,6 +1571,8 @@ def phase_split_cell(dev, results) -> None:
         launches["unsplit_ms"] = event_ms(lambda: rf.render_cuda(*args2, shadows=sh), 10, 2)[0]
         launches["unsplit_device_ms"] = device_ms(lambda: rf.render_cuda(*args2, shadows=sh))
         vs_unsplit = compare_options(second[:9], whole, 0, False)
+        tail = finish_tail(scene, ft, second[:9].reshape(9, rows_total, 128), 0, False, w, h,
+                           ("strip", args1[5], -(-w // 128), -(-h // args1[5])))
         cw, cb0 = c_whole.cpu().tolist(), c_b0.cpu().tolist()
         cnt1, cnt2 = c_first.cpu().tolist(), c_second.cpu().tolist()
         counters = {
@@ -1591,7 +1594,6 @@ def phase_split_cell(dev, results) -> None:
         }
         # ---- bounds: bounce 0's winners for the carry-out launch, those of
         # the live rays' bounce 1 for the carry-in launch
-        kt, ft = args1[0], args1[1]
         cam_rays, _cam = camera_rays(w, h, dev, frame)
         cl1, sl1 = winners(tr.trace_cuda(kt, cam_rays))
         del cam_rays
@@ -1613,7 +1615,8 @@ def phase_split_cell(dev, results) -> None:
             "triangles": int(scene.tris.count), "width": w, "height": h, "bounces": 2,
             "shadows": sh, "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
             "turns": turns, "launches": counts, "frames": frames,
-            "k22_variant_launches": variants, "kernels": launches,
+            "k22_variant_launches": variants, "finish_variant_launches": finish_variants,
+            "tail": tail, "kernels": launches,
             "glue_profile": glue_profile, "counters": counters,
             "live_rays_after_bounce0": live_rays, "warps_bounce1": warps_bounce1,
             "deterministic": deterministic, "frame_rays_differing": frame_differing,
@@ -1627,6 +1630,8 @@ def phase_split_cell(dev, results) -> None:
             and vs_unsplit["ok"] and plain["ok"]
             and counts == {"K2.1": 0, "K2.2": 2 * frames, "K2.3": 0, "K2.4": 0}
             and variants == {out_name: frames, in_name: frames}
+            and finish_variants == {rf.finish_variant(0, False, False): frames}
+            and all(tail["bit_equal"].values())
         )
         results["split_cells"].append(line)
         results["fused_err"] = max(results["fused_err"], plain["carry_out"]["max_abs_err_within"],
@@ -1670,12 +1675,7 @@ def phase_main(dev, results, tris_large: int) -> None:
     from clraytracer_tpu_torch.config import RenderConfig
     from clraytracer_tpu_torch.ops import render_fused as rf
     from clraytracer_tpu_torch.ops import trace as tr
-    from clraytracer_tpu_torch.ops.post import post_process_tiled
-    from clraytracer_tpu_torch.render import (
-        _untile,
-        frame_inputs_from_camera,
-        render_frame,
-    )
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera, render_frame
     from clraytracer_tpu_torch.camera import Camera
     from clraytracer_tpu_torch.config import CameraConfig
 
@@ -1704,7 +1704,8 @@ def phase_main(dev, results, tris_large: int) -> None:
         ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
         frames = FRAMES + WARMUP
         launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
-                    "K2.2_variants": dict(rf.render_cuda.variant_launches)}
+                    "K2.2_variants": dict(rf.render_cuda.variant_launches),
+                    "finish_variants": dict(rf.finish_cuda.variant_launches)}
         frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
         # ---- test counts of one frame (a separate launch with counters)
         kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
@@ -1735,20 +1736,9 @@ def phase_main(dev, results, tris_large: int) -> None:
         kb = walk_bound(("K2.2", tag, int(scene.tris.count)),
                         walk_bytes(kt, clusters, slots, ft) + 9 * rows_total * 128 * 4,
                         cnt, rows_total * 128, shade=True)
-        # ---- the frame's torch tail after the kernel, piece by piece
-        out9 = out.reshape(9, rows_total, 128)
-        layout = ("strip", trows, -(-w // 128), -(-h // trows))
-        fin = lambda: rf._finish_frame(scene, out9)
-        res = fin()
-        post = lambda: post_process_tiled(res, w, h, layout)
-        pp = post()
-        tail = {
-            "sky_ms": event_ms(fin, 10, 2)[0],
-            "post_ms": event_ms(post, 10, 2)[0],
-            "untile_ms": event_ms(
-                lambda: _untile(pp, layout, h, w).permute(1, 2, 0).contiguous(), 10, 2
-            )[0],
-        }
+        # ---- the frame finish after the kernel, beside the torch tail
+        tail = finish_tail(scene, ft, out.reshape(9, rows_total, 128), 0, False, w, h,
+                           ("strip", trows, -(-w // 128), -(-h // trows)))
         img = render_frame(scene, frame, cfg)
         finite = bool(torch.isfinite(img).all())
         check = check_config(scene, w, h, dev)
@@ -1776,8 +1766,11 @@ def phase_main(dev, results, tris_large: int) -> None:
             "table_bytes": table_bytes(kt, ft),
             "check": check,
             "k22_variant_launches": launches["K2.2_variants"],
+            "finish_variant_launches": launches["finish_variants"],
             "ok": finite and launches["K2.2"] == frames and check["ok"]
-            and launches["K2.2_variants"] == {"default": frames},
+            and launches["K2.2_variants"] == {"default": frames}
+            and launches["finish_variants"] == {tail["variant"]: frames}
+            and all(tail["bit_equal"].values()),
         }
         if note:
             line["note"] = note
@@ -1979,6 +1972,8 @@ def reset_counts() -> None:
 
     rf.render_cuda.launches = 0
     rf.render_cuda.variant_launches = {}
+    rf.finish_cuda.launches = 0
+    rf.finish_cuda.variant_launches = {}
     tr.trace_cuda.launches = 0
     gr.gather_rows_cuda.launches = 0
     gr.scatter_rows_cuda.launches = 0
@@ -2490,11 +2485,119 @@ def phase_kernels(dev, results) -> None:
         },
         *option_kernel_entries(results),
         imported_k21_entry(results),
+        imported_finish_entry(results),
         *twophase_kernel_entries(results),
         *split_kernel_entries(results),
         *diff_kernel_entries(results),
         *sharded_kernel_entries(results),
     ]})
+
+
+def finish_tail(scene, ft, out3, mode: int, gi: bool, w: int, h: int, layout) -> dict:
+    """The frame finish on K2.2's planes ``out3`` ([9 + K*B, rows, 128]) of
+    a cell's w x h frame in the strip layout ``layout``: the kernel
+    (``finish_cuda``) once for the strip-order radiance and once with the
+    post chain and the untiling, each against the torch tail
+    (``_finish_frame``, ``post_process_tiled``, ``untile``) on the same
+    planes (bit-equal), and their ms beside the torch tail's, step by
+    step."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops.post import post_process_tiled
+
+    image = (w, h, layout)
+    rad = lambda: rf.finish_cuda(scene, ft, out3, mode, gi)
+    img = lambda: rf.finish_cuda(scene, ft, out3, mode, gi, image)
+    fin = lambda: rf._finish_frame(scene, out3, mode, gi)
+    res = fin()
+    post = lambda: post_process_tiled(res, w, h, layout)
+    pp = post()
+    untile = lambda: rf.untile(pp, layout, h, w).permute(1, 2, 0).contiguous()
+    plain = lambda: rf.post_image(fin(), w, h, layout)
+    got_rad, got_img, want_img = rad(), img(), untile()
+    torch.cuda.synchronize()
+    bit_equal = {"radiance": bool(torch.equal(got_rad, res)),
+                 "image": bool(torch.equal(got_img, want_img))}
+    del got_rad, got_img, want_img
+    return {
+        "variant": rf.finish_variant(mode, gi, True), "bit_equal": bit_equal,
+        "kernel_ms": event_ms(img, 10, 2)[0], "kernel_device_ms": device_ms(img),
+        "kernel_radiance_ms": event_ms(rad, 10, 2)[0],
+        "torch_tail_ms": event_ms(plain, 10, 2)[0], "torch_tail_device_ms": device_ms(plain),
+        "torch_tail": {"finish_ms": event_ms(fin, 10, 2)[0], "post_ms": event_ms(post, 10, 2)[0],
+                       "untile_ms": event_ms(untile, 10, 2)[0]},
+    }
+
+
+def finish_figures(scene, ft, out, mode: int, image) -> dict:
+    """``finish_tail`` on K2.2's planes ``out`` of (t)'s frame (atlas mode
+    1, no GI; ``image`` = (width, height, layout)), and the bound of the
+    kernel with the post chain and the untiling: what it must move at
+    least, at 3.35 TB/s. Only the frame's W x H rays count (a pad lane
+    returns before any read): per ray the result and miss-energy planes
+    and each bounce's deferred planes, the miss-direction planes only for a
+    ray that missed at some bounce; the distinct texel words those rays
+    gather (the sky's included); the image written once."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops.shade import _skybox_index
+
+    if mode != 1 or scene.packed.texels_u32 is None:
+        raise SystemExit("finish_figures counts atlas mode 1 over packed-RGB8 words")
+    w, h, layout = image
+    _kind, trows, tiles_x, _tiles_y = layout
+    f = finish_tail(scene, ft, out, mode, False, w, h, layout)
+    pk = scene.packed
+    k = rf.deferred_planes(mode, False)
+    bounces = (out.shape[0] - 9) // k
+    planes = out.reshape(out.shape[0], -1)
+    i = torch.arange(planes.shape[1], device=out.device)
+    tile = (i >> 7) // trows
+    x = (tile % tiles_x) * 128 + (i & 127)
+    y = (tile // tiles_x) * trows + (i >> 7) % trows
+    pixel = (x < w) & (y < h)
+    sky = _skybox_index(pk.skybox_w, pk.skybox_h, pk.skybox_off, planes[6:9])
+    tex = planes[9:9 + k * bounces:k].view(torch.int32)  # [bounces, n]
+    missed = (tex < 0) & pixel
+    idx = torch.where(missed, sky, tex)[pixel.expand_as(tex)]
+    words = int(torch.unique(idx.clamp(0, pk.texels_u32.shape[0] - 1)).numel())
+    missed_rays = int(missed.any(dim=0).sum())
+    del i, tile, x, y, pixel, sky, tex, missed, idx
+    pixels = w * h
+    planes_b = pixels * (6 + k * bounces) * 4 + missed_rays * 3 * 4
+    texel_b, image_b = words * 4, pixels * 3 * 4
+    bound_ms = (planes_b + texel_b + image_b) / PEAK_BYTES * 1e3
+    return {
+        **f, "bytes": {"planes": planes_b, "texel_words": texel_b, "image": image_b},
+        "pixels": pixels, "rays_missed": missed_rays, "distinct_texel_words": words,
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "share_of_bound_device": bound_ms / f["kernel_device_ms"],
+    }
+
+
+def imported_finish_entry(results) -> dict:
+    """The finish kernel's kernels-line entry at (t)'s 1080p frame: its
+    launches on (t)'s main path (one a frame), its ms beside the torch
+    tail's (its plain version), bit-equal to it."""
+    t = results["imported"]
+    f = t["finish"]
+    return {
+        "name": f"frame finish, {f['variant']}", "route": "cuda",
+        "source": "clraytracer_tpu_torch/csrc/render.cu",
+        "entry": "clrt_finish",
+        "replaces": ("none: the XLA tail of clraytracer_tpu/ops/render_pallas.py:936 "
+                     "_finish_frame, post.py's tiled post chain and render.py's _untile"),
+        "launches": t["launches"]["finish"],
+        "path": "(t) render.render_frame, the imported museum-class scene, defaults",
+        "max_abs_err": 0.0 if all(f["bit_equal"].values()) else None,
+        "tolerance": "bit-exact",
+        "ms": f["kernel_ms"], "device_ms": f["kernel_device_ms"], "plain_ms": f["torch_tail_ms"],
+        "plain_device_ms": f["torch_tail_device_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"], "library_ms": None,
+        "shape": f"{t['width']}x{t['height']}x{t['bounces']} bounces, atlas mode 1, post",
+    }
 
 
 def imported_k21_entry(results) -> dict:
@@ -3064,7 +3167,9 @@ def phase_imported(dev, results) -> None:
         ms, times = event_ms(lambda: render_frame(scene, frame, cfg), FRAMES, WARMUP)
         frames = FRAMES + WARMUP
         launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
-                    "K2.2_variants": dict(rf.render_cuda.variant_launches)}
+                    "K2.2_variants": dict(rf.render_cuda.variant_launches),
+                    "finish": rf.finish_cuda.launches,
+                    "finish_variants": dict(rf.finish_cuda.variant_launches)}
         frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
         mode = rf.atlas_mode_of(scene)
         name = rf.variant(mode, False, False)
@@ -3099,7 +3204,8 @@ def phase_imported(dev, results) -> None:
         band_check = compare_options(out[:, band], keep.pop(), mode, False)
         band_hits = int(hit0[band].sum())
         out3 = out.reshape(-1, rows_total, 128)
-        finish_ms = event_ms(lambda: rf._finish_frame(scene, out3, mode, False), 10, 2)[0]
+        finish = finish_figures(scene, ft, out3, mode, (w, h, ("strip", trows, -(-w // 128),
+                                                              -(-h // trows))))
         del out, out3
         prof = device_profile(lambda: render_frame(scene, frame, cfg), 5, ms)
         img = render_frame(scene, frame, cfg)
@@ -3180,7 +3286,7 @@ def phase_imported(dev, results) -> None:
         "kernel_ms": kms, "kernel_device_ms": kdev, "plain_ms": plain_ms,
         "kernel_bound_ms": kb["bound_ms"], "kernel_bound_by": kb["bound_by"],
         "kernel_bound": kb, "walk_split": split, "k21": k21,
-        "finish_ms": finish_ms, "launches": launches, "frames": frames,
+        "finish_ms": finish["torch_tail"]["finish_ms"], "finish": finish, "launches": launches, "frames": frames,
         "band_check": {"frame": f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-"
                        f"{y0 + CHECK_BAND_ROWS - 1}) of {w}x{h}", "band_hits": band_hits,
                        **band_check},
@@ -3201,6 +3307,8 @@ def phase_imported(dev, results) -> None:
         and hit_share >= 0.5 and mode == 1 and tris >= 160_000
         and 40 <= line["materials"] - 1 <= 48
         and launches["K2.2"] == frames and launches["K2.2_variants"] == {name: frames}
+        and launches["finish_variants"] == {rf.finish_variant(mode, False, True): frames}
+        and all(finish["bit_equal"].values())
         and launches["K2.1"] == 0 and wave_launches == (0, 0)
         and tracers["brute"]["rays_differing"] <= FRAME_MISMATCH_MAX
         and k21["check"]["ok"] and q_launches == {"K2.1": FRAMES + WARMUP, "K2.2": 0}

@@ -18,8 +18,9 @@
 //  * atlas modes 1 and 2 (imported textures): the kernel is texel-blind.
 //    Radiance is linear in the albedo texel under reference-parity
 //    shading, so only spec_light is accumulated and each bounce emits
-//    deferred planes; ops/render_fused.py _finish_frame gathers every
-//    bounce's texels (and the sky's) at once. Mode 1 (M <= 64 materials)
+//    deferred planes; the frame finish (clrt_finish below, its plain
+//    version ops/render_fused.py _finish_frame) gathers every bounce's
+//    texels (and the sky's) at once. Mode 1 (M <= 64 materials)
 //    reads the material row and emits the texel-pool index; mode 2 reads
 //    no material data and emits the material id and (uu, vv);
 //  * shadows: on bounce 0 every lane walks a second ray from the offset
@@ -52,8 +53,8 @@
 //    gated to global bounce 0, so a carry-in launch has no shadow walk.
 // Every shading formula
 // keeps the JAX kernel's expression tree (which replicates ops/shade.py);
-// the equirect sky stays outside the kernel: each ray's throughput and
-// direction at its first miss are recorded.
+// the equirect sky stays outside the kernel (it is clrt_finish's): each
+// ray's throughput and direction at its first miss are recorded.
 //
 // Output [9 + K*B, n] f32 planes: result rgb | miss energy rgb | miss dir
 // xyz, then for bounce b the K deferred planes at 9 + K*b (atlas modes):
@@ -685,4 +686,232 @@ extern "C" int clrt_render(const SceneTables* s, const RenderParams* p,
     return dispatch<true>(sel, s, p, out, counters, shadow_counters, st, blocks);
   }
   return dispatch<false>(sel, s, p, out, counters, shadow_counters, st, blocks);
+}
+
+// ---------------------------------------------------------------------------
+// The frame finish (clrt_finish): K2.2's deferred sky and texels, and on
+// request the post chain and the untiling, in one launch.
+//
+// Replaces no TPU kernel: on the TPU this is XLA code around K2.2
+// (render_pallas.py:936 _finish_frame, then post.py's tiled chain and
+// render.py's untile), which the port ran as about a hundred torch
+// launches over the frame's planes. ops/render_fused.py _finish_frame,
+// ops/post.py post_process_tiled and ops/render_fused.py untile are its
+// plain version; it keeps their expression trees and roundings, so on the
+// same K2.2 planes its output equals theirs bit for bit.
+//
+// One thread a strip ray i (row i / 128, lane i % 128):
+//  * the sky index of the miss direction (shade._skybox_index: atan2f,
+//    acosf, truncation to i32), in atlas mode 0 the sky's procedural texel
+//    (shade._eval_skybox_inline), in the atlas modes only where a bounce
+//    missed;
+//  * atlas modes, per bounce: the texel-pool index (mode 1 from the plane,
+//    mode 2 from the material row by id, shade._pool_index's i32
+//    arithmetic), the sky index where the ray missed at that bounce, one
+//    texel read (a packed-RGB8 word, or an f32 pool row), the integer
+//    modulate floor(mat_b * round(texel*255) / 256) / 255, the coefficient
+//    sums, with GI the running colour product; then + sky * miss energy;
+//  * POST: the tiled post chain (post._post_core: saturation, Reinhard,
+//    merged pow, the vignette computed from the pixel) and the untiling:
+//    the pixel (x, y) of ray i is written to out[(y * width + x) * 3 + c];
+//    pad lanes and strip rows past the frame write nothing. Otherwise the
+//    radiance goes to out[c * n + i], strip order, pad lanes included.
+//
+// Bound on the H100: bytes. K2.2's planes are read once (4 (9 + K B) B a
+// ray), a texel word or row a bounce (from a pool that fits in L2 at the
+// scenes' sizes), the output written once (12 B a pixel or a ray); the
+// arithmetic is a few hundred FP32 operations a ray. Neighbouring threads
+// read neighbouring lanes of each plane and write neighbouring pixels.
+struct FinishParams {
+  const float* planes;   // K2.2's [9 + K*bounces, n] output (plane stride n)
+  int n, bounces;
+  int atlas_mode, gi, post;
+  int sky_w, sky_h, sky_off;  // the packed sky record
+  const float* sky_desc;      // atlas mode 0: the sky's descriptor row
+  const int* texels_u32;      // the packed-RGB8 pool [n_texels], or null
+  const float* texels;        // else the f32 pool [n_texels, tex_cols]
+  int n_texels, tex_cols;
+  const float* mat_rows;      // atlas mode 2: [n_mat, 16]
+  int n_mat;
+  int trows, tiles_x, width, height;  // post: the strip layout, the frame
+};
+
+// torch.clamp: NaN passes through
+__device__ __forceinline__ float torch_clamp(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float torch_clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+// shade._skybox_index of direction d (i32 arithmetic wraps, as torch's)
+__device__ __forceinline__ int sky_index(const FinishParams& p, float d0, float d1,
+                                         float d2) {
+  const float pi = (float)3.14159265358979323846;
+  const int theta = (int)((atan2f(d0, -d2) / pi) * ((float)0.5 * (float)p.sky_w));
+  const int phi = (int)((acosf(torch_clamp(d1, -1.0f, 1.0f)) / pi) * (float)p.sky_h);
+  return (int)((unsigned)phi * (unsigned)p.sky_w + (unsigned)theta + (unsigned)p.sky_off);
+}
+
+// one texel of the pool, [0, 1] (the index clamped into the pool)
+__device__ __forceinline__ Rgb pool_texel(const FinishParams& p, int idx) {
+  const int k = idx < 0 ? 0 : (idx > p.n_texels - 1 ? p.n_texels - 1 : idx);
+  Rgb t;
+  if (p.texels_u32 != nullptr) {
+    const unsigned word = (unsigned)__ldg(p.texels_u32 + k);
+    for (int c = 0; c < 3; ++c) t.c[c] = (float)((word >> (8 * c)) & 0xFFu) * (float)(1.0 / 255.0);
+  } else {
+    const float* row = p.texels + (size_t)k * p.tex_cols;
+    for (int c = 0; c < 3; ++c) t.c[c] = __ldg(row + c);
+  }
+  return t;
+}
+
+template <int ATLAS, bool GI, bool POST>
+__global__ void __launch_bounds__(256) finish_kernel(FinishParams p, float* __restrict__ out) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= p.n) return;
+  int x = 0, y = 0;
+  if (POST) {
+    // the strip layout (render_fused.untile): tile r / trows of tiles_x
+    // across, row r % trows in it
+    const int r = i >> 7, tile = r / p.trows;
+    x = (tile % p.tiles_x) * 128 + (i & 127);
+    y = (tile / p.tiles_x) * p.trows + r % p.trows;
+    if (x >= p.width || y >= p.height) return;
+  }
+  const size_t N = (size_t)p.n;
+  const float* pl = p.planes + i;
+  const float U8 = (float)(1.0 / 255.0);
+  float res[3], men[3], sky[3] = {0.0f, 0.0f, 0.0f};
+  for (int c = 0; c < 3; ++c) {
+    res[c] = pl[c * N];
+    men[c] = pl[(3 + c) * N];
+  }
+  if (ATLAS == 0) {
+    // the deferred sky add: the sky's procedural texel at the sky index
+    const int idx = sky_index(p, pl[6 * N], pl[7 * N], pl[8 * N]);
+    const int rel = (int)((unsigned)idx - (unsigned)p.sky_off);
+    int q = rel / p.sky_w, m = rel % p.sky_w;  // floor division and remainder
+    if (m != 0 && (m < 0) != (p.sky_w < 0)) {
+      q -= 1;
+      m += p.sky_w;
+    }
+    const int jmax = (int)p.sky_desc[TEX_H] - 1;
+    const int j = q < 0 ? 0 : (q > jmax ? jmax : q);
+    const Rgb t = eval_texel(p.sky_desc, (float)m, (float)j);
+    for (int c = 0; c < 3; ++c) sky[c] = t.c[c] * U8;
+  } else {
+    constexpr int K = Defer<ATLAS, GI>::K;
+    float prod[3] = {1.0f, 1.0f, 1.0f};
+    for (int b = 0; b < p.bounces; ++b) {
+      const float* bp = pl + (size_t)(K * b + 9) * N;
+      bool miss, hit;
+      int tex_idx;
+      float mat_b[3], coef[3], coef_a[3] = {0.0f, 0.0f, 0.0f};
+      if (ATLAS == 1) {
+        tex_idx = __float_as_int(bp[0]);
+        miss = tex_idx < 0;
+        hit = !miss;
+        for (int c = 0; c < 3; ++c) {
+          mat_b[c] = bp[(1 + c) * N];
+          coef[c] = bp[(4 + c) * N];
+          if (GI) coef_a[c] = bp[(7 + c) * N];
+        }
+      } else {
+        // the material row by id; -1 (miss), -2 (dead) and ids out of
+        // range read zeros
+        const float mid = bp[0];
+        float mat[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (mid >= 0.0f && mid < (float)p.n_mat) {
+          const float* mr = p.mat_rows + (size_t)(long long)mid * 16;
+          mat[0] = __ldg(mr);
+          mat[1] = __ldg(mr + 1);
+          mat[2] = __ldg(mr + 2);
+          for (int k = 0; k < 4; ++k) mat[3 + k] = __ldg(mr + 8 + k);
+        }
+        const unsigned off_i = (unsigned)(int)mat[5] * (1u << CLRT_OFF_SHIFT) + (unsigned)(int)mat[6];
+        const float uu = bp[N], vv = bp[2 * N];
+        const int ui = (int)((uu - floorf(uu)) * mat[3]);
+        const int vi = (int)((vv - floorf(vv)) * mat[4]);
+        miss = mid == -1.0f;
+        hit = mid >= 0.0f;
+        tex_idx = hit ? (int)((unsigned)vi * (unsigned)(int)mat[3] + (unsigned)ui + off_i) : 0;
+        for (int c = 0; c < 3; ++c) {
+          mat_b[c] = rintf(torch_clamp(mat[c], 0.0f, 1.0f) * 255.0f);
+          coef[c] = bp[(3 + c) * N];
+          if (GI) coef_a[c] = bp[(6 + c) * N];
+        }
+      }
+      const Rgb t = pool_texel(p, miss ? sky_index(p, pl[6 * N], pl[7 * N], pl[8 * N]) : tex_idx);
+      for (int c = 0; c < 3; ++c) {
+        const float color =
+            floorf(mat_b[c] * rintf(t.c[c] * 255.0f) * (float)(1.0 / 256.0)) * U8;
+        if (GI) {
+          res[c] = (res[c] + coef[c] * color * prod[c]) + coef_a[c] * color;
+          if (miss) sky[c] = sky[c] + t.c[c] * prod[c];
+          if (hit) prod[c] = prod[c] * color;
+        } else {
+          res[c] = res[c] + coef[c] * color;
+          if (miss) sky[c] = sky[c] + t.c[c];
+        }
+      }
+    }
+  }
+  float v[3];
+  for (int c = 0; c < 3; ++c) v[c] = res[c] + sky[c] * men[c];
+  if (!POST) {
+    for (int c = 0; c < 3; ++c) out[c * N + i] = v[c];
+    return;
+  }
+  // ---- post._post_core: saturation, Reinhard, the merged pow, vignette
+  const float piv = sqrtf(v[0] * v[0] * (float)0.299 + v[1] * v[1] * (float)0.587 +
+                          v[2] * v[2] * (float)0.114);
+  for (int c = 0; c < 3; ++c) v[c] = piv + (v[c] - piv) * (float)1.2;
+  const float l_old = v[0] * (float)0.2126 + v[1] * (float)0.7152 + v[2] * (float)0.0722;
+  const float l_new =
+      l_old * (1.0f + l_old / (float)(0.8 * 0.8)) / (1.0f + l_old);
+  const float scale = l_new / (l_old == 0.0f ? 1.0f : l_old);
+  // post.vignette_mask_tiled's separable factors of the pixel
+  const float s15 = sqrtf(15.0f);
+  const float u = (float)x / (float)p.width, w = (float)y / (float)p.height;
+  const float fu = powf(torch_clamp_min(u * (1.0f - u) * s15, 0.0f), (float)0.15);
+  const float fv = powf(torch_clamp_min(w * (1.0f - w) * s15, 0.0f), (float)0.15);
+  const float vig = fu * fv;
+  float* o = out + ((size_t)y * p.width + x) * 3;
+  for (int c = 0; c < 3; ++c) {
+    o[c] = powf(torch_clamp_min(v[c] * scale, 0.0f), (float)(1.0 / (1.55 * 1.2))) * vig;
+  }
+}
+
+template <int ATLAS, bool GI, bool POST>
+static int launch_finish(const FinishParams* p, float* out, cudaStream_t st) {
+  finish_kernel<ATLAS, GI, POST><<<(p->n + 255) / 256, 256, 0, st>>>(*p, out);
+  return (int)cudaGetLastError();
+}
+
+// out: [3, n] radiance in strip order, or with p->post the [height, width,
+// 3] image. Atlas mode 0 reads no deferred plane, so it has no GI
+// instantiation: 10 instantiations.
+extern "C" int clrt_finish(const FinishParams* p, float* out, void* stream) {
+  if (p->n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool gi = p->gi != 0, post = p->post != 0;
+  switch (p->atlas_mode) {
+    case 0:
+      return post ? launch_finish<0, false, true>(p, out, st)
+                  : launch_finish<0, false, false>(p, out, st);
+    case 1:
+      if (gi) return post ? launch_finish<1, true, true>(p, out, st)
+                          : launch_finish<1, true, false>(p, out, st);
+      return post ? launch_finish<1, false, true>(p, out, st)
+                  : launch_finish<1, false, false>(p, out, st);
+    case 2:
+      if (gi) return post ? launch_finish<2, true, true>(p, out, st)
+                          : launch_finish<2, true, false>(p, out, st);
+      return post ? launch_finish<2, false, true>(p, out, st)
+                  : launch_finish<2, false, false>(p, out, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

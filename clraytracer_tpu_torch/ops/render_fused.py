@@ -13,8 +13,12 @@
   entries take it only for a scene on the CPU.
 * ``render_fused_camera`` (render_pallas.py:1204) and ``render_fused``
   (render_pallas.py:1115, ray mode) are the frame entries: one kernel
-  launch, then ``_finish_frame``: the deferred sky add, and in the atlas
-  modes the one combined texel gather of every bounce. With
+  launch, then the frame finish: the deferred sky add, and in the atlas
+  modes the one combined texel gather of every bounce; on request (the
+  camera entry's ``post``) the post chain and the untiling too. On the
+  card the finish is one launch of ``finish_cuda`` (csrc/render.cu
+  ``clrt_finish``); its plain version is the torch tail, ``_finish_frame``,
+  then ``post_image``, which the CPU runs. With
   ``split_rebin`` the camera entry makes two: bounce 0 in camera mode with
   the continuation of the live rays and a per-ray ``rebin_key`` carried
   out, one stable sort of the keys (``sort_keys``), the remaining bounces
@@ -33,6 +37,7 @@ import torch
 
 from clraytracer_tpu_torch.camera import tile_pixels, unproject
 from clraytracer_tpu_torch.ops import gather, rng
+from clraytracer_tpu_torch.ops.post import post_process_tiled
 from clraytracer_tpu_torch.ops.shade import (
     _OFF_SHIFT,
     _U8,
@@ -67,6 +72,27 @@ def tile_rows(n_rays: int) -> int:
     rows = -(-n_rays // 128)
     rows = -(-rows // 8) * 8
     return max(8, min(MAX_ROWS, rows))
+
+
+def untile(result: torch.Tensor, layout: tuple, height: int, width: int) -> torch.Tensor:
+    """[3, rows, 128] screen-tile order (``layout`` = ("strip", trows,
+    tiles_x, tiles_y)) → [3, H, W] planar image."""
+    _kind, rows, nx, ny = layout
+    return (
+        result.reshape(3, ny, nx, rows, 128)
+        .permute(0, 1, 3, 2, 4)
+        .reshape(3, ny * rows, nx * 128)[:, :height, :width]
+    )
+
+
+def post_image(radiance: torch.Tensor, width: int, height: int, layout: tuple) -> torch.Tensor:
+    """The post chain on the tile layout, then one relayout → the finished
+    [H, W, 3] frame (a permuted view): the plain version of
+    ``finish_cuda``'s ``image``."""
+    with ScopeTimer("render.post", log=False):
+        p = post_process_tiled(radiance, width, height, layout)
+    with ScopeTimer("render.untile", log=False):
+        return untile(p, layout, height, width).permute(1, 2, 0)
 
 
 def fused_path_available(scene: Scene, reference_parity: bool,
@@ -705,6 +731,105 @@ def _finish_frame(
     return res + sky * men
 
 
+def finish_variant(mode: int, gi: bool, post: bool) -> str:
+    """Name of a finish instantiation, as ``finish_cuda.variant_launches``
+    counts them: "default", or "atlas<mode>", "gi" and "post" joined by "+"
+    (atlas mode 0 reads no deferred plane and has no "gi")."""
+    parts = ([f"atlas{mode}"] if mode else []) + (["gi"] if gi and mode else []) + (
+        ["post"] if post else [])
+    return "+".join(parts) or "default"
+
+
+def finish_cuda(
+    scene: Scene,
+    ft: FrameTables,
+    out: torch.Tensor,
+    atlas_mode: int = 0,
+    gi: bool = False,
+    image: tuple | None = None,
+) -> torch.Tensor:
+    """Launch the frame finish (csrc/render.cu ``clrt_finish``) on K2.2's
+    output ``out`` ([9 + K*B, rows, 128] f32, contiguous, on the tables'
+    CUDA device; K = ``deferred_planes(atlas_mode, gi)``) → [3, rows, 128]
+    radiance in strip order, as ``_finish_frame`` returns it; with
+    ``image`` = (width, height, layout), layout ("strip", trows, tiles_x,
+    tiles_y) the strip layout of ``out``, the finished [H, W, 3] frame
+    (contiguous), as ``post_image`` returns it. The texels come from the
+    packed-RGB8 words where the scene has them, else from the f32 pool; on
+    the same planes the result equals the torch tail's bit for bit."""
+    from clraytracer_tpu_torch.runtime import kernels
+
+    dev = ft.mat_rows.device
+    if dev.type != "cuda":
+        raise ValueError("finish_cuda needs the scene on a CUDA device")
+    if out.dtype != torch.float32 or not out.is_contiguous() or out.device != dev:
+        raise ValueError("out must be a contiguous f32 tensor on the tables' device")
+    if atlas_mode not in (0, 1, 2):
+        raise ValueError(f"atlas_mode must be 0, 1 or 2, not {atlas_mode}")
+    k = deferred_planes(atlas_mode, gi)
+    n = out[0].numel()
+    if out.shape[0] < 9 or (k and (out.shape[0] - 9) % k) or n == 0:
+        raise ValueError(f"out must hold 9 + {k} * bounces planes of rays")
+    pk = scene.packed
+    pool_u32, pool = pk.texels_u32, None
+    if atlas_mode and pool_u32 is None:
+        pool = scene.atlas.texels.contiguous()
+        if pool.dtype != torch.float32 or pool.dim() != 2 or pool.shape[1] < 3:
+            raise ValueError("the texel pool must be [P, >= 3] f32")
+    table = pool_u32 if pool is None else pool
+    sky_desc = None
+    if atlas_mode == 0:  # the sky's descriptor row (``_eval_skybox_inline``'s)
+        row = next(i for i, (h, _o, _d) in enumerate(scene.procedural_tex)
+                   if h == scene.skybox_tex)
+        sky_desc = ft.tex[row].data_ptr()
+    if image is None:
+        dims = (0, 0, 0, 0)
+        res = torch.empty((3,) + tuple(out.shape[1:]), dtype=torch.float32, device=dev)
+    else:
+        width, height, (_kind, trows, tiles_x, tiles_y) = image
+        if n != tiles_y * tiles_x * trows * 128 or width > tiles_x * 128 or (
+                height > tiles_y * trows):
+            raise ValueError("the image's strip layout must cover the planes' rays")
+        dims = (trows, tiles_x, width, height)
+        res = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    params = kernels.FinishParamsC(
+        out.data_ptr(), n, (out.shape[0] - 9) // k if k else 0, atlas_mode, int(gi),
+        int(image is not None), int(pk.skybox_w), int(pk.skybox_h), int(pk.skybox_off),
+        sky_desc, kernels.ptr(pool_u32), kernels.ptr(pool),
+        0 if table is None else table.shape[0], 0 if pool is None else pool.shape[1],
+        ft.mat_rows.data_ptr(), ft.mat_rows.shape[0], *dims,
+    )
+    lib = kernels.build_all()["render.cu"]
+    code = lib.clrt_finish(ctypes.byref(params), res.data_ptr(), kernels.stream_handle(dev))
+    kernels.check(code, "clrt_finish")
+    finish_cuda.launches += 1
+    name = finish_variant(atlas_mode, gi, image is not None)
+    finish_cuda.variant_launches[name] = finish_cuda.variant_launches.get(name, 0) + 1
+    return res
+
+
+finish_cuda.launches = 0
+#: launches per instantiation (``finish_variant``'s names)
+finish_cuda.variant_launches = {}
+
+
+def _finish(
+    scene: Scene,
+    ft: FrameTables,
+    out: torch.Tensor,
+    atlas_mode: int,
+    gi: bool,
+    image: tuple | None = None,
+) -> torch.Tensor:
+    """The frame finish, ``finish_cuda``'s contract: one launch for tables
+    on a CUDA device; the plain tail (``_finish_frame``, then with
+    ``image`` ``post_image``) for tables on the CPU."""
+    if ft.mat_rows.device.type == "cuda":
+        return finish_cuda(scene, ft, out, atlas_mode, gi, image)
+    res = _finish_frame(scene, out, atlas_mode, gi)
+    return res if image is None else post_image(res, *image)
+
+
 def rebin_key(dm: torch.Tensor, om: torch.Tensor) -> torch.Tensor:
     """i32 row re-bin sort key (render_pallas.py:850): direction octant in
     bits 18-20, then three 6-bit wrapped coarse origin cells
@@ -760,11 +885,16 @@ def render_fused_camera(
     row0=None,
     local_height: int | None = None,
     split_rebin: bool | None = None,
+    post: bool = False,
 ) -> tuple[torch.Tensor, tuple[int, int, int]]:
     """Fused frame with in-kernel raygen → ([3, rows_total, 128] radiance in
     trows x 128 screen-strip order, (trows, tiles_x, tiles_y)): one kernel
-    launch, then ``_finish_frame``. ``gi_seed`` None turns GI off. Callers
-    check ``fused_path_available`` first.
+    launch, then the finish (``_finish``). ``gi_seed`` None turns GI off.
+    Callers check ``fused_path_available`` first.
+
+    ``post``: the finished [H, W, 3] frame in place of the radiance, the
+    post chain and the untiling in the finish (one launch on the card); a
+    whole frame only.
 
     ``row0``/``local_height``: only the ``local_height``-row window from
     global pixel row ``row0`` (render_pallas.py:1227-1231); the
@@ -779,6 +909,8 @@ def render_fused_camera(
     1, written back in place into the first launch's frame planes. The
     JAX package re-bins whole 128-ray rows instead (the TPU's vector
     width); the frame is the same."""
+    if post and (row0 is not None or local_height is not None):
+        raise ValueError("post takes a whole frame, not a row window")
     with ScopeTimer("render.prepare", log=False):
         win_height = local_height if local_height is not None else height
         trows = tile_rows(width * win_height)
@@ -804,7 +936,8 @@ def render_fused_camera(
         else:
             out = _launch(dev, *args, bounces, **opts).reshape(-1, rows_total, 128)
     with ScopeTimer("render.finish", log=False):
-        img = _finish_frame(scene, out, mode, gi_seed is not None)
+        image = (width, height, ("strip", trows, tiles_x, tiles_y)) if post else None
+        img = _finish(scene, ft, out, mode, gi_seed is not None, image)
     return img, (trows, tiles_x, tiles_y)
 
 
@@ -818,8 +951,8 @@ def render_fused(
     gi_seed: int | None = None,
 ) -> torch.Tensor:
     """Fused frame over given rays (render_pallas.py:1115, ray mode) →
-    [3, rows, 128] radiance: one kernel launch in ray mode, then
-    ``_finish_frame``. Ray i is row i // 128, lane i % 128, and its GI
+    [3, rows, 128] radiance: one kernel launch in ray mode, then the
+    finish (``_finish``). Ray i is row i // 128, lane i % 128, and its GI
     stream is seeded by i, as in camera mode. ``gi_seed`` None turns GI
     off. Callers check ``fused_path_available`` first."""
     rows_total = origin.shape[1]
@@ -834,4 +967,4 @@ def render_fused(
     # grid (width 128, one strip of rows_total rows) and is not read
     args = (kt, ft, ray_row(sun_angle), 128, rows_total, rows_total, rows_total, bounces)
     out = _launch(dev, *args, **opts).reshape(-1, rows_total, 128)
-    return _finish_frame(scene, out, mode, gi_seed is not None)
+    return _finish(scene, ft, out, mode, gi_seed is not None)

@@ -45,7 +45,6 @@ from clraytracer_tpu_torch.ops.trace import trace
 from clraytracer_tpu_torch.render import (
     FrameInputs,
     Tracer,
-    _untile,
     resolve_tracer,
     trace_best,
     trace_planar,
@@ -264,7 +263,7 @@ def render_sharded(
         result, (trows, tiles_x, tiles_y) = rf.render_fused_camera(
             scene, frame, w, h, config.bounces, row0=row0, local_height=local_rows,
         )
-        img = _untile(result, ("strip", trows, tiles_x, tiles_y), local_rows, w)
+        img = rf.untile(result, ("strip", trows, tiles_x, tiles_y), local_rows, w)
         local = planar.to_last(img, (local_rows, w))
     else:
         local = _shade_rows(

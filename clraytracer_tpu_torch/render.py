@@ -37,7 +37,7 @@ from clraytracer_tpu_torch.config import RenderConfig
 from clraytracer_tpu_torch.device import resolve_device
 from clraytracer_tpu_torch.ops import gather, rng
 from clraytracer_tpu_torch.ops import render_fused as rf
-from clraytracer_tpu_torch.ops.post import post_process, post_process_tiled
+from clraytracer_tpu_torch.ops.post import post_process
 from clraytracer_tpu_torch.ops.shade import initial_bounce_state, shade_hits
 from clraytracer_tpu_torch.ops.trace import SceneHit, trace
 from clraytracer_tpu_torch.ops.trace_ref import trace_brute, trace_bvh
@@ -120,19 +120,22 @@ def _trace_tiled(
     refraction_ior: float = 1.45,
     enable_gi: bool = False,
     gi_seed: int = 0,
+    post: bool = False,
 ) -> tuple[torch.Tensor, tuple]:
     """The JAX ``_trace_tiled`` (render.py:409): raw ``[3, rows, 128]``
     radiance in screen-tile order plus its ``("strip", trows, tiles_x,
     tiles_y)`` layout, from the fused kernel's in-kernel raygen where the
     tracer is K2.1's and the kernel covers the frame, else from the tiled
-    camera rays through ``bounce_loop``."""
+    camera rays through ``bounce_loop``. ``post``: the finished [H, W, 3]
+    frame in place of the radiance (the post chain on the tile layout and
+    the untiling; for a fused frame in its finish)."""
     tracer = resolve_tracer(tracer, scene)
     if tracer is trace and not enable_refraction and rf.fused_path_available(
         scene, reference_parity, integer_colors
     ):
         result, (trows, tiles_x, tiles_y) = rf.render_fused_camera(
             scene, frame, width, height, bounces, enable_shadows=enable_shadows,
-            gi_seed=gi_seed if enable_gi else None,
+            gi_seed=gi_seed if enable_gi else None, post=post,
         )
         return result, ("strip", trows, tiles_x, tiles_y)
     trows = rf.tile_rows(width * height)
@@ -149,7 +152,10 @@ def _trace_tiled(
         reference_parity, integer_colors, enable_shadows, enable_refraction,
         refraction_ior, enable_gi, gi_seed,
     )
-    return result, ("strip", trows, tiles_x, tiles_y)
+    layout = ("strip", trows, tiles_x, tiles_y)
+    if post:
+        result = rf.post_image(result, width, height, layout)
+    return result, layout
 
 
 def trace_image(
@@ -173,17 +179,7 @@ def trace_image(
         scene, frame, width, height, bounces, tracer, reference_parity, integer_colors,
         enable_shadows, enable_refraction, refraction_ior, enable_gi, gi_seed,
     )
-    return _untile(result, layout, height, width).permute(1, 2, 0)
-
-
-def _untile(result: torch.Tensor, layout: tuple, height: int, width: int) -> torch.Tensor:
-    """[3, rows, 128] screen-tile order → [3, H, W] planar image."""
-    _kind, rows, nx, ny = layout
-    return (
-        result.reshape(3, ny, nx, rows, 128)
-        .permute(0, 1, 3, 2, 4)
-        .reshape(3, ny * rows, nx * 128)[:, :height, :width]
-    )
+    return rf.untile(result, layout, height, width).permute(1, 2, 0)
 
 
 def _sample_offsets(n: int) -> list[tuple[float, float]]:
@@ -255,12 +251,9 @@ def render_frame(
                 img = post_process(img, enable_fxaa=config.enable_fxaa)
         return img
     if config.enable_post and not config.enable_fxaa:
-        # the post chain on the tile layout: one relayout a frame
-        result, layout = _trace_tiled(scene, frame, w, h, gi_seed=config.gi_seed, **opts)
-        with ScopeTimer("render.post", log=False):
-            result = post_process_tiled(result, w, h, layout)
-        with ScopeTimer("render.untile", log=False):
-            return _untile(result, layout, h, w).permute(1, 2, 0)
+        # the post chain on the tile layout: one relayout a frame (on the
+        # card a fused frame's finish launch applies both)
+        return _trace_tiled(scene, frame, w, h, gi_seed=config.gi_seed, post=True, **opts)[0]
     img = trace_image(scene, frame, w, h, gi_seed=config.gi_seed, **opts)
     if config.enable_post:
         with ScopeTimer("render.post", log=False):

@@ -84,6 +84,33 @@ class RenderParamsC(ctypes.Structure):
     ]
 
 
+class FinishParamsC(ctypes.Structure):
+    """csrc/render.cu ``FinishParams``, field for field in its order."""
+
+    _fields_ = [
+        ("planes", ctypes.c_void_p),
+        ("n", ctypes.c_int),
+        ("bounces", ctypes.c_int),
+        ("atlas_mode", ctypes.c_int),
+        ("gi", ctypes.c_int),
+        ("post", ctypes.c_int),
+        ("sky_w", ctypes.c_int),
+        ("sky_h", ctypes.c_int),
+        ("sky_off", ctypes.c_int),
+        ("sky_desc", ctypes.c_void_p),
+        ("texels_u32", ctypes.c_void_p),
+        ("texels", ctypes.c_void_p),
+        ("n_texels", ctypes.c_int),
+        ("tex_cols", ctypes.c_int),
+        ("mat_rows", ctypes.c_void_p),
+        ("n_mat", ctypes.c_int),
+        ("trows", ctypes.c_int),
+        ("tiles_x", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("height", ctypes.c_int),
+    ]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
@@ -146,6 +173,9 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     fn.argtypes = [
         ctypes.POINTER(SceneTablesC), ctypes.POINTER(RenderParamsC), vp, vp, vp, vp,
     ]
+    fn = libs["render.cu"].clrt_finish
+    fn.restype = ci
+    fn.argtypes = [ctypes.POINTER(FinishParamsC), vp, vp]
     fn = libs["gather.cu"].clrt_gather_rows
     fn.restype = ci
     fn.argtypes = [vp, ci, ci, vp, ci, vp, vp]

@@ -841,12 +841,12 @@ def test_row_windows_stack_to_the_full_frame_on_card(split):
     frame = option_frame("ground", w, h)
     full, lay = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=True,
                                        split_rebin=split)
-    want = trender._untile(full, ("strip",) + lay, h, w)
+    want = rf.untile(full, ("strip",) + lay, h, w)
     parts = []
     for y0 in range(0, h, win):
         img, wlay = rf.render_fused_camera(scene, frame, w, h, 2, enable_shadows=True,
                                            row0=y0, local_height=win, split_rebin=split)
-        parts.append(trender._untile(img, ("strip",) + wlay, win, w))
+        parts.append(rf.untile(img, ("strip",) + wlay, win, w))
     got = torch.cat(parts, dim=1)
     torch.cuda.synchronize()
     if not split:
@@ -1220,8 +1220,8 @@ def test_k22_row_window_past_height_on_card():
     assert compare_options(got, ref, 0, False)["ok"]
     win, wlay = rf.render_fused_camera(scene, frame, w, h, 2, row0=rows, local_height=rows)
     full, lay = rf.render_fused_camera(scene, frame, w, h, 2)
-    win = trender._untile(win, ("strip",) + wlay, rows, w)
-    full = trender._untile(full, ("strip",) + lay, h, w)
+    win = rf.untile(win, ("strip",) + wlay, rows, w)
+    full = rf.untile(full, ("strip",) + lay, h, w)
     assert torch.equal(win[:, : h - rows], full[:, rows:])
 
 
@@ -1455,3 +1455,161 @@ def test_interior_scene_tie_rule_across_instances_on_card():
     assert torch.equal(got[3].view(torch.int32)[hit].long(), slot_ref[hit])
     on_dense = (inst_ref == 3) & hit
     assert int(on_dense.sum()) > 100 and bool((at_best[on_dense] > 1).all())
+
+
+# ---------------------------------------------------------------------------
+# the frame finish (csrc/render.cu clrt_finish) against its plain version,
+# the torch tail, on K2.2's own planes
+# ---------------------------------------------------------------------------
+
+#: (scene of chip_smoke's option_scene, shadows, GI seed or None, packed-RGB8
+#: texel words): atlas modes 0 (``sphere``, ``ground``), 1 (``atlas``) and 2
+#: (``atlas65``), each with GI off and on, shadows, both texel pools
+FINISH_CASES = [
+    ("sphere", False, None, False), ("sphere", False, 3, False), ("ground", True, None, False),
+    ("atlas", False, None, False), ("atlas", False, 3, False), ("atlas", True, 3, True),
+    ("atlas", False, None, True), ("atlas65", False, None, False),
+    ("atlas65", False, 3, False), ("atlas65", True, None, True),
+]
+
+
+def _plain_tail(scene, out, mode, gi, w, h, layout):
+    """The torch tail on K2.2's planes: (tile-order radiance, [H, W, 3])."""
+    from clraytracer_tpu_torch.ops.post import post_process_tiled
+
+    res = rf._finish_frame(scene, out, mode, gi)
+    return res, rf.untile(post_process_tiled(res, w, h, layout), layout, h, w).permute(1, 2, 0)
+
+
+def _assert_finish_exact(scene, out, mode, gi, w, h, layout, image=True):
+    """The finish kernel's radiance (and, for a whole frame, its finished
+    image) bit-equal to the torch tail's on the same planes, in one launch
+    each."""
+    ft = rf.frame_tables(scene)
+    before = rf.finish_cuda.launches
+    got = rf.finish_cuda(scene, ft, out, mode, gi)
+    got_img = rf.finish_cuda(scene, ft, out, mode, gi, (w, h, layout)) if image else None
+    ref, ref_img = _plain_tail(scene, out, mode, gi, w, h, layout)
+    torch.cuda.synchronize()
+    assert rf.finish_cuda.launches == before + 1 + image
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert torch.equal(got, ref), int((got != ref).sum())
+    if image:
+        assert got_img.shape == (h, w, 3) and got_img.is_contiguous()
+        assert torch.equal(got_img, ref_img), int((got_img != ref_img).sum())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,shadows,gi_seed,flat", FINISH_CASES)
+def test_finish_kernel_bit_equal_to_torch_tail_on_card(spec, shadows, gi_seed, flat,
+                                                        monkeypatch):
+    """The finish kernel on K2.2's planes of a ragged 160x120 frame (a
+    width past one 128-lane tile, a height short of its second 64-row
+    strip) in every instantiation: radiance and finished image equal the
+    torch tail's bit for bit; the frame entry's finish is that launch."""
+    from chip_smoke import option_args, option_frame, option_scene
+    from clraytracer_tpu_torch.scene import builder
+
+    dev = _card()
+    if flat:
+        monkeypatch.setattr(builder, "FLAT_TEXEL_MIN", 0)
+    scene = option_scene(spec, device=dev)
+    assert (scene.packed.texels_u32 is not None) == flat
+    mode, gi = rf.atlas_mode_of(scene), gi_seed is not None
+    frame = option_frame(spec, W, H)
+    args = option_args(scene, frame, W, H)
+    trows, rows_total = args[5], args[6]
+    layout = ("strip", trows, -(-W // 128), -(-H // trows))
+    out = rf.render_cuda(*args, atlas_mode=mode, shadows=shadows, gi_seed=gi_seed)
+    out = out.reshape(-1, rows_total, 128)
+    got = _assert_finish_exact(scene, out, mode, gi, W, H, layout)
+    before = (rf.finish_cuda.launches, dict(rf.finish_cuda.variant_launches))
+    for post in (False, True):
+        img, lay = rf.render_fused_camera(scene, frame, W, H, 2, enable_shadows=shadows,
+                                          gi_seed=gi_seed, post=post)
+        want = got if not post else rf.finish_cuda(scene, rf.frame_tables(scene), out, mode,
+                                                   gi, (W, H, layout))
+        assert ("strip",) + lay == layout and torch.equal(img, want), post
+    name = rf.finish_variant(mode, gi, True)
+    assert rf.finish_cuda.launches == before[0] + 3
+    assert rf.finish_cuda.variant_launches[name] == before[1].get(name, 0) + 2
+
+
+@pytest.mark.cuda
+def test_finish_kernel_on_the_split_frame_on_card():
+    """The split-rebin frame (carry-out, the sort, carry-in in place; atlas
+    mode 0): the finish of its nine planes bit-equal to the torch tail's,
+    and ``render_fused_camera(split_rebin=True)``'s radiance is it."""
+    from chip_smoke import option_args, option_frame, option_scene
+
+    dev = _card()
+    scene = option_scene("sphere", device=dev)
+    frame = option_frame("sphere", W, H)
+    args = option_args(scene, frame, W, H, bounces=1)
+    trows, rows_total = args[5], args[6]
+    first = rf.render_cuda(*args, carry_out=True)
+    keys, order = rf.sort_keys(first)
+    rf.render_cuda(*args, carry=first, keys=keys, order=order, start_bounce=1)
+    out = first[:9].reshape(9, rows_total, 128)
+    layout = ("strip", trows, -(-W // 128), -(-H // trows))
+    got = _assert_finish_exact(scene, out, 0, False, W, H, layout)
+    img, _lay = rf.render_fused_camera(scene, frame, W, H, 2, split_rebin=True)
+    assert torch.equal(img, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["sphere", "atlas"])
+def test_finish_kernel_on_a_row_window_on_card(spec):
+    """A row window (``row0``/``local_height``, the sharded frame's): the
+    finish of its planes bit-equal to the torch tail's, and the window
+    entry's radiance is it; a window refuses ``post``."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    w, h = SHARD_WH
+    rows = -(-h // 2)
+    scene = option_scene(spec, device=dev)
+    mode = rf.atlas_mode_of(scene)
+    frame = option_frame(spec, w, h)
+    trows = rf.tile_rows(w * rows)
+    rows_total = -(-rows // trows) * -(-w // 128) * trows
+    args = (tr.kernel_tables(scene), rf.frame_tables(scene), rf.camera_row(frame, rows),
+            w, h, trows, rows_total, 2)
+    out = rf.render_cuda(*args, atlas_mode=mode).reshape(-1, rows_total, 128)
+    layout = ("strip", trows, -(-w // 128), -(-rows // trows))
+    got = _assert_finish_exact(scene, out, mode, False, w, rows, layout, image=False)
+    win, _lay = rf.render_fused_camera(scene, frame, w, h, 2, row0=rows, local_height=rows)
+    assert torch.equal(win, got)
+    with pytest.raises(ValueError):
+        rf.render_fused_camera(scene, frame, w, h, 2, row0=rows, local_height=rows, post=True)
+
+
+@pytest.mark.cuda
+def test_render_frame_one_finish_launch_a_frame_on_card(monkeypatch):
+    """``Engine`` frames with the post chain on the tile layout: one K2.2
+    and one finish launch (``atlas1+post``) a frame, and no frame on the
+    plain tail; post off and 4 samples: one radiance finish a launch of
+    K2.2."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    scene = option_scene("atlas", device=dev)
+    frame = option_frame("atlas", W, H)
+    plain = []
+    monkeypatch.setattr(rf, "_finish_frame", lambda *a: plain.append(a))
+    monkeypatch.setattr(rf, "post_image", lambda *a: plain.append(a))
+    counts = lambda: (rf.render_cuda.launches, rf.finish_cuda.launches,
+                      dict(rf.finish_cuda.variant_launches))
+    for cfg, name, per_frame in ((RenderConfig(width=W, height=H), "atlas1+post", 1),
+                                 (RenderConfig(width=W, height=H, enable_post=False), "atlas1", 1),
+                                 (RenderConfig(width=W, height=H, samples=4), "atlas1", 4)):
+        before = counts()
+        for _ in range(3):
+            img = trender.render_frame(scene, frame, cfg)
+        torch.cuda.synchronize()
+        after = counts()
+        assert img.shape == (H, W, 3) and torch.isfinite(img).all()
+        assert (after[0] - before[0], after[1] - before[1]) == (3 * per_frame, 3 * per_frame)
+        assert after[2][name] == before[2].get(name, 0) + 3 * per_frame
+    assert not plain

@@ -351,14 +351,14 @@ def test_row_windows_stack_to_the_full_frame(split, request):
     w, h, win = 32, 24, 8
     frame = port_inputs("procedural_scene", w, h)
     full, lay = rf.render_fused_camera(ts, frame, w, h, 2, split_rebin=split)
-    want = trender._untile(full, ("strip",) + lay, h, w)
+    want = rf.untile(full, ("strip",) + lay, h, w)
     parts = []
     for k, y0 in enumerate(range(0, h, win)):
         row0 = y0 if k % 2 == 0 else torch.tensor(y0)
         img, wlay = rf.render_fused_camera(ts, frame, w, h, 2, row0=row0, local_height=win,
                                            split_rebin=split)
         assert wlay == (8, 1, 1) and img.shape == (3, 8, 128)
-        parts.append(trender._untile(img, ("strip",) + wlay, win, w))
+        parts.append(rf.untile(img, ("strip",) + wlay, win, w))
     got = torch.cat(parts, dim=1)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert rf.camera_row(frame, 16).cam[35] == 16.0 and rf.camera_row(frame).cam[35] == 0.0
