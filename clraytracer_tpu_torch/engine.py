@@ -11,15 +11,20 @@ reference's Engine.cpp/Engine.hpp).
 * **End-of-frame events** (Engine_AddEndOfFrameEvent, Engine.cpp:13-20)
   run after the frame in flight; **exit events** (Engine_AddOnExitEvent,
   Engine.cpp:22-28) on ``close``.
-* **Instance edits**: ``set_instance_transform`` marks the instance table
-  dirty; the next ``tick`` uploads the instance arrays and refreshes the
+* **Instance edits**: ``set_instance_transform`` inverts the edited
+  instance's transform into the builder's kept table (SetMeshMatrix,
+  Renderer.cpp:288-298) and marks the instance table dirty; the next
+  ``tick`` uploads the instance arrays and refreshes the
   packed rows (the dirty-range upload, Renderer.cpp:312-320). The
   traversal's geometry tables stay (``ops.trace.kernel_tables``).
 * **Profiler stats** go to ``utils.timer.profiler_stats``
   (Engine_UpdateProfilerStats, Engine.cpp:36-51): the spans ``engine.start``,
-  ``engine.tick``, ``engine.render`` (``engine.wait`` inside it: the
-  watchdog's synchronise on the card) and ``engine.pick``, and the spans
-  of the layers below them (``tables.*``, ``render.*``, ``pick.*``).
+  ``engine.tick`` (``engine.instances`` inside it: the instance table),
+  ``engine.render`` (``engine.wait`` inside it: the watchdog's synchronise
+  on the card) and ``engine.pick``, one ``engine.inverse`` an instance
+  transform inverted (the builder's, at ``add_instance`` and
+  ``set_instance_transform``), and the spans of the layers below them
+  (``tables.*``, ``render.*``, ``pick.*``).
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 without a card, ``device=None`` raises.
@@ -118,7 +123,8 @@ class Engine:
         the packed rows that track it."""
         with ScopeTimer("engine.tick", log=False):
             if self._instances_dirty and self.scene is not None:
-                instances = self.builder.instance_arrays(device=self.device)
+                with ScopeTimer("engine.instances", log=False):
+                    instances = self.builder.instance_arrays(device=self.device)
                 self.scene = refresh_packed(dataclasses.replace(self.scene, instances=instances))
                 self._instances_dirty = False
 

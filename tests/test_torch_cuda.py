@@ -1613,3 +1613,102 @@ def test_render_frame_one_finish_launch_a_frame_on_card(monkeypatch):
         assert (after[0] - before[0], after[1] - before[1]) == (3 * per_frame, 3 * per_frame)
         assert after[2][name] == before[2].get(name, 0) + 3 * per_frame
     assert not plain
+
+
+# ---------------------------------------------------------------------------
+# the instance pool full: 401 instances, the upstream's MaxNumInstances
+# ---------------------------------------------------------------------------
+
+
+def _pool_scene(dev):
+    """tests/test_torch_instances.py's full pool on the card: 401 instances
+    of a 96-triangle sphere under seeded rigid transforms (atlas mode 1),
+    the last one in front of the camera."""
+    import numpy as np
+
+    from rtbench import port
+    from test_torch_instances import SEED, _spec
+
+    return port.builder(_spec(np.random.default_rng(SEED))).build(device=dev)
+
+
+@pytest.mark.cuda
+def test_kernels_at_401_instances_match_plain_on_card():
+    """K2.1 exact against trace_plain, and K2.2 against render_fused_plain
+    (pool indices exact, at most FRAME_MISMATCH_MAX rays over 1e-5), with
+    every ray walking 401 instances; the hits fall on many instances, the
+    401st among them."""
+    from chip_smoke import compare_options, option_args
+
+    dev = _card()
+    scene = _pool_scene(dev)
+    kt = tr.kernel_tables(scene)
+    assert kt.n_inst == 401
+    rays = _camera_rays(dev)
+    got = tr.trace_cuda(kt, rays)
+    ref = tr.trace_plain(kt, rays)
+    torch.cuda.synchronize()
+    _assert_trace_exact(got, ref, min_hits=W * H // 4)
+    inst = got[4].view(torch.int32)[got[0].abs() < tr.BIG]
+    assert inst.unique().numel() > 100 and int((inst == 400).sum()) > 0
+    mode = rf.atlas_mode_of(scene)
+    assert mode == 1
+    frame = trender.frame_inputs_from_camera(Camera.create(CAMERA, W, H), -1.96)
+    args = option_args(scene, frame, W, H)
+    got = rf.render_cuda(*args, atlas_mode=mode)
+    ref = rf.render_fused_plain(*args, dev, atlas_mode=mode)
+    torch.cuda.synchronize()
+    case = compare_options(got, ref, mode, False)
+    assert case["ok"], case
+
+
+@pytest.mark.cuda
+def test_engine_frame_and_picks_at_the_full_pool_on_card():
+    """The ``instances401`` configuration (rtbench/configs/instances401.json)
+    through ``Engine`` at 1920x1080 under the 80 ms watchdog: four frames,
+    the walk's figure turned a degree a tick, one K2.2 launch a frame; the
+    last frame's seeded pixels and four picks against the benchmark's plain
+    reference under the cell's limits."""
+    import json
+    import math
+
+    import numpy as np
+
+    from rtbench import check, port
+    from rtbench.cells import HERE
+    from rtbench.poses import path
+    from rtbench.reference.frame import Scene as RefScene
+    from rtbench.reference.frame import sample_pixels
+    from rtbench.scenes import instances
+    from rtbench.scenes.spec import rotation_y
+
+    dev = _card()
+    cfg = json.loads((HERE / "configs" / "instances401.json").read_text())
+    seed = 2**31 + 18
+    spec = instances.build(cfg, seed)
+    k = int(cfg["animate"]["instance"])
+    eng = port.engine(spec, cfg, dev, 80.0)
+    pose = path(cfg["path"], 240)[17]
+    port.set_pose(eng, pose)
+    for i in range(4):
+        m = (rotation_y(math.radians(i)) @ spec.instances[k].transform).astype(np.float32)
+        eng.set_instance_transform(k, m)
+        eng.tick()
+        before = rf.render_cuda.launches
+        img = eng.render()  # past the warm-up, over 80 ms raises
+        assert rf.render_cuda.launches == before + 1
+    w, h = int(cfg["width"]), int(cfg["height"])
+    xy = [(960.0, 540.0), (300.0, 800.0), (1500.0, 700.0), (1000.0, 300.0)]
+    picks = [eng.pick(x, y) for x, y in xy]
+    px, py = sample_pixels(seed, 2048, w, h, dev)
+    got = img[py.long(), px.long()].float().cpu()
+    del eng, img
+    torch.cuda.empty_cache()
+    ref = RefScene(spec, dev)
+    ref.set_transform(k, m)
+    limits = check.limits(HERE, "instances401-walk")
+    off = check.pixels_off(got, ref.frame_pixels(pose, cfg, px, py).float().cpu())
+    assert off <= limits["pixels_off"], off
+    assert sum(bool(p.hit) for p in picks) >= 3
+    assert not [xy for p, xy in zip(picks, xy)
+                if check.pick_disagrees(p, ref.pick(pose, cfg, *xy))]

@@ -21,11 +21,12 @@ from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: every span of an edit, tick, frame and pick on the CPU (``engine.wait``
 #: is the watchdog's synchronise on the card)
-SPANS = ("engine.tick", "tables.shading", "engine.render", "render.prepare", "tables.kernel",
-         "tables.frame", "render.k22", "render.finish", "render.post", "render.untile",
+SPANS = ("engine.inverse", "engine.tick", "engine.instances", "tables.shading", "engine.render",
+         "render.prepare", "tables.kernel", "tables.frame", "render.k22", "render.finish", "render.post", "render.untile",
          "engine.pick", "pick.trace", "pick.readback")
 #: the span each span opens inside
-PARENT = {"tables.shading": "engine.tick", "render.prepare": "engine.render",
+PARENT = {"engine.instances": "engine.tick", "tables.shading": "engine.tick",
+          "render.prepare": "engine.render",
           "tables.kernel": "engine.render", "tables.frame": "engine.render",
           "render.k22": "engine.render", "render.finish": "engine.render",
           "render.post": "engine.render", "render.untile": "engine.render",
@@ -82,6 +83,33 @@ def test_a_frame_leaves_every_span_nested(engine, tmp_path):
             if n == span:
                 assert any(oa <= a and b <= ob for oa, ob in outer), (span, parent)
     assert sum(n.startswith("tables.") for n in names) == 3
+
+
+def test_an_edit_inverts_the_edited_instance_alone(tmp_path):
+    """Of five instances, an edit of one opens one ``engine.inverse``
+    range (the builder inverts it at the edit) and the tick none: the
+    tick's ``engine.instances`` reads the kept table."""
+    b = SceneBuilder()
+    mesh = b.add_mesh(uv_sphere(0.5, n_lat=5, n_lon=8))
+    for k in range(5):
+        move = np.eye(4, dtype=np.float32)
+        move[3, 0] = 1.5 * k
+        b.add_instance(mesh, move)
+    eng = Engine(b, RenderConfig(width=16, height=12), CameraConfig(position=(3.0, 0.0, 9.0)),
+                 device="cpu")
+    eng.start()
+    move = np.eye(4, dtype=np.float32)
+    move[3, 1] = 0.2
+
+    def edit_and_tick():
+        eng.set_instance_transform(2, move)
+        eng.tick()
+
+    got = _traced(edit_and_tick, tmp_path)
+    start = {n: a for n, a, _ in got}
+    names = [n for n, _, _ in got]
+    assert names.count("engine.inverse") == 1 and names.count("engine.instances") == 1
+    assert start["engine.inverse"] < start["engine.tick"] < start["engine.instances"]
 
 
 def test_a_frame_without_an_edit_builds_no_table(engine, tmp_path):

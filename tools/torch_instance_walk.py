@@ -1,0 +1,83 @@
+"""K2.2's work on one pose of a benchmark configuration: the six work
+counters (``ops.trace.COUNTER_NAMES``) of one frame at the configuration's
+size, by bounce and a ray, and the kernel's device ms, for the tree it is
+run from.
+
+    cd <root of a tree> && python3 <path>/tools/torch_instance_walk.py \
+        [--config instances401] [--config museum160k] [--pose 0] [--seed 1]
+
+The scene is the benchmark's (``rtbench/scenes``), built through the
+port's ``SceneBuilder`` (``rtbench.port.builder``), the pose one of the
+configuration's camera path (``rtbench.poses.path`` over 240 poses, the
+``walk`` mix's). One JSON line a configuration: the frame's counters and
+``ray_transforms`` and ``boxes`` a camera ray, bounce 0 alone and bounce 1
+(the frame less bounce 0, over bounce 0's shaded hits), and the device ms
+of the frame's launch and of bounce 0's (``chip_smoke.device_ms``). Needs
+the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import sys
+from pathlib import Path
+
+
+def walk(name: str, pose_index: int, seed: int) -> dict:
+    import torch
+
+    from chip_smoke import bounce_split, device_ms, option_args
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.ops.trace import COUNTER_NAMES
+    from rtbench import port
+    from rtbench.cells import HERE
+    from rtbench.poses import path
+
+    dev = torch.device("cuda", 0)
+    cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
+    spec = importlib.import_module(f"rtbench.scenes.{cfg['scene']}").build(cfg, seed)
+    scene = port.builder(spec).build(device=dev)
+    pose = path(cfg["path"], 240)[pose_index]
+    frame = port.frame_inputs(cfg, pose, dev)
+    w, h, bounces = int(cfg["width"]), int(cfg["height"]), int(cfg["bounces"])
+    opts = dict(atlas_mode=rf.atlas_mode_of(scene))
+    args = option_args(scene, frame, w, h, bounces)
+    args0 = option_args(scene, frame, w, h, 1)
+    counts = []
+    for a in (args, args0):
+        c = torch.zeros(len(COUNTER_NAMES), dtype=torch.int64, device=dev)
+        rf.render_cuda(*a, c, **opts)
+        counts.append(c.cpu().tolist())
+    rays = args[6] * 128
+    frame_counts = dict(zip(COUNTER_NAMES, counts[0]))
+    return {"config": name, "pose": pose_index, "instances": len(spec.instances),
+            "width": w, "height": h, "camera_rays": rays, "counts": frame_counts,
+            "ray_transforms_per_camera_ray": frame_counts["ray_transforms"] / rays,
+            "boxes_per_camera_ray": frame_counts["boxes"] / rays,
+            "by_bounce": bounce_split(counts[0], counts[1], rays),
+            "k22_device_ms": device_ms(lambda: rf.render_cuda(*args, **opts)),
+            "k22_bounce0_device_ms": device_ms(lambda: rf.render_cuda(*args0, **opts)),
+            "card": torch.cuda.get_device_name(dev)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="torch_instance_walk.py")
+    ap.add_argument("--config", action="append", default=None)
+    ap.add_argument("--pose", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_instance_walk.py: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path.cwd()))
+    for name in args.config or ["instances401", "museum160k"]:
+        print(json.dumps(walk(name, args.pose, args.seed)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
