@@ -116,7 +116,8 @@ port's procedural meshes, quad faces and usemtl groups, 42 materials with
 ``museum`` scene places its three: the CLI's ``render --scene <obj>``,
 ``snapshot`` and ``render --scene <.clsnap.npz>`` (byte-equal PNGs), then
 ``render.render_frame`` at 1920x1080 with the default RenderConfig (one
-K2.2 atlas-1 launch a frame, no K2.1, counts from zero); the host's import
+K2.2 atlas-1 launch a frame, no K2.1, no launch of the instance level's box
+kernel, as nothing edits the scene: counts from zero); the host's import
 seconds by step (OBJ parser and image decoder named), the hit share of the
 camera rays (at least half), frame ms, the host's issue ms, K2.2's ms and
 bound, the frame finish kernel (``clrt_finish``, ``finish_figures``: with
@@ -131,16 +132,21 @@ version on MUSEUM_RAYS of those rays), the snapshot's seconds, bytes
 and bit-equal frame; the reference tracers on the card: ``render_frame``
 through ``trace_wavefront`` at 320x240, ``trace_wavefront``, ``trace_bvh``
 and ``trace_brute`` on 4096 seeded camera rays against K2.1 (rays that
-differ counted; brute within FRAME_MISMATCH_MAX). The kernels line adds
-(t)'s launches to the atlas-1 instantiation's entry, and an entry of K2.1
-at (t)'s camera rays.
+differ counted; brute within FRAME_MISMATCH_MAX); the instance level's box
+kernel (csrc/instbox.cu) bit-equal to its plain version, on the card and
+on the CPU, at (t)'s three instances and at the benchmark's 401-instance
+pool (``pool_scene``, 13 chunks), each also with every mesh sheared and
+scaled, timed beside the plain version with its byte bound
+(``instance_boxes_check``). The kernels line adds (t)'s launches to the
+atlas-1 instantiation's entry, an entry of K2.1 at (t)'s camera rays and
+one of the box kernel at the pool's tables.
 
 After (t), (u) engine: ``engine.Engine`` on (a)'s scene at 1920x1080,
 ``tracer="best"``, the reference's 80 ms frame watchdog armed: each frame
 turns instance 0 (``set_instance_transform``), moves the camera
 (``update_camera``), ``tick``s (instance upload, ``refresh_packed``),
 renders and ends the frame; counts from zero (one K2.2 launch a frame, no
-K2.1); frame ms (CUDA events around the whole frame), the host's issue,
+K2.1, one box launch a frame: the edit makes new tables); frame ms (CUDA events around the whole frame), the host's issue,
 tick ms; the last frame bit-equal to ``render_frame`` on a scene built
 afresh from the builder's state; a 16-row band of an animated frame's
 launch against its plain version; ticks on (c)'s 1,002,000 triangles with
@@ -153,7 +159,8 @@ version, the pick's ms through K2.1 and through ``trace_bvh``; the bench
 twin's default and ``--grads`` rows at 1920x1080 (JSON lines); the live
 viewer as a process on the card at 480x320 (five ``/frame`` PNGs decoded,
 X-Frame rising, ``/pick`` on the sphere, ``/material``, a frame after the
-edit). The kernels line adds (u)'s launches to the K2.2 and K2.1 entries.
+edit). The kernels line adds (u)'s launches to the K2.2 and K2.1 entries,
+and takes the box kernel's launches from (u).
 
 After 6, (v) sharded: the multi-device layer (``parallel/``) on
 ``torch.distributed``. (v1) ``render_sharded`` on (a) at 1920x1080, (v2)
@@ -1975,6 +1982,7 @@ def reset_counts() -> None:
     rf.finish_cuda.launches = 0
     rf.finish_cuda.variant_launches = {}
     tr.trace_cuda.launches = 0
+    tr.instance_boxes_cuda.launches = 0
     gr.gather_rows_cuda.launches = 0
     gr.scatter_rows_cuda.launches = 0
 
@@ -2486,6 +2494,7 @@ def phase_kernels(dev, results) -> None:
         *option_kernel_entries(results),
         imported_k21_entry(results),
         imported_finish_entry(results),
+        instance_boxes_entry(results),
         *twophase_kernel_entries(results),
         *split_kernel_entries(results),
         *diff_kernel_entries(results),
@@ -2597,6 +2606,98 @@ def imported_finish_entry(results) -> dict:
         "plain_device_ms": f["torch_tail_device_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"], "library_ms": None,
         "shape": f"{t['width']}x{t['height']}x{t['bounces']} bounces, atlas mode 1, post",
+    }
+
+
+def pool_scene(dev):
+    """The 401-instance pool of the benchmark's ``instances401`` cell
+    (``rtbench/configs/instances401.json``, its maps from seed 0): the
+    museum's meshes with the figure 399 times, 13 chunks of instances."""
+    import importlib
+    import json
+
+    from rtbench import port
+    from rtbench.cells import HERE
+
+    cfg = json.loads((HERE / "configs" / "instances401.json").read_text())
+    spec = importlib.import_module(f"rtbench.scenes.{cfg['scene']}").build(cfg, 0)
+    return port.builder(spec).build(device=dev)
+
+
+# the linear map applied to every instance's inverse rows in
+# ``instance_boxes_check``: each instance's mesh sheared and scaled by 0.01
+BOX_SHEAR = ((0.01, 0.006, 0.0), (0.0, 0.01, 0.0), (-0.008, 0.003, 0.01))
+
+
+def instance_boxes_check(kt) -> dict:
+    """The instance level's box kernel (csrc/instbox.cu,
+    ``instance_boxes_cuda``) on the tables ``kt``: against its plain
+    version (``instance_boxes_plain``, on the same card and on the CPU) bit
+    for bit on the tables' own instance rows (and equal to the boxes the
+    tables were built with) and on those rows with every instance's mesh
+    sheared and scaled (BOX_SHEAR); the kernel's call ms and device ms, the
+    plain version's ms on the card; its bound: the bytes it must move at
+    least (each instance's row and ranges, the distinct hyper boxes of its
+    meshes, the boxes written and the chunk step's reads of them), at
+    PEAK_BYTES."""
+    import torch
+
+    from clraytracer_tpu_torch.ops import trace as tr
+
+    n = kt.n_inst
+    shear = torch.tensor(BOX_SHEAR, dtype=torch.float64, device=kt.inst.device)
+    sheared = kt.inst.clone()
+    rows = sheared[:, 0:12].reshape(n, 3, 4)
+    rows[:, :, 0:3] = (rows[:, :, 0:3].double() @ shear).float()
+    sheared[:, 12:15] = (sheared[:, 12:15].double() @ shear).float()
+    bit_equal = {}
+    for tag, inst in (("rows", kt.inst), ("sheared", sheared)):
+        box, chunk = tr.instance_boxes_cuda(inst, kt.ranges, kt.hyper_box)
+        for where, dev in (("", inst.device), ("_cpu", "cpu")):
+            pbox, pchunk = tr.instance_boxes_plain(inst.to(dev), kt.ranges_host,
+                                                   kt.hyper_box.to(dev))
+            bit_equal[tag + where] = bool(torch.equal(box.to(dev), pbox)
+                                          and torch.equal(chunk.to(dev), pchunk))
+        if tag == "rows":
+            bit_equal["tables"] = bool(torch.equal(box, kt.inst_box)
+                                       and torch.equal(chunk, kt.chunk_box))
+    launch = lambda: tr.instance_boxes_cuda(kt.inst, kt.ranges, kt.hyper_box)
+    plain = lambda: tr.instance_boxes_plain(kt.inst, kt.ranges_host, kt.hyper_box)
+    hyper = {g for sc0, sc_n, _c0, _cn in set(kt.ranges_host)
+             for g in range(sc0 // 32, sc0 // 32 + -(-sc_n // 32))}
+    chunks = tr.chunk_count(n)
+    moved = {"rows": n * (17 + 4) * 4, "hyper_boxes": len(hyper) * 32,
+             "boxes_written": (n + chunks) * 32, "chunk_reads": n * 32 if chunks else 0}
+    bound_ms = sum(moved.values()) / PEAK_BYTES * 1e3
+    kdev = device_ms(launch)
+    return {"n_inst": n, "n_chunks": chunks, "bit_equal": bit_equal,
+            "kernel_ms": event_ms(launch, 20, 3)[0], "kernel_device_ms": kdev,
+            "plain_ms": event_ms(plain, 3, 1)[0], "bytes": moved, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound_device": bound_ms / kdev}
+
+
+def instance_boxes_entry(results) -> dict:
+    """The box kernel's kernels-line entry: its launches on (u)'s main path
+    (one a frame, as each tick's edit makes new tables), its figures at
+    the 401-instance pool's tables ((t)), bit-equal to its plain version
+    there and at (t)'s three instances."""
+    b = results["imported"]["instance_boxes"]
+    f = b["instances401"]
+    return {
+        "name": "instance boxes", "route": "cuda",
+        "source": "clraytracer_tpu_torch/csrc/instbox.cu", "entry": "clrt_instance_boxes",
+        "replaces": ("none: the TPU kernels have no instance level (every instance a "
+                     "ray, clraytracer_tpu/ops/trace_pallas.py _emit_traversal)"),
+        "launches": results["engine"]["launches"]["instance_boxes"],
+        "path": "(u) engine.Engine: a tables build a frame, after the tick's edit of instance 0",
+        "max_abs_err": (0.0 if all(all(c["bit_equal"].values()) for c in b.values())
+                        else None),
+        "tolerance": "bit-exact",
+        "ms": f["kernel_ms"], "device_ms": f["kernel_device_ms"], "plain_ms": f["plain_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"], "library_ms": None,
+        "shape": f"{f['n_inst']} instances, {f['n_chunks']} chunks (instances401's tables)",
+        "museum": {k: b["museum"][k] for k in ("n_inst", "kernel_ms", "kernel_device_ms",
+                                               "plain_ms", "bound_ms")},
     }
 
 
@@ -3169,7 +3270,8 @@ def phase_imported(dev, results) -> None:
         launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
                     "K2.2_variants": dict(rf.render_cuda.variant_launches),
                     "finish": rf.finish_cuda.launches,
-                    "finish_variants": dict(rf.finish_cuda.variant_launches)}
+                    "finish_variants": dict(rf.finish_cuda.variant_launches),
+                    "instance_boxes": tr.instance_boxes_cuda.launches}
         frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
         mode = rf.atlas_mode_of(scene)
         name = rf.variant(mode, False, False)
@@ -3207,6 +3309,7 @@ def phase_imported(dev, results) -> None:
         finish = finish_figures(scene, ft, out3, mode, (w, h, ("strip", trows, -(-w // 128),
                                                               -(-h // trows))))
         del out, out3
+        boxes = {"museum": instance_boxes_check(kt)}
         prof = device_profile(lambda: render_frame(scene, frame, cfg), 5, ms)
         img = render_frame(scene, frame, cfg)
         finite = bool(torch.isfinite(img).all())
@@ -3273,6 +3376,7 @@ def phase_imported(dev, results) -> None:
             t_ms, _ = event_ms(lambda: keep.append(fn(scene, sub[:3], sub[3:])), 1, 1)
             tracers[tname] = {"ms": t_ms, **compare_hits(ref, keep.pop())}
         torch.cuda.synchronize()
+    boxes["instances401"] = instance_boxes_check(tr.kernel_tables(pool_scene(dev)))
     line = {
         "phase": "imported", "config": "t", "scene": "museum-class OBJ/.clm/.clmz",
         "files": paths["_stats"], "triangles": tris, "materials": int(scene.materials.count),
@@ -3287,6 +3391,7 @@ def phase_imported(dev, results) -> None:
         "kernel_bound_ms": kb["bound_ms"], "kernel_bound_by": kb["bound_by"],
         "kernel_bound": kb, "walk_split": split, "k21": k21,
         "finish_ms": finish["torch_tail"]["finish_ms"], "finish": finish, "launches": launches, "frames": frames,
+        "instance_boxes": boxes,
         "band_check": {"frame": f"{w}x{CHECK_BAND_ROWS} band (rows {y0}-"
                        f"{y0 + CHECK_BAND_ROWS - 1}) of {w}x{h}", "band_hits": band_hits,
                        **band_check},
@@ -3309,6 +3414,8 @@ def phase_imported(dev, results) -> None:
         and launches["K2.2"] == frames and launches["K2.2_variants"] == {name: frames}
         and launches["finish_variants"] == {rf.finish_variant(mode, False, True): frames}
         and all(finish["bit_equal"].values())
+        and all(all(b["bit_equal"].values()) for b in boxes.values())
+        and boxes["instances401"]["n_chunks"] > 0 and launches["instance_boxes"] == 0
         and launches["K2.1"] == 0 and wave_launches == (0, 0)
         and tracers["brute"]["rays_differing"] <= FRAME_MISMATCH_MAX
         and k21["check"]["ok"] and q_launches == {"K2.1": FRAMES + WARMUP, "K2.2": 0}
@@ -3596,7 +3703,8 @@ def phase_engine(dev, results) -> None:
         frame_ms.append(a.elapsed_time(b))
     frames = WARMUP + FRAMES
     launches = {"K2.2": rf.render_cuda.launches, "K2.1": tr.trace_cuda.launches,
-                "K2.2_variants": dict(rf.render_cuda.variant_launches)}
+                "K2.2_variants": dict(rf.render_cuda.variant_launches),
+                "instance_boxes": tr.instance_boxes_cuda.launches}
     steady = sorted(frame_ms[WARMUP:])
     ticks = sorted(tick_ms[WARMUP:])
     # ---- the host's issue of a frame: the watchdog off (it waits for the
@@ -3658,6 +3766,7 @@ def phase_engine(dev, results) -> None:
         finite and bit_equal and band_check["ok"] and band_hits > 0
         and launches["K2.2"] == frames and launches["K2.1"] == 0
         and launches["K2.2_variants"] == {"default": frames}
+        and launches["instance_boxes"] == frames
         and large["geometry_tables_reused"] and large["new_inst_rows"] and large["finite"]
         and picks["launches"]["K2.1"] == 1 + PICK_CALLS and picks["launches"]["K2.2"] == 0
         and picks["hits"] > 0 and picks["rays_differing_from_brute"] <= FRAME_MISMATCH_MAX

@@ -385,13 +385,15 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
 
     // ---- winning instance: world normal, object-space ray, next origin
     HitAttrs a;
-    const float* m = s.inst;
     float n[3] = {0.0f, 0.0f, 0.0f}, md[3] = {0.0f, 0.0f, 0.0f};
     float new_o[3] = {0.0f, 0.0f, 0.0f};
+    // the material id (an f32-exact int), taken before the shadow walk so
+    // that the instance row's pointer is not held through it
+    float mat_idf = 0.0f;
     const float t = h.t;
     if (alive) {
       a = interpolate(s, h, cnt);
-      m = s.inst + h.inst * 17;
+      const float* m = s.inst + h.inst * 17;
       const float nw[3] = {
           a.nx * m[0] + a.ny * m[4] + a.nz * m[8],
           a.nx * m[1] + a.ny * m[5] + a.nz * m[9],
@@ -406,6 +408,7 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
       // the reference reuses the object-space hit point as the next world
       // origin (kernel_main.cl:246-253); it is also the shadow ray's
       for (int c = 0; c < 3; ++c) new_o[c] = (mo[c] + md[c] * t) + n[c] * (float)0.01;
+      mat_idf = m[16] + a.mat;
     }
 
     // ---- sun shadow on bounce 0: every lane walks, the unshaded ones as
@@ -432,8 +435,7 @@ __device__ __forceinline__ void render_frame(const SceneTables& s,
     }
 
     if (alive) {
-      // ---- material row, indexed directly (mat id is an f32-exact int)
-      const float mat_idf = m[16] + a.mat;
+      // ---- material row, indexed directly
       float alb[3] = {0.0f, 0.0f, 0.0f}, ahi = 0.0f, alo = 0.0f, aw = 0.0f, ah = 0.0f;
       if (ATLAS != 2 && mat_idf >= 0.0f && mat_idf < (float)p.n_mat) {
         const int mi = (int)mat_idf;

@@ -39,6 +39,14 @@
 //    a per-hyper order would walk far supers before near ones); an
 //    instance of more is first tested as one box, the union of its hyper
 //    boxes, then walked hyper by hyper;
+//  * above the hierarchy of each instance sits an instance level, walked
+//    in world space (n_inst > 1; the boxes of instbox.cu): one step
+//    tests the warp's world rays against 32 instances' world boxes (above
+//    32 instances, first against the chunk boxes, each the union of 32
+//    instances' boxes, then against the boxes of each chunk popped), and
+//    only the instances that a ray passes are popped, nearest first, their
+//    rays moved to object space and walked. A lone instance is walked at
+//    once: its own hyper test culls as well as a world box would;
 //  * survivors are visited in key order (warp min-reduce over
 //    order-preserving integer keys), and a node is skipped when no ray of
 //    its mask still has best t >= its key (occlusion); once no live ray of
@@ -71,7 +79,17 @@
 //    every box that could hold an equal-t winner of lower index;
 //  * padding supers (inverted-empty boxes that PASS the slab test) are
 //    masked by count, never by box value; padding triangles have all-zero
-//    planes, give NaN and never accept.
+//    planes, give NaN and never accept;
+//  * the instance level skips an instance for a warp only where no ray of
+//    the warp could pass the instance's object-space root test: a world
+//    box holds the instance's root box mapped to world space, and the
+//    world test grows it by a margin (alpha + beta * |o|_inf, instbox.cu)
+//    over the float32 error of the ray's transform and of both slab tests;
+//    it ignores NaN (an axis-parallel ray starting on a face plane passes
+//    that axis), and passes a box at tnear <= best t. An affine map keeps
+//    the ray parameter, so best t compares across both spaces. Which
+//    instances a warp enters, and in what order, changes the hit no more
+//    than the order of clusters does (the accept rule above).
 //
 // Any-hit mode. A shadow ray needs one accepted hit (t > 0, u >= 0, v >= 0,
 // u + v <= 1, t below its starting CLRT_BIG), not the nearest: a nearest
@@ -79,8 +97,8 @@
 // its first accept. Here a lane that accepts is resolved: its best t drops
 // to -CLRT_BIG, so every later box and leaf culls it as it culls a dead
 // lane (the occlusion masks of pop and leaves), and its leaf loop ends.
-// When no lane of the warp is open, the levels end through pop and the
-// instance loop stops. Until its first accept a lane has best t =
+// When no lane of the warp is open, the levels end through pop, the
+// instance level's too. Until its first accept a lane has best t =
 // CLRT_BIG in both modes, so in both it reaches every leaf whose boxes pass
 // it at that t, whatever the other lanes do and in whatever order, and tests
 // it with the same arithmetic: it accepts in one mode if and only if in the
@@ -107,6 +125,15 @@
 #define CLRT_GROUP 32  // clusters per super, supers per hyper
 #define CLRT_FULL 0xffffffffu
 #define CLRT_NOKEY 0xffffffffu  // no survivor (above every float's key)
+#define CLRT_INF __int_as_float(0x7f800000)
+// instances a chunk box holds (ops/trace.py INSTANCE_CHUNK): scenes of more
+// take the chunk step first, and chunk c holds instances CLRT_ICHUNK c ..
+// CLRT_ICHUNK c + CLRT_ICHUNK - 1 (instbox.cu builds them)
+#define CLRT_ICHUNK 32
+static_assert(CLRT_ICHUNK <= 32, "a chunk's instance boxes are one child test");
+// instances walked in index order by every live lane, without the instance
+// level
+#define CLRT_INST_LOOP 1
 // hyper groups of an instance held in registers at once, 32 per chunk;
 // instances with more are walked in batches of CLRT_HQ * 32
 #define CLRT_HQ 2
@@ -124,6 +151,11 @@ struct SceneTables {
   const float* planes;       // [C * 32, 12]: N xyzw | U xyzw | V xyzw
   const float* attrs;        // [C * 32, 16]: n0 n1 n2 | uv0 uv1 uv2 | mat_local
   int n_inst;
+  // world boxes of the instance level (instbox.cu): min xyz | max x, max yz
+  // | alpha | beta, the world test's margin alpha + beta * |o|_inf
+  const float* inst_box;   // [I, 8]
+  const float* chunk_box;  // [n_chunks, 8]: instances CLRT_ICHUNK c, ...
+  int n_chunks;            // 0 where n_inst <= CLRT_ICHUNK
 };
 
 struct Hit {
@@ -132,27 +164,40 @@ struct Hit {
 };
 
 // Work a launch did. The first four count what the rays' own walks needed,
-// for the operation bound: (ray, box) slab tests, (ray, triangle) plane
-// tests (the real, non-padding slots of each cluster a ray reached),
-// per-instance ray transforms of live rays, and interpolated hits. The last
-// two count the warps' steps: child tests of a node (32 boxes against the
-// warp's rays) and clusters staged into shared memory. Every walk counts,
-// given counters or not: the kernels add them out only where given. A
-// runtime flag around the triangle count's ballot took render.cu's GI
-// instantiation from 128 registers and 18 bytes spilled to 96 and 178
-// (PERF.md).
+// for the operation bound: (ray, box) slab tests (world boxes of the
+// instance level included), (ray, triangle) plane tests (the real,
+// non-padding slots of each cluster a ray reached), ray transforms (a live
+// ray moved into an instance whose world box it passes), and interpolated
+// hits. The last two count the warps' steps: child tests of a node (32
+// boxes against the warp's rays) and clusters staged into shared memory.
+// Every walk counts, given counters or not: the kernels add them out only
+// where given, in 64 bits. A lane's counts are 32-bit (lane 0 holds its
+// warp's, which stay far below 2^32 in a launch): 64-bit ones held 6 more
+// registers through the walk, which spilled in the shadow instantiations
+// (PERF.md). A runtime flag around the triangle count's ballot took
+// render.cu's GI instantiation from 128 registers and 18 bytes spilled to
+// 96 and 178 (PERF.md).
 struct TestCount {
-  unsigned long long boxes, tris, xforms, hits, steps, staged;
+  unsigned int boxes, tris, xforms, hits, steps, staged;
 };
 #define CLRT_COUNTERS 6
 
-// A warp's shared memory: its object-space rays, read by the lanes that
-// test them for other lanes, the boxes of the node it tests children
-// outer, read by every lane, and two leaf slots.
+// A warp's shared memory: its object-space rays (each lane reads its own,
+// and the lanes that test them for other lanes read those), its world
+// rays, the boxes of the node it tests with children outer, read by every
+// lane, two leaf slots, and the instance level's state, which the
+// hierarchy's walk below it leaves alone (lane k's key and mask of the
+// instance and of the chunk in its slot, each lane reading and writing its
+// own; the level's first instance and chunk): no register carries the
+// level or the ray through the walk.
 struct WarpStage {
   float4 ray[32][3];                // (ox, oy, oz, best t) | 1 / d | (dx, dy, dz, 0)
+  float4 wray[32][3];               // world: (ox, oy, oz, best t) | 1 / d, |o|_inf | d
   float4 box[32][2];                // child k's lo | hi
   float4 tri[2][CLRT_CLUSTER * 3];  // one cluster's planes: N | U | V per slot
+  uint32_t ikey[32], imask[32];     // instance base + k
+  uint32_t ckey[32], cmask[32];     // chunk cbase + k
+  int base, cbase;
 };
 
 // jnp.minimum / jnp.maximum: NaN in either operand gives NaN
@@ -162,10 +207,6 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
-
-struct ObjRay {
-  float ox, oy, oz, dx, dy, dz, idx, idy, idz;
-};
 
 // nan_min / nan_max as one instruction each (min.NaN / max.NaN, sm_80 and
 // later): NaN if either operand is NaN. They may differ from nan_min /
@@ -210,6 +251,33 @@ __device__ __forceinline__ float float_of(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+// One axis of the world test: the slab of [lo, hi] on the ray's axis,
+// intersected into [tn, tf]; an axis whose slab is NaN (the ray parallel to
+// it, its origin on a face plane) is left open
+__device__ __forceinline__ void world_axis(float lo, float hi, float o, float inv,
+                                           float& tn, float& tf) {
+  const float t0 = (lo - o) * inv, t1 = (hi - o) * inv;
+  if (t0 == t0 && t1 == t1) {
+    tn = fmaxf(tn, fminf(t0, t1));
+    tf = fminf(tf, fmaxf(t0, t1));
+  }
+}
+
+// A world box (the layout of the other levels' boxes, the margin's alpha
+// and beta in the pad) against a world ray a = (o, best t), b = (1 / d,
+// |o|_inf): the box grown by alpha + beta * |o|_inf, NaN-ignoring.
+__device__ __forceinline__ bool world_slab(const float4& lo, const float4& hi,
+                                           const float4& a, const float4& b,
+                                           float& tnear) {
+  const float mu = hi.z + hi.w * b.w;
+  float tn = -CLRT_INF, tf = CLRT_INF;
+  world_axis(lo.x - mu, lo.w + mu, a.x, b.x, tn, tf);
+  world_axis(lo.y - mu, hi.x + mu, a.y, b.y, tn, tf);
+  world_axis(lo.z - mu, hi.y + mu, a.z, b.z, tn, tf);
+  tnear = tn;
+  return (tn <= tf) && (tf > 0.0f) && (tn <= a.w);
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -231,7 +299,6 @@ struct Walk {
   WarpStage& ws;
   Hit& h;
   TestCount& cnt;
-  ObjRay r;
   int lane, inst;
   bool alive;
 
@@ -294,12 +361,13 @@ struct Walk {
       ws.box[lane][1] = hi;
       __syncwarp();
       const bool in = (pmask >> lane) & 1u;
+      const float4 ro = ws.ray[lane][0], ri = ws.ray[lane][1];
       for (int j = 0; j < n; ++j) {
         const float4 blo = ws.box[j][0];
         const float4 bhi = ws.box[j][1];
         float tn;
         const bool pass =
-            slab(blo, bhi, r.ox, r.oy, r.oz, r.idx, r.idy, r.idz, h.t, tn) && in;
+            slab(blo, bhi, ro.x, ro.y, ro.z, ri.x, ri.y, ri.z, h.t, tn) && in;
         const uint32_t mj = __ballot_sync(CLRT_FULL, pass);
         const uint32_t kj = __reduce_min_sync(CLRT_FULL, pass ? key_of(tn) : CLRT_NOKEY);
         if (lane == j) {
@@ -308,6 +376,62 @@ struct Walk {
         }
       }
     }
+  }
+
+  // The instance level's child test: world boxes base .. base + n - 1
+  // (lane k holds box k; instance or chunk boxes) against the world rays
+  // of `pmask` in ws.wray, whose best t the caller stored. Rays outer where
+  // fewer rays than boxes, else each lane its own ray against every box.
+  __device__ __forceinline__ void test_world(const float* table, int base, int n,
+                                             uint32_t pmask, uint32_t* keys,
+                                             uint32_t* masks) {
+    const bool valid = lane < n;
+    float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+    if (valid) {
+      const float4* p = reinterpret_cast<const float4*>(table) + (size_t)(base + lane) * 2;
+      lo = __ldg(p);
+      hi = __ldg(p + 1);
+    }
+    const int np = __popc(pmask);
+    if (lane == 0) {
+      cnt.boxes += (unsigned long long)(np * n);
+      ++cnt.steps;
+    }
+    uint32_t cmask = 0u, ckey = CLRT_NOKEY;
+    __syncwarp();  // every lane's world ray and best t are stored
+    if (np <= n) {
+      uint32_t m = pmask;
+      float kmin = CLRT_BIG;
+      while (m) {
+        const int q = __ffs(m) - 1;
+        m &= m - 1u;
+        float tn;
+        if (world_slab(lo, hi, ws.wray[q][0], ws.wray[q][1], tn)) {
+          cmask |= 1u << q;
+          kmin = fminf(kmin, tn);
+        }
+      }
+      if (!valid) cmask = 0u;
+      if (cmask) ckey = key_of(kmin);
+    } else {  // children outer: each lane tests its own world ray against box j
+      ws.box[lane][0] = lo;
+      ws.box[lane][1] = hi;
+      __syncwarp();
+      const float4 a = ws.wray[lane][0], b = ws.wray[lane][1];
+      const bool in = (pmask >> lane) & 1u;
+      for (int j = 0; j < n; ++j) {
+        float tn;
+        const bool pass = world_slab(ws.box[j][0], ws.box[j][1], a, b, tn) && in;
+        const uint32_t mj = __ballot_sync(CLRT_FULL, pass);
+        const uint32_t kj = __reduce_min_sync(CLRT_FULL, pass ? key_of(tn) : CLRT_NOKEY);
+        if (lane == j) {
+          cmask = mj;
+          ckey = kj;
+        }
+      }
+    }
+    keys[lane] = ckey;
+    masks[lane] = cmask;
   }
 
   // Pops the surviving child of least key (slot q * 32 + lane of `key`);
@@ -353,6 +477,28 @@ struct Walk {
     }
   }
 
+  // pop() over a level whose keys and masks are in shared memory (lane k
+  // holding slot k; each lane touches only its own).
+  __device__ __forceinline__ int pop_level(uint32_t* key, const uint32_t* mask,
+                                           uint32_t& m) {
+    for (;;) {
+      const uint32_t lkey = key[lane];
+      const uint32_t kmin = __reduce_min_sync(CLRT_FULL, lkey);
+      if (kmin == CLRT_NOKEY) return -1;
+      const int win = __ffs(__ballot_sync(CLRT_FULL, lkey == kmin)) - 1;
+      m = __shfl_sync(CLRT_FULL, mask[lane], win);
+      if (lane == win) key[lane] = CLRT_NOKEY;
+      const float kf = float_of(kmin);
+      const uint32_t open = __ballot_sync(CLRT_FULL, alive && h.t >= kf);
+      if (open == 0u) {
+        key[lane] = CLRT_NOKEY;
+        return -1;
+      }
+      m &= open;
+      if (m) return win;
+    }
+  }
+
   // Copies cluster c's 32 triangle planes into leaf slot `slot`.
   __device__ __forceinline__ void stage(int c, int slot) {
     __syncwarp();  // every lane is done reading the slot
@@ -371,19 +517,20 @@ struct Walk {
   // skipped, so that no lane takes the division's slow path on them.
   __device__ __forceinline__ void test_leaf(int c, int slot) {
     const float4* tri = ws.tri[slot];
+    const float4 ro = ws.ray[lane][0], rd = ws.ray[lane][2];
 #pragma unroll 4
     for (int k = 0; k < CLRT_CLUSTER; ++k) {
       const float4 N = tri[3 * k];
       const float4 U = tri[3 * k + 1];
       const float4 V = tri[3 * k + 2];
       if (N.x == 0.0f && N.y == 0.0f && N.z == 0.0f) continue;
-      float den = r.dx * N.x + r.dy * N.y + r.dz * N.z;
-      float b_n = r.ox * N.x + r.oy * N.y + r.oz * N.z + N.w;
+      float den = rd.x * N.x + rd.y * N.y + rd.z * N.z;
+      float b_n = ro.x * N.x + ro.y * N.y + ro.z * N.z + N.w;
       float t = b_n * (-1.0f / den);
-      float u = (r.ox * U.x + r.oy * U.y + r.oz * U.z + U.w) +
-                t * (r.dx * U.x + r.dy * U.y + r.dz * U.z);
-      float v = (r.ox * V.x + r.oy * V.y + r.oz * V.z + V.w) +
-                t * (r.dx * V.x + r.dy * V.y + r.dz * V.z);
+      float u = (ro.x * U.x + ro.y * U.y + ro.z * U.z + U.w) +
+                t * (rd.x * U.x + rd.y * U.y + rd.z * U.z);
+      float v = (ro.x * V.x + ro.y * V.y + ro.z * V.z + V.w) +
+                t * (rd.x * V.x + rd.y * V.y + rd.z * V.z);
       if constexpr (ANY) {
         // an open lane's h.t is CLRT_BIG; a resolved or dead one (h.t =
         // -CLRT_BIG) accepts nothing
@@ -578,8 +725,9 @@ struct Walk {
     }
     float tn;
     const bool in = (live >> lane) & 1u;
+    const float4 ro = ws.ray[lane][0], ri = ws.ray[lane][1];
     return __ballot_sync(
-        CLRT_FULL, slab(lo, hi, r.ox, r.oy, r.oz, r.idx, r.idy, r.idz, h.t, tn) && in);
+        CLRT_FULL, slab(lo, hi, ro.x, ro.y, ro.z, ri.x, ri.y, ri.z, h.t, tn) && in);
   }
 
   // Super sj (local index) of an instance whose clusters start at cl0
@@ -590,6 +738,27 @@ struct Walk {
     test_children(s.cluster_box, cl0 + c_first,
                   max(0, min(CLRT_GROUP, cl_n - c_first)), m, cm[0], ck[0]);
     leaves(cl0 + c_first, ck, cm);
+  }
+
+  // Moves every lane's world ray into instance i (the leaf test reads every
+  // lane's ray) and walks the instance with the rays of `m`, which count
+  // the transform.
+  __device__ __forceinline__ void enter(int i, uint32_t m, float ox_w, float oy_w,
+                                        float oz_w, float dx_w, float dy_w, float dz_w) {
+    const float* mi = s.inst + i * 17;
+    if ((m >> lane) & 1u) ++cnt.xforms;
+    const float ox = ox_w * mi[0] + oy_w * mi[4] + oz_w * mi[8] + mi[12];
+    const float oy = ox_w * mi[1] + oy_w * mi[5] + oz_w * mi[9] + mi[13];
+    const float oz = ox_w * mi[2] + oy_w * mi[6] + oz_w * mi[10] + mi[14];
+    const float dx = dx_w * mi[0] + dy_w * mi[4] + dz_w * mi[8];
+    const float dy = dx_w * mi[1] + dy_w * mi[5] + dz_w * mi[9];
+    const float dz = dx_w * mi[2] + dy_w * mi[6] + dz_w * mi[10];
+    inst = i;
+    __syncwarp();  // every lane is done reading the last instance's rays
+    ws.ray[lane][0] = make_float4(ox, oy, oz, h.t);
+    ws.ray[lane][1] = make_float4(1.0f / dx, 1.0f / dy, 1.0f / dz, 0.0f);
+    ws.ray[lane][2] = make_float4(dx, dy, dz, 0.0f);
+    instance(m);
   }
 
   // One instance's hierarchy, the warp's live rays `live`.
@@ -665,39 +834,96 @@ struct Walk {
 // cluster slot, instance); the others (h.t = -CLRT_BIG) pass no box.
 // ANY (any-hit mode): an alive lane leaves with h.t = -CLRT_BIG if it
 // accepted a hit, else CLRT_BIG (h.t < CLRT_BIG as in nearest mode); u, v,
-// slot and instance stay as they came. The instances after the one where
-// the warp's last open lane resolved are not walked.
+// slot and instance stay as they came. Once no lane is open the walk ends,
+// at whatever level it is.
+//
+// A lone instance (CLRT_INST_LOOP) is walked at once with every live lane
+// (its own root test culls as a world box would). Above, the instance
+// level: the warp's world rays against the world boxes of instances base ..
+// base + 31 (lane k instance base + k), popped in key order; above
+// CLRT_ICHUNK instances the chunks of CLRT_ICHUNK instances (lane c chunk
+// cbase + c) come first, each chunk popped tested against its instances'
+// boxes. More than 32 chunks are taken 32 (a warp's lanes) at a time, in
+// index order.
 template <bool ANY = false>
 __device__ __forceinline__ void traverse(const SceneTables& s, WarpStage& ws,
                                          bool alive, float ox_w, float oy_w,
                                          float oz_w, float dx_w, float dy_w,
                                          float dz_w, Hit& h, TestCount& cnt) {
-  uint32_t live = __ballot_sync(CLRT_FULL, alive);
-  if (live == 0u) return;
-  Walk<ANY> w{s, ws, h, cnt, {}, (int)(threadIdx.x & 31), 0, alive};
-  for (int inst = 0; inst < s.n_inst; ++inst) {
-    if constexpr (ANY) {
-      live = __ballot_sync(CLRT_FULL, alive && h.t >= CLRT_BIG);  // open lanes
-      if (live == 0u) break;
+  if (!__any_sync(CLRT_FULL, alive)) return;
+  Walk<ANY> w{s, ws, h, cnt, (int)(threadIdx.x & 31), 0, alive};
+  const int lane = w.lane;
+  const bool plain = s.n_inst <= CLRT_INST_LOOP;
+  __syncwarp();  // every lane is done reading the last walk's world rays and level
+  ws.wray[lane][0] = make_float4(ox_w, oy_w, oz_w, h.t);
+  ws.wray[lane][2] = make_float4(dx_w, dy_w, dz_w, 0.0f);
+  ws.ikey[lane] = CLRT_NOKEY;
+  ws.ckey[lane] = CLRT_NOKEY;
+  // plain: base 0, cbase the next instance; else base the instances' first
+  // (-1 before the first step), cbase the chunks' first (-32 before)
+  ws.base = plain ? 0 : -1;
+  ws.cbase = plain ? 0 : -32;
+  if (!plain) {
+    ws.wray[lane][1] = make_float4(1.0f / dx_w, 1.0f / dy_w, 1.0f / dz_w,
+                                   fmaxf(fmaxf(fabsf(ox_w), fabsf(oy_w)), fabsf(oz_w)));
+  }
+  // Nothing but shared memory carries the level from one instance's walk
+  // to the next, so that no register is held through the walk.
+  for (;;) {
+    uint32_t m;
+    int j;
+    if (plain) {
+      // every instance in index order, with every live lane (any-hit: the
+      // open ones)
+      j = ws.cbase;
+      m = __ballot_sync(CLRT_FULL, alive && (!ANY || h.t >= CLRT_BIG));
+      if (j >= s.n_inst || m == 0u) return;
+      __syncwarp();  // every lane has read cbase
+      ws.cbase = j + 1;
+    } else {
+      j = w.pop_level(ws.ikey, ws.imask, m);
+      while (j < 0) {
+        // this level's instances are done: the next world step, over the
+        // instance boxes of all (up to CLRT_ICHUNK instances, once) or of
+        // the next chunk a ray passes, or over the next 32 chunks' boxes
+        const float* table = s.inst_box;
+        int first, count;
+        uint32_t mask;
+        bool chunks = false;
+        if (s.n_inst <= CLRT_ICHUNK) {
+          if (ws.base >= 0) return;
+          first = 0;
+          count = s.n_inst;
+          mask = __ballot_sync(CLRT_FULL, alive);
+        } else {
+          const int c = w.pop_level(ws.ckey, ws.cmask, mask);
+          if (c >= 0) {
+            first = (ws.cbase + c) * CLRT_ICHUNK;
+            count = min(CLRT_ICHUNK, s.n_inst - first);
+          } else {
+            // the live lanes (any-hit: the open ones) against 32 more chunks
+            first = ws.cbase + 32;
+            mask = __ballot_sync(CLRT_FULL, alive && (!ANY || h.t >= CLRT_BIG));
+            if (first >= s.n_chunks || mask == 0u) return;
+            chunks = true;
+            table = s.chunk_box;
+            count = min(32, s.n_chunks - first);
+          }
+        }
+        __syncwarp();  // every lane is done reading the world rays, base and cbase
+        if (chunks) {
+          ws.cbase = first;
+        } else {
+          ws.base = first;
+        }
+        ws.wray[lane][0].w = h.t;  // test_world syncs before it reads
+        w.test_world(table, first, count, mask, chunks ? ws.ckey : ws.ikey,
+                     chunks ? ws.cmask : ws.imask);
+        j = w.pop_level(ws.ikey, ws.imask, m);
+      }
     }
-    const float* m = s.inst + inst * 17;
-    if (ANY ? ((live >> w.lane) & 1u) != 0u : alive) ++cnt.xforms;
-    ObjRay& r = w.r;
-    r.ox = ox_w * m[0] + oy_w * m[4] + oz_w * m[8] + m[12];
-    r.oy = ox_w * m[1] + oy_w * m[5] + oz_w * m[9] + m[13];
-    r.oz = ox_w * m[2] + oy_w * m[6] + oz_w * m[10] + m[14];
-    r.dx = dx_w * m[0] + dy_w * m[4] + dz_w * m[8];
-    r.dy = dx_w * m[1] + dy_w * m[5] + dz_w * m[9];
-    r.dz = dx_w * m[2] + dy_w * m[6] + dz_w * m[10];
-    r.idx = 1.0f / r.dx;
-    r.idy = 1.0f / r.dy;
-    r.idz = 1.0f / r.dz;
-    w.inst = inst;
-    __syncwarp();  // every lane is done reading the last instance's rays
-    ws.ray[w.lane][0] = make_float4(r.ox, r.oy, r.oz, h.t);
-    ws.ray[w.lane][1] = make_float4(r.idx, r.idy, r.idz, 0.0f);
-    ws.ray[w.lane][2] = make_float4(r.dx, r.dy, r.dz, 0.0f);
-    w.instance(live);
+    const float4 o = ws.wray[lane][0], d = ws.wray[lane][2];
+    w.enter(ws.base + j, m, o.x, o.y, o.z, d.x, d.y, d.z);
   }
 }
 

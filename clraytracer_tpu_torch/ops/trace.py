@@ -13,13 +13,17 @@ version.
 
 Both versions read ``KernelTables``: the scene's cluster tables re-laid
 once per cluster and packed tables into per-slot rows ([S, 12] planes, [S, 16]
-attributes) and one AABB per row ([N, 8]).
+attributes) and one AABB per row ([N, 8]), and the world boxes of the
+kernels' instance level (``instance_boxes``: on the card one launch of
+csrc/instbox.cu, ``instance_boxes_cuda``; elsewhere its plain version,
+``instance_boxes_plain``, bit for bit), built with the instance rows.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -29,6 +33,10 @@ from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
 from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
 BIG = 1e30  # rounds to the f32 miss sentinel of the kernels
+#: instances a chunk box holds (the instance level's upper step, above
+#: this many instances): csrc/traverse.cuh CLRT_ICHUNK, which the kernels
+#: index the chunk boxes by
+INSTANCE_CHUNK = 32
 #: the kernels' optional int64 counters (csrc/traverse.cuh TestCount): work
 #: the rays' own walks needed (box tests, triangle tests of real, non-padding
 #: slots, per-instance ray transforms, interpolated hits), then the warps'
@@ -69,22 +77,33 @@ class KernelTables:
     attrs: torch.Tensor  # [C*32, 16] f32: n0 n1 n2 | uv0 uv1 uv2 | mat
     tri_gid: torch.Tensor  # [C*32] i64: slot → arena triangle index
     ranges_host: tuple[tuple[int, int, int, int], ...]
+    # the instance level's world boxes (``instance_boxes``), from ``inst``
+    inst_box: torch.Tensor  # [I, 8] f32: min xyz | max xyz | alpha | beta
+    chunk_box: torch.Tensor  # [n_chunks, 8] f32: 32 instances' union each
 
     @property
     def n_inst(self) -> int:
         return len(self.ranges_host)
 
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_box.shape[0]
+
     def as_c(self):
         from clraytracer_tpu_torch.runtime.kernels import SceneTablesC
 
-        for t in (self.hyper_box, self.super_box, self.cluster_box, self.planes):
+        for t in (self.hyper_box, self.super_box, self.cluster_box, self.planes,
+                  self.inst_box, self.chunk_box):
             if t.data_ptr() % 16:
                 raise ValueError("box and plane tables must be 16-byte aligned")
+        if self.n_chunks != chunk_count(self.n_inst):
+            raise ValueError("chunk boxes must number chunk_count(n_inst)")
         return SceneTablesC(
             self.inst.data_ptr(), self.ranges.data_ptr(),
             self.hyper_box.data_ptr(), self.super_box.data_ptr(),
             self.cluster_box.data_ptr(), self.planes.data_ptr(),
-            self.attrs.data_ptr(), self.n_inst,
+            self.attrs.data_ptr(), self.n_inst, self.inst_box.data_ptr(),
+            self.chunk_box.data_ptr(), self.n_chunks,
         )
 
 
@@ -151,14 +170,176 @@ def kernel_tables(scene: Scene) -> KernelTables:
         return cached[2]
     with ScopeTimer("tables.kernel", log=False):
         ranges_host, ranges = _ranges(cl, mesh_index)
+        geo = _geometry(cl)
+        inst = pk.inst_rows.float().contiguous()
+        inst_box, chunk_box = instance_boxes(inst, ranges, ranges_host, geo["hyper_box"])
         kt = KernelTables(
-            inst=pk.inst_rows.float().contiguous(),
+            inst=inst,
             ranges=ranges,
             ranges_host=ranges_host,
-            **_geometry(cl),
+            inst_box=inst_box,
+            chunk_box=chunk_box,
+            **geo,
         )
     pk.__dict__["_kernel_tables"] = (cl, mesh_index, kt)
     return kt
+
+
+# ---------------------------------------------------------------------------
+# the instance level's world boxes
+# ---------------------------------------------------------------------------
+
+#: the margin's factor times float32's unit roundoff, 64 * 2**-24
+#: (csrc/instbox.cu CLRT_BOX_K * CLRT_EPS32)
+_BOX_MARGIN = 2.0**-18
+
+
+def chunk_count(n_inst: int) -> int:
+    """Chunk boxes of the instance level: none up to INSTANCE_CHUNK
+    instances, one per INSTANCE_CHUNK above."""
+    return 0 if n_inst <= INSTANCE_CHUNK else -(-n_inst // INSTANCE_CHUNK)
+
+
+def _round_down(x: torch.Tensor) -> torch.Tensor:
+    """f64 → the largest f32 at or below it (``__double2float_rd``)."""
+    f = x.float()
+    return torch.where(f.double() > x, torch.nextafter(f, torch.full_like(f, -math.inf)), f)
+
+
+def _round_up(x: torch.Tensor) -> torch.Tensor:
+    """f64 → the least f32 at or above it (``__double2float_ru``)."""
+    f = x.float()
+    return torch.where(f.double() < x, torch.nextafter(f, torch.full_like(f, math.inf)), f)
+
+
+def instance_boxes_plain(
+    inst: torch.Tensor,  # [I, 17] f32: inverse transform | material_start
+    ranges_host: tuple[tuple[int, int, int, int], ...],
+    hyper_box: torch.Tensor,  # [H, 8] f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of csrc/instbox.cu, bit for bit: per instance its
+    mesh's root box (the union of its hyper boxes) mapped to world space
+    by the inverse of its stored inverse rows, in f64 (cofactors; centre
+    and half extent), rounded outwards to f32, with the walk's margin
+    alpha | beta; then the union of each chunk of INSTANCE_CHUNK boxes →
+    (inst_box [I, 8], chunk_box [chunk_count(I), 8]). A singular or
+    non-finite transform gives an unbounded box, an instance without
+    triangles one at +inf on every axis."""
+    n = len(ranges_host)
+    dev = inst.device
+    inf = math.inf
+    # each distinct mesh's root box once: the union of its hyper boxes
+    first, roots, which = {}, [], []
+    for sc0, sc_n, _cl0, _cl_n in ranges_host:
+        k = first.setdefault((sc0, sc_n), len(roots))
+        if k == len(roots):
+            hb = hyper_box[sc0 // 32:sc0 // 32 + -(-sc_n // 32)]
+            roots.append(torch.cat([hb[:, 0:3].amin(dim=0), hb[:, 3:6].amax(dim=0)])
+                         if sc_n else torch.full((6,), inf, device=dev))
+        which.append(k)
+    root = torch.stack(roots)[torch.tensor(which, device=dev)].double()
+    empty = torch.isinf(root[:, 0]) & (root[:, 0] > 0)
+    a = [[inst[:, 4 * r + c].double() for c in range(3)] for r in range(3)]
+    t = [inst[:, 12 + c].double() for c in range(3)]
+    c00 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
+    c01 = a[1][2] * a[2][0] - a[1][0] * a[2][2]
+    c02 = a[1][0] * a[2][1] - a[1][1] * a[2][0]
+    det = a[0][0] * c00 + a[0][1] * c01 + a[0][2] * c02
+    f = [[None] * 3 for _ in range(3)]
+    f[0][0], f[1][0], f[2][0] = c00 / det, c01 / det, c02 / det
+    f[0][1] = (a[0][2] * a[2][1] - a[0][1] * a[2][2]) / det
+    f[1][1] = (a[0][0] * a[2][2] - a[0][2] * a[2][0]) / det
+    f[2][1] = (a[0][1] * a[2][0] - a[0][0] * a[2][1]) / det
+    f[0][2] = (a[0][1] * a[1][2] - a[0][2] * a[1][1]) / det
+    f[1][2] = (a[0][2] * a[1][0] - a[0][0] * a[1][2]) / det
+    f[2][2] = (a[0][0] * a[1][1] - a[0][1] * a[1][0]) / det
+    ctr = [(root[:, r] + root[:, 3 + r]) * 0.5 - t[r] for r in range(3)]
+    half = [(root[:, 3 + r] - root[:, r]) * 0.5 for r in range(3)]
+    lo, hi = [], []
+    zero = torch.zeros(n, dtype=torch.float64, device=dev)
+    rw, n_a, n_f, n_t = zero, zero, zero, zero
+    for c in range(3):
+        wc = ctr[0] * f[0][c] + ctr[1] * f[1][c] + ctr[2] * f[2][c]
+        we = half[0] * f[0][c].abs() + half[1] * f[1][c].abs() + half[2] * f[2][c].abs()
+        lo.append(wc - we)
+        hi.append(wc + we)
+        rw = torch.maximum(rw, torch.maximum(lo[c].abs(), hi[c].abs()))
+        n_a = torch.maximum(n_a, a[0][c].abs() + a[1][c].abs() + a[2][c].abs())
+        n_f = torch.maximum(n_f, f[0][c].abs() + f[1][c].abs() + f[2][c].abs())
+        n_t = torch.maximum(n_t, t[c].abs())
+    cond = n_a * n_f
+    alpha = _BOX_MARGIN * (n_f * n_t + cond * rw)
+    beta = _BOX_MARGIN * cond
+    lo, hi = torch.stack(lo, dim=1), torch.stack(hi, dim=1)
+    finite = ((det != 0) & torch.isfinite(alpha) & torch.isfinite(beta)
+              & torch.isfinite(lo).all(dim=1) & torch.isfinite(hi).all(dim=1))
+    lo = torch.where(finite[:, None], lo, -inf)
+    hi = torch.where(finite[:, None], hi, inf)
+    margin = torch.where(finite[:, None], torch.stack([alpha, beta], dim=1), 0.0)
+    box = torch.cat([_round_down(lo), _round_up(hi), _round_up(margin)], dim=1)
+    box[empty] = torch.tensor([inf] * 6 + [0.0, 0.0], device=dev)
+    box = box.contiguous()
+    n_chunks = chunk_count(n)
+    if n_chunks == 0:
+        return box, torch.zeros((0, 8), device=dev)
+    pad = torch.tensor([inf] * 6 + [0.0, 0.0], device=dev).expand(
+        n_chunks * INSTANCE_CHUNK - n, 8)
+    members = torch.cat([box, pad]).reshape(n_chunks, INSTANCE_CHUNK, 8)
+    gone = torch.isinf(members[..., 0:1]) & (members[..., 0:1] > 0)
+    u_lo = members[..., 0:3].amin(dim=1)
+    u_hi = torch.where(gone, -inf, members[..., 3:6]).amax(dim=1)
+    u_hi = torch.where(torch.isinf(u_lo[:, 0:1]) & (u_lo[:, 0:1] > 0), inf, u_hi)
+    chunk = torch.cat([u_lo, u_hi, members[..., 6:8].amax(dim=1)], dim=1)
+    return box, chunk.contiguous()
+
+
+def instance_boxes_cuda(
+    inst: torch.Tensor, ranges: torch.Tensor, hyper_box: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/instbox.cu (one block) on the tables' CUDA device →
+    (inst_box [I, 8], chunk_box [chunk_count(I), 8]), as
+    ``instance_boxes_plain``."""
+    from clraytracer_tpu_torch.runtime import kernels
+
+    dev = inst.device
+    if dev.type != "cuda" or ranges.device != dev or hyper_box.device != dev:
+        raise ValueError("instance_boxes_cuda needs its tables on one CUDA device")
+    n = inst.shape[0]
+    if inst.shape != (n, 17) or ranges.shape != (n, 4) or not inst.is_contiguous():
+        raise ValueError("inst must be a contiguous [I, 17] f32 tensor beside [I, 4] ranges")
+    box = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    chunk = torch.empty((chunk_count(n), 8), dtype=torch.float32, device=dev)
+    # the entry point bound once: the launch sits on the path of every
+    # frame whose tick edited an instance
+    fn = _bind_box_entry() if _box_entry is None else _box_entry
+    code = fn(inst.data_ptr(), ranges.data_ptr(), hyper_box.data_ptr(), n, box.data_ptr(),
+              chunk.data_ptr(), chunk.shape[0], kernels.stream_handle(dev))
+    kernels.check(code, "clrt_instance_boxes")
+    instance_boxes_cuda.launches += 1
+    return box, chunk
+
+
+instance_boxes_cuda.launches = 0
+_box_entry = None
+
+
+def _bind_box_entry():
+    """csrc/instbox.cu's entry point, built and bound (``kernels.build_all``)
+    on the first launch, kept for the later ones."""
+    global _box_entry
+    from clraytracer_tpu_torch.runtime import kernels
+
+    _box_entry = kernels.build_all()["instbox.cu"].clrt_instance_boxes
+    return _box_entry
+
+
+def instance_boxes(inst, ranges, ranges_host, hyper_box):
+    """The instance level's world boxes from the instance rows the walk
+    transforms by: one launch of csrc/instbox.cu on the card, its plain
+    version elsewhere."""
+    if inst.device.type == "cuda":
+        return instance_boxes_cuda(inst, ranges, hyper_box)
+    return instance_boxes_plain(inst, ranges_host, hyper_box)
 
 
 # ---------------------------------------------------------------------------

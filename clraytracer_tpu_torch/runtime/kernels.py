@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("trace.cu", "render.cu", "gather.cu")
+SOURCES = ("trace.cu", "render.cu", "gather.cu", "instbox.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +50,9 @@ class SceneTablesC(ctypes.Structure):
         ("planes", ctypes.c_void_p),
         ("attrs", ctypes.c_void_p),
         ("n_inst", ctypes.c_int),
+        ("inst_box", ctypes.c_void_p),
+        ("chunk_box", ctypes.c_void_p),
+        ("n_chunks", ctypes.c_int),
     ]
 
 
@@ -176,6 +179,9 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     fn = libs["render.cu"].clrt_finish
     fn.restype = ci
     fn.argtypes = [ctypes.POINTER(FinishParamsC), vp, vp]
+    fn = libs["instbox.cu"].clrt_instance_boxes
+    fn.restype = ci
+    fn.argtypes = [vp, vp, vp, ci, vp, vp, ci, vp]
     fn = libs["gather.cu"].clrt_gather_rows
     fn.restype = ci
     fn.argtypes = [vp, ci, ci, vp, ci, vp, vp]
@@ -194,5 +200,15 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+#: torch's raw accessor of a device's current stream (what its own
+#: generated launchers call), where this build has it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_handle(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as a raw handle: through the
+    raw accessor where torch has it (no ``torch.cuda.Stream`` object made
+    on every launch), else through ``torch.cuda.current_stream``."""
+    if _raw_stream is not None and device.index is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream

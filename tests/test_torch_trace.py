@@ -244,7 +244,7 @@ def test_counter_names_match_kernel_header():
 
     src = (Path(ttrace.__file__).parents[1] / "csrc" / "traverse.cuh").read_text()
     n = int(re.search(r"#define CLRT_COUNTERS (\d+)", src).group(1))
-    fields = re.search(r"struct TestCount \{\s*unsigned long long ([^;]+);", src).group(1)
+    fields = re.search(r"struct TestCount \{\s*unsigned (?:int|long long) ([^;]+);", src).group(1)
     assert n == len(ttrace.COUNTER_NAMES) == len(fields.split(","))
 
 

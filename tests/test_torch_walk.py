@@ -2,7 +2,8 @@
 split of K2.2's counters and the figures derived from them, and the
 statistics build of tools/torch_k22_variant_times.py (the children-outer
 steps counted under a compile-time switch of that script, never by the
-shipped kernels)."""
+shipped kernels), and tools/torch_instance_walk.py's engagement of the
+instance level."""
 
 import importlib.util
 import sys
@@ -14,9 +15,8 @@ from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _tool():
-    spec = importlib.util.spec_from_file_location(
-        "torch_k22_variant_times", ROOT / "tools" / "torch_k22_variant_times.py")
+def _tool(name="torch_k22_variant_times"):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     sys.path.insert(0, str(ROOT))
     spec.loader.exec_module(mod)
@@ -66,8 +66,9 @@ def test_tool_reads_its_own_trees_chip_smoke():
 
 def test_stats_build_counts_children_outer_steps_in_a_copy(tmp_path):
     """The statistics sources: traverse.cuh's one ray-transform count moved
-    into the one children-outer branch of the child test, in a copy; the
-    tree's own sources unchanged."""
+    into each children-outer branch (the hierarchy's child test and the
+    instance level's world test), in a copy; the tree's own sources
+    unchanged."""
     tool = _tool()
     csrc = ROOT / "clraytracer_tpu_torch" / "csrc"
     before = {f.name: f.read_bytes() for f in csrc.iterdir()}
@@ -76,9 +77,11 @@ def test_stats_build_counts_children_outer_steps_in_a_copy(tmp_path):
     assert sorted(f.name for f in tmp_path.iterdir()) == sorted(before)
     text = (tmp_path / "traverse.cuh").read_text()
     lines = text.splitlines()
-    (at,) = [k for k, ln in enumerate(lines) if tool.CHILDREN_OUTER_MARK in ln]
-    assert lines[at + 1].strip() == "if (lane == 0) ++cnt.xforms;"
-    assert text.count("++cnt.xforms;") == 1
+    at = [k for k, ln in enumerate(lines) if tool.CHILDREN_OUTER_MARK in ln]
+    assert len(at) == 2
+    for k in at:
+        assert lines[k + 1].strip() == "if (lane == 0) ++cnt.xforms;"
+    assert text.count("++cnt.xforms;") == len(at)
     for name in before:
         if name != "traverse.cuh":
             assert (tmp_path / name).read_bytes() == before[name]
@@ -92,3 +95,18 @@ def test_stats_build_counts_children_outer_steps_in_a_copy(tmp_path):
     out.mkdir()
     with pytest.raises(SystemExit):
         tool.stats_sources(broken, out)
+
+
+def test_instance_walk_engagement_by_bounce():
+    """The instance level's engagement: instances entered a live ray and
+    the pass share, ray transforms over instances x live rays; bounce 0's
+    live rays are the frame's pixels, bounce 1's bounce 0's shaded hits."""
+    import chip_smoke as cs
+
+    tool = _tool("torch_instance_walk")
+    split = cs.bounce_split([1000, 200, 60, 45, 20, 9], [640, 120, 40, 30, 12, 5], 40)
+    e = tool.engagement(split, 4, 32)
+    assert e["bounce0"] == {"live_rays": 32, "entered_per_ray": 1.25, "pass_share": 40 / 128}
+    assert e["bounce1"] == {"live_rays": 30, "entered_per_ray": 20 / 30, "pass_share": 20 / 120}
+    none = tool.engagement(cs.bounce_split([0] * 6, [0] * 6, 8), 4, 0)
+    assert none["bounce0"]["pass_share"] is None and none["bounce1"]["entered_per_ray"] is None

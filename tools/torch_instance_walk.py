@@ -1,7 +1,7 @@
 """K2.2's work on one pose of a benchmark configuration: the six work
 counters (``ops.trace.COUNTER_NAMES``) of one frame at the configuration's
-size, by bounce and a ray, and the kernel's device ms, for the tree it is
-run from.
+size, by bounce and a ray, the instance level's engagement, and the
+kernel's device ms, for the tree it is run from.
 
     cd <root of a tree> && python3 <path>/tools/torch_instance_walk.py \
         [--config instances401] [--config museum160k] [--pose 0] [--seed 1]
@@ -11,10 +11,13 @@ port's ``SceneBuilder`` (``rtbench.port.builder``), the pose one of the
 configuration's camera path (``rtbench.poses.path`` over 240 poses, the
 ``walk`` mix's). One JSON line a configuration: the frame's counters and
 ``ray_transforms`` and ``boxes`` a camera ray, bounce 0 alone and bounce 1
-(the frame less bounce 0, over bounce 0's shaded hits), and the device ms
-of the frame's launch and of bounce 0's (``chip_smoke.device_ms``). Needs
-the card.
+(the frame less bounce 0, over bounce 0's shaded hits), the instance
+level's engagement by bounce (``engagement``: instances a live ray enters,
+and the pass share, ray transforms over instances x live rays), and the
+device ms of the frame's launch and of bounce 0's
+(``chip_smoke.device_ms``). Needs the card.
 """
+
 
 from __future__ import annotations
 
@@ -23,6 +26,22 @@ import importlib
 import json
 import sys
 from pathlib import Path
+
+
+def engagement(split: dict, n_inst: int, pixels: int) -> dict:
+    """The instance level's engagement by bounce, from ``bounce_split``'s
+    counters: a bounce's live rays (bounce 0: the frame's pixels, its pad
+    lanes are dead; bounce 1: bounce 0's shaded hits), the instances a live
+    ray enters (ray transforms over live rays) and the pass share, ray
+    transforms over ``n_inst`` x live rays (1 less it is the share that
+    the instance level skips)."""
+    out = {}
+    for name, live in (("bounce0", pixels), ("bounce1", split["bounce1"]["rays"])):
+        xf = split[name]["counts"]["ray_transforms"]
+        out[name] = {"live_rays": live,
+                     "entered_per_ray": xf / live if live else None,
+                     "pass_share": xf / (n_inst * live) if live else None}
+    return out
 
 
 def walk(name: str, pose_index: int, seed: int) -> dict:
@@ -52,11 +71,13 @@ def walk(name: str, pose_index: int, seed: int) -> dict:
         counts.append(c.cpu().tolist())
     rays = args[6] * 128
     frame_counts = dict(zip(COUNTER_NAMES, counts[0]))
+    split = bounce_split(counts[0], counts[1], rays)
     return {"config": name, "pose": pose_index, "instances": len(spec.instances),
             "width": w, "height": h, "camera_rays": rays, "counts": frame_counts,
             "ray_transforms_per_camera_ray": frame_counts["ray_transforms"] / rays,
             "boxes_per_camera_ray": frame_counts["boxes"] / rays,
-            "by_bounce": bounce_split(counts[0], counts[1], rays),
+            "by_bounce": split,
+            "instance_level": engagement(split, len(spec.instances), w * h),
             "k22_device_ms": device_ms(lambda: rf.render_cuda(*args, **opts)),
             "k22_bounce0_device_ms": device_ms(lambda: rf.render_cuda(*args0, **opts)),
             "card": torch.cuda.get_device_name(dev)}

@@ -42,7 +42,8 @@ bounce 0 alone (a launch of 1 bounce), each by call ms (``event_ms``) and
 device ms (``device_ms``); the six counters of each bounce (bounce 1 is
 the frame's less bounce 0's) with the figures of ``bounce_split`` (from
 the ``chip_smoke.py`` beside this script); the share of the warps' node
-steps that took the children-outer test, counted by a second build of the
+steps that took a children-outer test (the hierarchy's child test or the
+instance level's world test), counted by a second build of the
 tree's csrc/ under a compile-time switch of this script
 (``stats_sources``: the ray-transform counter moved into the
 children-outer branch; the shipped kernels do not count it); and K2.1 on
@@ -93,8 +94,9 @@ CASES = (
     ("sk", "ground", 4096, 1920, 1080, None, {"split": True, "shadows": True}),
     ("sfield", "field", 4096, 1920, 1080, None, {"split": True}),
 )
-# the line of traverse.cuh that opens the children-outer test, and the
-# ray-transform count that the statistics build moves there
+# the lines of traverse.cuh that open a children-outer test (the hierarchy's
+# child test and the instance level's world test), and the ray-transform
+# count that the statistics build moves there
 CHILDREN_OUTER_MARK = "// children outer"
 XFORM_COUNT = "++cnt.xforms;"
 
@@ -111,18 +113,19 @@ def own_chip_smoke():
 
 def stats_sources(tree: Path, dst: Path) -> None:
     """The tree's csrc/ copied into ``dst`` with traverse.cuh's
-    ray-transform count moved to the first line of the children-outer test:
-    the third counter of a launch from this copy counts its children-outer
-    node steps."""
+    ray-transform count moved to the first line of each children-outer test
+    (one in trees before the instance level, two since): the third counter
+    of a launch from this copy counts its children-outer node steps."""
     src = tree / "clraytracer_tpu_torch" / "csrc"
     for f in src.iterdir():
         (dst / f.name).write_bytes(f.read_bytes())
     text = (src / "traverse.cuh").read_text()
     lines = text.replace(XFORM_COUNT, ";").splitlines(keepends=True)
     at = [k for k, ln in enumerate(lines) if CHILDREN_OUTER_MARK in ln]
-    if text.count(XFORM_COUNT) != 1 or len(at) != 1:
-        raise SystemExit("walk stats: traverse.cuh has no single children-outer branch")
-    lines.insert(at[0] + 1, "      if (lane == 0) " + XFORM_COUNT + "\n")
+    if text.count(XFORM_COUNT) != 1 or not 1 <= len(at) <= 2:
+        raise SystemExit("walk stats: traverse.cuh has no children-outer branch")
+    for k in reversed(at):
+        lines.insert(k + 1, "      if (lane == 0) " + XFORM_COUNT + "\n")
     (dst / "traverse.cuh").write_text("".join(lines))
 
 
@@ -140,7 +143,8 @@ def start_stats_build(tree: Path, dst: Path) -> dict:
 
 def finish_stats_build(procs: dict, dst: Path) -> dict:
     """The statistics libraries, bound as ``kernels._bind`` binds the
-    built ones."""
+    built ones (the tree's other libraries, built as shipped, beside
+    them)."""
     from clraytracer_tpu_torch.runtime import kernels
 
     libs = {}
@@ -149,7 +153,8 @@ def finish_stats_build(procs: dict, dst: Path) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"walk stats: nvcc {src} failed:\n{log}")
         libs[src] = ctypes.CDLL(str(dst / (src + ".so")))
-    libs["gather.cu"] = kernels.build_all()["gather.cu"]
+    for src, lib in kernels.build_all().items():
+        libs.setdefault(src, lib)
     kernels._bind(libs)
     return libs
 
