@@ -144,9 +144,9 @@ one of the box kernel at the pool's tables.
 After (t), (u) engine: ``engine.Engine`` on (a)'s scene at 1920x1080,
 ``tracer="best"``, the reference's 80 ms frame watchdog armed: each frame
 turns instance 0 (``set_instance_transform``), moves the camera
-(``update_camera``), ``tick``s (instance upload, ``refresh_packed``),
+(``update_camera``), ``tick``s (instance upload, ``with_instances``),
 renders and ends the frame; counts from zero (one K2.2 launch a frame, no
-K2.1, one box launch a frame: the edit makes new tables); frame ms (CUDA events around the whole frame), the host's issue,
+K2.1, one box launch a frame: the tick's, with the edit's instance rows); frame ms (CUDA events around the whole frame), the host's issue,
 tick ms; the last frame bit-equal to ``render_frame`` on a scene built
 afresh from the builder's state; a 16-row band of an animated frame's
 launch against its plain version; ticks on (c)'s 1,002,000 triangles with
@@ -662,7 +662,7 @@ def frame_args(scene, wh):
     from clraytracer_tpu_torch.camera import Camera
     from clraytracer_tpu_torch.config import CameraConfig
     from clraytracer_tpu_torch.ops import render_fused as rf
-    from clraytracer_tpu_torch.ops.trace import kernel_tables
+    from clraytracer_tpu_torch.ops.trace import frame_tables, kernel_tables
     from clraytracer_tpu_torch.render import frame_inputs_from_camera
 
     w, h = wh
@@ -670,7 +670,7 @@ def frame_args(scene, wh):
     cr = rf.camera_row(frame_inputs_from_camera(cam, SUN))
     trows = rf.tile_rows(w * h)
     rows_total = -(-h // trows) * -(-w // 128) * trows
-    return kernel_tables(scene), rf.frame_tables(scene), cr, w, h, trows, rows_total, 2
+    return kernel_tables(scene), frame_tables(scene), cr, w, h, trows, rows_total, 2
 
 
 def phase_fused(dev, results) -> None:
@@ -754,11 +754,11 @@ def option_frame(spec: str, w: int, h: int, sun: float | None = None):
 def option_args(scene, frame, w, h, bounces=2):
     """K2.2's positional arguments for a w x h frame of ``frame``'s camera."""
     from clraytracer_tpu_torch.ops import render_fused as rf
-    from clraytracer_tpu_torch.ops.trace import kernel_tables
+    from clraytracer_tpu_torch.ops.trace import frame_tables, kernel_tables
 
     trows = rf.tile_rows(w * h)
     rows_total = -(-h // trows) * -(-w // 128) * trows
-    return (kernel_tables(scene), rf.frame_tables(scene), rf.camera_row(frame), w, h,
+    return (kernel_tables(scene), frame_tables(scene), rf.camera_row(frame), w, h,
             trows, rows_total, bounces)
 
 
@@ -1715,7 +1715,7 @@ def phase_main(dev, results, tris_large: int) -> None:
                     "finish_variants": dict(rf.finish_cuda.variant_launches)}
         frame_host_ms = host_ms(lambda: render_frame(scene, frame, cfg), FRAMES)
         # ---- test counts of one frame (a separate launch with counters)
-        kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
+        kt, ft = tr.kernel_tables(scene), tr.frame_tables(scene)
         cr = rf.camera_row(frame)
         trows = rf.tile_rows(w * h)
         rows_total = -(-h // trows) * -(-w // 128) * trows
@@ -2414,7 +2414,7 @@ def phase_kernels(dev, results) -> None:
 
     _tag, spec, tris, w, h = MAIN[0]
     scene = build_scene(spec, tris, device=dev)
-    kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
+    kt, ft = tr.kernel_tables(scene), tr.frame_tables(scene)
     rays, cam = camera_rays(w, h, dev)
     n = rays.shape[1]
     cnt1 = torch.zeros(6, dtype=torch.int64, device=dev)
@@ -2678,7 +2678,7 @@ def instance_boxes_check(kt) -> dict:
 
 def instance_boxes_entry(results) -> dict:
     """The box kernel's kernels-line entry: its launches on (u)'s main path
-    (one a frame, as each tick's edit makes new tables), its figures at
+    (one a frame, in each tick's ``with_instances``), its figures at
     the 401-instance pool's tables ((t)), bit-equal to its plain version
     there and at (t)'s three instances."""
     b = results["imported"]["instance_boxes"]
@@ -2689,7 +2689,7 @@ def instance_boxes_entry(results) -> dict:
         "replaces": ("none: the TPU kernels have no instance level (every instance a "
                      "ray, clraytracer_tpu/ops/trace_pallas.py _emit_traversal)"),
         "launches": results["engine"]["launches"]["instance_boxes"],
-        "path": "(u) engine.Engine: a tables build a frame, after the tick's edit of instance 0",
+        "path": "(u) engine.Engine: the tick's instance rows, a frame, after the edit of instance 0",
         "max_abs_err": (0.0 if all(all(c["bit_equal"].values()) for c in b.values())
                         else None),
         "tolerance": "bit-exact",
@@ -3475,7 +3475,6 @@ def engine_ticks_large(dev, w: int, h: int) -> dict:
     from clraytracer_tpu_torch.cli import scene_builder
     from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
     from clraytracer_tpu_torch.engine import Engine
-    from clraytracer_tpu_torch.ops import render_fused as rf
     from clraytracer_tpu_torch.ops import trace as tr
 
     t0 = time.perf_counter()
@@ -3485,7 +3484,7 @@ def engine_ticks_large(dev, w: int, h: int) -> dict:
     eng.render()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    kt0, ft0 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    kt0, ft0 = tr.kernel_tables(eng.scene), tr.frame_tables(eng.scene)
     host, synced = [], []
     for i in range(TICK_TRIALS):
         eng.set_instance_transform(0, math3d.rotation_y(0.05 * (i + 1)))
@@ -3496,7 +3495,7 @@ def engine_ticks_large(dev, w: int, h: int) -> dict:
         torch.cuda.synchronize()
         synced.append((time.perf_counter() - t0) * 1e3)
     img = eng.render()
-    kt1, ft1 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    kt1, ft1 = tr.kernel_tables(eng.scene), tr.frame_tables(eng.scene)
     reused = all(getattr(kt1, f).data_ptr() == getattr(kt0, f).data_ptr()
                  for f in ("planes", "attrs", "hyper_box", "super_box", "cluster_box",
                            "tri_gid", "ranges")) and ft1.tex.data_ptr() == ft0.tex.data_ptr()
@@ -4075,7 +4074,7 @@ def sharded_kernel_checks(dev, results) -> dict:
 
     _tag, spec, tris, w, h = SHARD_CELL
     scene = build_scene(spec, tris, device=dev)
-    kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
+    kt, ft = tr.kernel_tables(scene), tr.frame_tables(scene)
     out = {}
 
     def window_rays(frame, w, h, row0, rows):

@@ -8,8 +8,8 @@
 // Replaces no TPU kernel: the TPU kernels loop over every instance a ray
 // (trace_pallas.py:_emit_traversal), as the upstream does
 // (kernel_main.cl:205-207). It exists for the card's instance level, and
-// runs wherever kernel_tables builds the tables from the packed instance
-// rows, so the boxes always follow the rows the walk transforms by.
+// runs wherever ops/trace.py makes the tables' instance rows (_with_rows),
+// so the boxes always follow the rows the walk transforms by.
 //
 // Bound on the H100: launch latency; 401 instances are 13 KB of boxes. One
 // block: a thread an instance, then a thread a chunk.

@@ -47,8 +47,10 @@ from clraytracer_tpu_torch.ops.shade import (
 )
 from clraytracer_tpu_torch.ops.trace import (
     BIG,
+    FrameTables,
     KernelTables,
     check_counters,
+    frame_tables,
     kernel_tables,
     trace_plain,
 )
@@ -141,52 +143,6 @@ def variant(mode: int, shadows: bool, gi: bool, rays: bool = False,
         [f"atlas{mode}"] if mode else []) + (["shadows"] if shadows else []) + (
         ["gi"] if gi else [])
     return "+".join(parts) or "default"
-
-
-@dataclasses.dataclass(frozen=True)
-class FrameTables:
-    """Per-scene shading tables of the fused frame, on the scene's device."""
-
-    mat_rows: torch.Tensor  # [M, 16] f32
-    tex: torch.Tensor  # [D, TEX_COLS] f32 procedural descriptors
-    descs: tuple  # ((off_hi, off_lo, ProceduralTexture), ...)
-
-
-def _descriptor_table(scene: Scene, dev: torch.device) -> tuple[tuple, torch.Tensor]:
-    """The procedural descriptors ((off_hi, off_lo, desc), ...) and their
-    [D, TEX_COLS] rows on ``dev``, kept with the scene's atlas and keyed by
-    ``scene.procedural_tex``: a material or instance edit does not upload
-    them again."""
-    cached = scene.atlas.__dict__.get("_descriptor_table")
-    if cached is not None and cached[0] == scene.procedural_tex and cached[2].device == dev:
-        return cached[1], cached[2]
-    descs = tuple(
-        (off >> _OFF_SHIFT, off & ((1 << _OFF_SHIFT) - 1), desc)
-        for _h, off, desc in scene.procedural_tex
-    )
-    rows = [ptex.descriptor_row(hi, lo, d) for hi, lo, d in descs]
-    tex = torch.tensor(
-        np.asarray(rows, np.float32).reshape(-1, ptex.TEX_COLS), device=dev
-    )
-    scene.atlas.__dict__["_descriptor_table"] = (scene.procedural_tex, descs, tex)
-    return descs, tex
-
-
-def frame_tables(scene: Scene) -> FrameTables:
-    """Built on first use and kept with the scene's ``packed`` object, so
-    scenes that share it share the tables; the material rows are the
-    current ``packed``'s, the descriptor rows ``_descriptor_table``'s."""
-    cached = scene.packed.__dict__.get("_frame_tables")
-    if cached is not None:
-        return cached
-    with ScopeTimer("tables.frame", log=False):
-        dev = scene.packed.mat_rows.device
-        descs, tex = _descriptor_table(scene, dev)
-        ft = FrameTables(
-            mat_rows=scene.packed.mat_rows.float().contiguous(), tex=tex, descs=descs
-        )
-    scene.packed.__dict__["_frame_tables"] = ft
-    return ft
 
 
 def atm_table(bounces: int) -> np.ndarray:

@@ -200,20 +200,16 @@ def refresh_packed(scene):
     canonical leaves (shade.py:114 of the JAX package; the reference's
     re-push after a live material edit, ResourceManager.cpp:102-128). The
     skybox record and the packed texel words are build-time constants and
-    carry over. The traversal's geometry tables stay with the scene's
-    ``clusters`` (``ops.trace.kernel_tables``): only the instance and
-    material rows are new."""
+    carry over. The kernels' tables come from the scene's
+    (``ops.trace.carry``): their instance and material rows and world
+    boxes are new, the geometry and descriptor rows the same tensors."""
+    from clraytracer_tpu_torch.ops import trace  # ops.trace imports this module
+
     if scene.packed is None:
         return scene
     with ScopeTimer("tables.shading", log=False):
-        tabs = build_shading_tables(scene)
-    packed = dataclasses.replace(
-        scene.packed,
-        tri_attr=tabs.tri_attr,
-        inst_rows=tabs.inst_rows,
-        mat_rows=tabs.mat_rows,
-    )
-    return dataclasses.replace(scene, packed=packed)
+        packed = dataclasses.replace(scene.packed, **build_shading_tables(scene)._asdict())
+        return trace.carry(scene, dataclasses.replace(scene, packed=packed))
 
 
 def sample_pool_planar(atlas, w, h, off, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

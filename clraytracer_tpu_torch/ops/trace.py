@@ -11,12 +11,15 @@ version.
 * ``trace`` is the JAX ``trace_pallas`` entry (trace_pallas.py:1126):
   planar ``[3, ...]`` rays in, a ``SceneHit`` out.
 
-Both versions read ``KernelTables``: the scene's cluster tables re-laid
-once per cluster and packed tables into per-slot rows ([S, 12] planes, [S, 16]
-attributes) and one AABB per row ([N, 8]), and the world boxes of the
-kernels' instance level (``instance_boxes``: on the card one launch of
-csrc/instbox.cu, ``instance_boxes_cuda``; elsewhere its plain version,
-``instance_boxes_plain``, bit for bit), built with the instance rows.
+The module owns the device tables the kernels read, ``KernelTables`` and
+``FrameTables``. A scene's tables are kept with its ``packed`` object
+(``_keep``), for the ``clusters`` object and instance meshes they were
+built from; its first ``kernel_tables`` or ``frame_tables`` builds both.
+An edit makes a new ``packed`` object and keeps with it tables made from
+the old ones (``carry``): new instance rows and world boxes (csrc/instbox.cu
+on the card, ``instance_boxes_plain`` elsewhere, bit for bit), new material
+rows where they were rebuilt, every other table the same tensor. Nothing is
+written in place: a frame still queued reads the tables it was given.
 """
 
 from __future__ import annotations
@@ -26,10 +29,13 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from clraytracer_tpu_torch.ops.clusters import CLUSTER_SIZE
-from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
+from clraytracer_tpu_torch.ops.shade import _OFF_MASK, _OFF_SHIFT, _inst_rows
+from clraytracer_tpu_torch.scene import procedural_tex as ptex
+from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Clusters, Instances, Scene
 from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
 BIG = 1e30  # rounds to the f32 miss sentinel of the kernels
@@ -77,7 +83,7 @@ class KernelTables:
     attrs: torch.Tensor  # [C*32, 16] f32: n0 n1 n2 | uv0 uv1 uv2 | mat
     tri_gid: torch.Tensor  # [C*32] i64: slot → arena triangle index
     ranges_host: tuple[tuple[int, int, int, int], ...]
-    # the instance level's world boxes (``instance_boxes``), from ``inst``
+    # the instance level's world boxes (``_with_rows``), from ``inst``
     inst_box: torch.Tensor  # [I, 8] f32: min xyz | max xyz | alpha | beta
     chunk_box: torch.Tensor  # [n_chunks, 8] f32: 32 instances' union each
 
@@ -107,6 +113,25 @@ class KernelTables:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class FrameTables:
+    """Per-scene shading tables of the fused frame, on the scene's device."""
+
+    mat_rows: torch.Tensor  # [M, 16] f32
+    tex: torch.Tensor  # [D, TEX_COLS] f32 procedural descriptors
+    descs: tuple  # ((off_hi, off_lo, ProceduralTexture), ...)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Kept:
+    """A ``packed`` object's tables, for the ``clusters`` and meshes named."""
+
+    clusters: Clusters
+    mesh_index: tuple[int, ...]
+    kernel: KernelTables
+    frame: FrameTables
+
+
 def _per_slot(*tables: torch.Tensor) -> torch.Tensor:
     """[C, 128] tables of 4 components x 32 slots → [C*32, 4 * len]."""
     cols = [t.reshape(-1, 4, CLUSTER_SIZE).transpose(1, 2) for t in tables]
@@ -120,69 +145,108 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _geometry(cl) -> dict:
-    """The traversal's geometry tables of a ``clusters`` object (boxes,
-    plane and attribute rows, slot → triangle), re-laid on first use and
-    kept with it: the instance and material edits of a running scene
-    (``refresh_packed``) leave them as they are."""
-    geo = cl.__dict__.get("_kernel_geometry")
-    if geo is None:
-        geo = dict(
+def kernel_tables(scene: Scene) -> KernelTables:
+    """The scene's traversal tables (``_tables``)."""
+    return _tables(scene).kernel
+
+
+def frame_tables(scene: Scene) -> FrameTables:
+    """The scene's fused-frame tables (``_tables``)."""
+    return _tables(scene).frame
+
+
+def _tables(scene: Scene) -> _Kept:
+    """The tables kept with ``scene.packed``, built at the scene's first use."""
+    kept = _kept(scene)
+    if kept is not None and kept.mesh_index == scene.instances.mesh_index:
+        return kept
+    cl, pk = scene.clusters, scene.packed
+    if cl is None or pk is None or cl.hyper_aabb is None:
+        raise NotImplementedError(
+            "scene built without cluster, hypercluster or packed tables"
+        )
+    with ScopeTimer("tables.kernel", log=False):
+        geometry = KernelTables(
+            inst=None, inst_box=None, chunk_box=None,  # the instance part: _with_rows
             hyper_box=_aligned(cl.hyper_aabb.reshape(-1, 8)),
             super_box=_aligned(cl.super_aabb.reshape(-1, 8)),
             cluster_box=_aligned(cl.cluster_aabb.reshape(-1, 8)),
             planes=_aligned(_per_slot(cl.tri_a, cl.tri_b, cl.tri_c)),
             attrs=_per_slot(cl.at_a, cl.at_b, cl.at_c, cl.at_d),
             tri_gid=cl.tri_gid.long(),
+            **_ranges(cl, scene.instances.mesh_index),
         )
-        cl.__dict__["_kernel_geometry"] = geo
-    return geo
+        kernel = _with_rows(geometry, pk.inst_rows)
+    with ScopeTimer("tables.frame", log=False):
+        descs = tuple(
+            (off >> _OFF_SHIFT, off & _OFF_MASK, desc)
+            for _h, off, desc in scene.procedural_tex
+        )
+        rows = [ptex.descriptor_row(hi, lo, d) for hi, lo, d in descs]
+        tex = torch.tensor(
+            np.asarray(rows, np.float32).reshape(-1, ptex.TEX_COLS), device=pk.mat_rows.device
+        )
+        frame = FrameTables(mat_rows=pk.mat_rows.float().contiguous(), tex=tex, descs=descs)
+    return _keep(scene, kernel, frame)
 
 
-def _ranges(cl, mesh_index: tuple[int, ...]):
+def _kept(scene: Scene) -> _Kept | None:
+    """The tables kept with ``scene.packed`` if built from ``scene.clusters``."""
+    kept = None if scene.packed is None else scene.packed.__dict__.get("_tables")
+    return kept if kept is not None and kept.clusters is scene.clusters else None
+
+
+def _keep(scene: Scene, kernel: KernelTables, frame: FrameTables) -> _Kept:
+    """Keep the tables with ``scene.packed``: the one write into a scene object."""
+    kept = _Kept(scene.clusters, scene.instances.mesh_index, kernel, frame)
+    scene.packed.__dict__["_tables"] = kept
+    return kept
+
+
+def _ranges(cl, mesh_index: tuple[int, ...]) -> dict:
     """Each instance's (super start/count, cluster start/count), host and
-    device, kept with ``clusters`` for the last ``mesh_index`` asked."""
-    cached = cl.__dict__.get("_kernel_ranges")
-    if cached is None or cached[0] != mesh_index:
-        host = tuple(cl.mesh_ranges[m] for m in mesh_index)
-        dev = torch.tensor(host, dtype=torch.int32, device=cl.tri_a.device).reshape(-1, 4)
-        cached = (mesh_index, host, dev)
-        cl.__dict__["_kernel_ranges"] = cached
-    return cached[1], cached[2]
+    device."""
+    host = tuple(cl.mesh_ranges[m] for m in mesh_index)
+    dev = torch.tensor(host, dtype=torch.int32, device=cl.tri_a.device).reshape(-1, 4)
+    return dict(ranges_host=host, ranges=dev)
 
 
-def kernel_tables(scene: Scene) -> KernelTables:
-    """The scene's traversal tables, kept with its ``packed`` object and
-    keyed by its ``clusters`` object and instance meshes (a scene's tensors
-    never change after build): scenes that share them, as a
-    ``dataclasses.replace`` of the materials does, share the tables. The
-    geometry tables are kept with ``clusters`` alone, so a scene whose
-    packed instance or material rows were refreshed (``refresh_packed``)
-    takes the same geometry tensors with its new instance rows."""
-    cl, pk = scene.clusters, scene.packed
-    if cl is None or pk is None or cl.hyper_aabb is None:
-        raise NotImplementedError(
-            "scene built without cluster, hypercluster or packed tables"
-        )
-    mesh_index = scene.instances.mesh_index
-    cached = pk.__dict__.get("_kernel_tables")
-    if cached is not None and cached[0] is cl and cached[1] == mesh_index:
-        return cached[2]
-    with ScopeTimer("tables.kernel", log=False):
-        ranges_host, ranges = _ranges(cl, mesh_index)
-        geo = _geometry(cl)
-        inst = pk.inst_rows.float().contiguous()
-        inst_box, chunk_box = instance_boxes(inst, ranges, ranges_host, geo["hyper_box"])
-        kt = KernelTables(
-            inst=inst,
-            ranges=ranges,
-            ranges_host=ranges_host,
-            inst_box=inst_box,
-            chunk_box=chunk_box,
-            **geo,
-        )
-    pk.__dict__["_kernel_tables"] = (cl, mesh_index, kt)
-    return kt
+def _with_rows(kt: KernelTables, inst_rows: torch.Tensor) -> KernelTables:
+    """``kt`` with the instance rows ``inst_rows`` and their world boxes:
+    one launch of csrc/instbox.cu on the card, its plain version elsewhere."""
+    inst = inst_rows.float().contiguous()
+    if inst.device.type == "cuda":
+        inst_box, chunk_box = instance_boxes_cuda(inst, kt.ranges, kt.hyper_box)
+    else:
+        inst_box, chunk_box = instance_boxes_plain(inst, kt.ranges_host, kt.hyper_box)
+    return dataclasses.replace(kt, inst=inst, inst_box=inst_box, chunk_box=chunk_box)
+
+
+def carry(old: Scene, new: Scene) -> Scene:
+    """``new`` (``old`` with a new ``packed`` object, maybe new instances)
+    with tables made from ``old``'s, if it has them: new instance rows and
+    world boxes, new ranges and material rows where those changed; the
+    other tables are the same tensors."""
+    kept = _kept(old)
+    if kept is None:
+        return new
+    kt, ft, pk = kept.kernel, kept.frame, new.packed
+    if new.instances.mesh_index != kept.mesh_index:
+        kt = dataclasses.replace(kt, **_ranges(new.clusters, new.instances.mesh_index))
+    if pk.mat_rows is not old.packed.mat_rows:
+        ft = dataclasses.replace(ft, mat_rows=pk.mat_rows.float().contiguous())
+    _keep(new, _with_rows(kt, pk.inst_rows), ft)
+    return new
+
+
+def with_instances(scene: Scene, instances: Instances) -> Scene:
+    """``scene`` with the edited instance table (``Engine.tick``): new
+    instance rows (``build_shading_tables``' expression) in its packed
+    object and tables, with their world boxes (``carry``), and no other."""
+    with ScopeTimer("tables.instances", log=False):
+        new = dataclasses.replace(scene, instances=instances)
+        packed = dataclasses.replace(scene.packed, inst_rows=_inst_rows(new))
+        return carry(scene, dataclasses.replace(new, packed=packed))
 
 
 # ---------------------------------------------------------------------------
@@ -309,37 +373,16 @@ def instance_boxes_cuda(
         raise ValueError("inst must be a contiguous [I, 17] f32 tensor beside [I, 4] ranges")
     box = torch.empty((n, 8), dtype=torch.float32, device=dev)
     chunk = torch.empty((chunk_count(n), 8), dtype=torch.float32, device=dev)
-    # the entry point bound once: the launch sits on the path of every
-    # frame whose tick edited an instance
-    fn = _bind_box_entry() if _box_entry is None else _box_entry
-    code = fn(inst.data_ptr(), ranges.data_ptr(), hyper_box.data_ptr(), n, box.data_ptr(),
-              chunk.data_ptr(), chunk.shape[0], kernels.stream_handle(dev))
+    lib = kernels.build_all()["instbox.cu"]
+    code = lib.clrt_instance_boxes(
+        inst.data_ptr(), ranges.data_ptr(), hyper_box.data_ptr(), n, box.data_ptr(),
+        chunk.data_ptr(), chunk.shape[0], kernels.stream_handle(dev))
     kernels.check(code, "clrt_instance_boxes")
     instance_boxes_cuda.launches += 1
     return box, chunk
 
 
 instance_boxes_cuda.launches = 0
-_box_entry = None
-
-
-def _bind_box_entry():
-    """csrc/instbox.cu's entry point, built and bound (``kernels.build_all``)
-    on the first launch, kept for the later ones."""
-    global _box_entry
-    from clraytracer_tpu_torch.runtime import kernels
-
-    _box_entry = kernels.build_all()["instbox.cu"].clrt_instance_boxes
-    return _box_entry
-
-
-def instance_boxes(inst, ranges, ranges_host, hyper_box):
-    """The instance level's world boxes from the instance rows the walk
-    transforms by: one launch of csrc/instbox.cu on the card, its plain
-    version elsewhere."""
-    if inst.device.type == "cuda":
-        return instance_boxes_cuda(inst, ranges, hyper_box)
-    return instance_boxes_plain(inst, ranges_host, hyper_box)
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,7 @@ def _frame_args(scene):
     trows = rf.tile_rows(W * H)
     rows_total = -(-H // trows) * -(-W // 128) * trows
     return (
-        tr.kernel_tables(scene), rf.frame_tables(scene), cr, W, H, trows,
+        tr.kernel_tables(scene), tr.frame_tables(scene), cr, W, H, trows,
         rows_total, 2,
     )
 
@@ -235,7 +235,7 @@ def test_kernel_counters_on_card():
     tr.trace_cuda(qkt, qrays, None, qc)
     assert qc[1].item() == 2 * m and qc[2].item() == m and qc[3].item() == m
     qc.zero_()
-    qargs = (qkt, rf.frame_tables(quad), rf.ray_row(torch.tensor(-1.96)), 128, m // 128,
+    qargs = (qkt, tr.frame_tables(quad), rf.ray_row(torch.tensor(-1.96)), 128, m // 128,
              m // 128, m // 128, 2)
     rf.render_cuda(*qargs, qc, rays=qrays)
     assert qc[1].item() == 2 * m and qc[3].item() == m
@@ -1214,7 +1214,7 @@ def test_k22_row_window_past_height_on_card():
     frame = _shard_frame(w, h)
     trows = rf.tile_rows(w * rows)
     rows_total = -(-rows // trows) * -(-w // 128) * trows
-    args = (tr.kernel_tables(scene), rf.frame_tables(scene), rf.camera_row(frame, rows),
+    args = (tr.kernel_tables(scene), tr.frame_tables(scene), rf.camera_row(frame, rows),
             w, h, trows, rows_total, 2)
     got = rf.render_cuda(*args)
     ref = rf.render_fused_plain(*args, dev)
@@ -1496,7 +1496,7 @@ def _assert_finish_exact(scene, out, mode, gi, w, h, layout, image=True):
     """The finish kernel's radiance (and, for a whole frame, its finished
     image) bit-equal to the torch tail's on the same planes, in one launch
     each."""
-    ft = rf.frame_tables(scene)
+    ft = tr.frame_tables(scene)
     before = rf.finish_cuda.launches
     got = rf.finish_cuda(scene, ft, out, mode, gi)
     got_img = rf.finish_cuda(scene, ft, out, mode, gi, (w, h, layout)) if image else None
@@ -1539,7 +1539,7 @@ def test_finish_kernel_bit_equal_to_torch_tail_on_card(spec, shadows, gi_seed, f
     for post in (False, True):
         img, lay = rf.render_fused_camera(scene, frame, W, H, 2, enable_shadows=shadows,
                                           gi_seed=gi_seed, post=post)
-        want = got if not post else rf.finish_cuda(scene, rf.frame_tables(scene), out, mode,
+        want = got if not post else rf.finish_cuda(scene, tr.frame_tables(scene), out, mode,
                                                    gi, (W, H, layout))
         assert ("strip",) + lay == layout and torch.equal(img, want), post
     name = rf.finish_variant(mode, gi, True)
@@ -1585,7 +1585,7 @@ def test_finish_kernel_on_a_row_window_on_card(spec):
     frame = option_frame(spec, w, h)
     trows = rf.tile_rows(w * rows)
     rows_total = -(-rows // trows) * -(-w // 128) * trows
-    args = (tr.kernel_tables(scene), rf.frame_tables(scene), rf.camera_row(frame, rows),
+    args = (tr.kernel_tables(scene), tr.frame_tables(scene), rf.camera_row(frame, rows),
             w, h, trows, rows_total, 2)
     out = rf.render_cuda(*args, atlas_mode=mode).reshape(-1, rows_total, 128)
     layout = ("strip", trows, -(-w // 128), -(-rows // trows))
@@ -1880,9 +1880,10 @@ def test_instance_level_boxes_follow_an_edit_on_card(edit):
     where it hides others: by ``Engine.set_instance_transform`` and a tick,
     or by an ``instances.inverse_transform`` replaced outside the builder
     (``dataclasses.replace``, then ``refresh_packed``). The tables' boxes
-    follow the new rows (one box launch); K2.1 and K2.2 against their plain
-    versions on the new frame, where a stale box would lose the moved
-    instance's hits."""
+    follow the new rows: one box launch, in the tick or in
+    ``refresh_packed``, and none when the frame reads the tables; K2.1 and
+    K2.2 against their plain versions on the new frame, where a stale box
+    would lose the moved instance's hits."""
     import dataclasses
 
     import numpy as np
@@ -1904,6 +1905,7 @@ def test_instance_level_boxes_follow_an_edit_on_card(edit):
         eng.tick()
         old = tr.kernel_tables(eng.scene)
         eng.set_instance_transform(k, moved)
+        before = tr.instance_boxes_cuda.launches
         eng.tick()
         scene = eng.scene
     else:
@@ -1911,9 +1913,10 @@ def test_instance_level_boxes_follow_an_edit_on_card(edit):
         old = tr.kernel_tables(base)
         inv = base.instances.inverse_transform.clone()
         inv[k] = torch.from_numpy(np.linalg.inv(moved.astype(np.float64)).astype(np.float32)).to(dev)
+        before = tr.instance_boxes_cuda.launches
         scene = refresh_packed(dataclasses.replace(
             base, instances=dataclasses.replace(base.instances, inverse_transform=inv)))
-    before = tr.instance_boxes_cuda.launches
+    assert tr.instance_boxes_cuda.launches == before + 1
     kt = tr.kernel_tables(scene)
     assert tr.instance_boxes_cuda.launches == before + 1
     assert not torch.equal(kt.inst_box[k], old.inst_box[k])

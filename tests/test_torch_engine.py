@@ -5,7 +5,10 @@ frame before and after ``set_instance_transform`` + ``tick`` and after
 the port's ``tracer="best"`` frames (K2.2's plain version) against its
 own ``"wavefront"`` frames by the same rule; events, ``close``, ``stats``
 and the frame watchdog; and that a tick keeps the traversal's geometry
-tables (the same tensors) with the new instance rows."""
+tables (the same tensors) with the new instance rows, builds no triangle
+or material row, and leaves tables equal to a fresh build's."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ from clraytracer_tpu.scene.textures import gradient_sky as j_gradient_sky
 from clraytracer_tpu_torch import math3d as tm
 from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
 from clraytracer_tpu_torch.engine import Engine, FrameWatchdogError
-from clraytracer_tpu_torch.ops import render_fused as rf
+from clraytracer_tpu_torch.ops import shade
 from clraytracer_tpu_torch.ops import trace as tr
 from clraytracer_tpu_torch.ops.shade import build_shading_tables
 from clraytracer_tpu_torch.scene import SceneBuilder
@@ -141,25 +144,90 @@ def test_frame_watchdog(sphere_scene):
 def test_tick_keeps_geometry_tables():
     """After a tick the packed instance rows track the canonical instance
     table (``build_shading_tables``), and ``kernel_tables`` hands the same
-    geometry tensors with the new instance rows; the frame tables keep
-    their descriptor rows."""
+    geometry tensors with the new instance rows; the packed ``tri_attr``
+    and ``mat_rows`` and the frame tables, descriptor rows and all, are
+    the same tensors."""
     eng = _port_engine("best")
     eng.start()
-    kt0, ft0 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    kt0, ft0 = tr.kernel_tables(eng.scene), tr.frame_tables(eng.scene)
+    pk0 = eng.scene.packed
     eng.render()
     eng.set_instance_transform(0, tm.rotation_y(0.4) @ tm.translation(0.3, 0.0, 0.0))
     eng.tick()
     np.testing.assert_array_equal(eng.scene.packed.inst_rows.numpy(),
                                   build_shading_tables(eng.scene).inst_rows.numpy())
-    kt1, ft1 = tr.kernel_tables(eng.scene), rf.frame_tables(eng.scene)
+    kt1, ft1 = tr.kernel_tables(eng.scene), tr.frame_tables(eng.scene)
     assert kt1 is not kt0
     for f in ("planes", "attrs", "hyper_box", "super_box", "cluster_box", "tri_gid", "ranges"):
         assert getattr(kt1, f).data_ptr() == getattr(kt0, f).data_ptr(), f
     assert torch.equal(kt1.inst, eng.scene.packed.inst_rows)
     assert not torch.equal(kt1.inst, kt0.inst)
     assert ft1.tex.data_ptr() == ft0.tex.data_ptr()
+    assert ft1 is ft0
+    assert eng.scene.packed is not pk0
+    assert eng.scene.packed.tri_attr is pk0.tri_attr
+    assert eng.scene.packed.mat_rows is pk0.mat_rows
     eng.tick()  # nothing dirty: the scene stays
     assert tr.kernel_tables(eng.scene) is kt1
+
+
+def _pool_builder(n: int = 40) -> SceneBuilder:
+    """``n`` small spheres on a grid, more than ``tr.INSTANCE_CHUNK``:
+    the instance level's chunk boxes too."""
+    b = _recipe(SceneBuilder, uv_sphere, gradient_sky)
+    mesh = b.add_mesh(uv_sphere(0.3, n_lat=4, n_lon=6), materials_start=0)
+    for k in range(n - 1):
+        b.add_instance(mesh, tm.translation(0.7 * (k % 8) - 2.5, 0.7 * (k // 8) - 1.5, 1.0))
+    return b
+
+
+def test_edited_tables_equal_a_fresh_build():
+    """After instance edits and ticks, with frames between them, the
+    engine's tables equal field for field and bit for bit those of a scene
+    built afresh from the same builder, and its packed rows those of the
+    fresh build and of the canonical leaves (``build_shading_tables``)."""
+    eng = Engine(_pool_builder(), RenderConfig(width=W, height=H),
+                 CameraConfig(position=(0.0, 0.0, 8.0)), tracer="best", device="cpu")
+    eng.start()
+    eng.render()
+    assert tr.kernel_tables(eng.scene).n_chunks == tr.chunk_count(40) > 0
+    for i, k in enumerate((3, 37, 3, 0)):
+        eng.set_instance_transform(k, tm.rotation_y(0.3 * (i + 1)) @ tm.translation(0.1 * i, 0.2, -0.5))
+        eng.tick()
+        eng.render()
+    fresh = eng.builder.build(device="cpu")
+    pairs = ((tr.kernel_tables(eng.scene), tr.kernel_tables(fresh)),
+             (tr.frame_tables(eng.scene), tr.frame_tables(fresh)))
+    for got, want in pairs:
+        for f in dataclasses.fields(got):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
+    leaves = build_shading_tables(fresh)
+    for f in ("tri_attr", "inst_rows", "mat_rows"):
+        assert torch.equal(getattr(eng.scene.packed, f), getattr(fresh.packed, f)), f
+        assert torch.equal(getattr(eng.scene.packed, f), getattr(leaves, f)), f
+
+
+def test_an_instance_edit_builds_no_triangle_or_material_row(monkeypatch):
+    """The tick after an instance edit calls no ``build_shading_tables``:
+    it builds no ``tri_attr`` and no ``mat_rows`` row, and hands the old
+    tensors on."""
+    eng = _port_engine("best")
+    eng.start()
+    eng.render()
+    pk0, ft0 = eng.scene.packed, tr.frame_tables(eng.scene)
+
+    def refuse(scene):
+        raise AssertionError("an instance edit built the packed rows")
+
+    monkeypatch.setattr(shade, "build_shading_tables", refuse)
+    eng.set_instance_transform(0, tm.translation(0.2, -0.1, 0.0))
+    eng.tick()
+    assert eng.scene.packed is not pk0
+    assert eng.scene.packed.tri_attr is pk0.tri_attr and eng.scene.packed.mat_rows is pk0.mat_rows
+    assert tr.frame_tables(eng.scene) is ft0
+    assert not torch.equal(eng.scene.packed.inst_rows, pk0.inst_rows)
+    eng.render()
 
 
 def test_engine_refuses_what_it_cannot_run():

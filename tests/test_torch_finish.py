@@ -27,7 +27,7 @@ from clraytracer_tpu_torch import render as trender
 from clraytracer_tpu_torch.camera import Camera
 from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
 from clraytracer_tpu_torch.ops import render_fused as rf
-from clraytracer_tpu_torch.ops.trace import kernel_tables
+from clraytracer_tpu_torch.ops.trace import frame_tables, kernel_tables
 from clraytracer_tpu_torch.scene.bridge import scene_from_numpy
 from test_torch_options import VIEWS, _ground_scene
 from test_torch_scene import flatten
@@ -57,7 +57,7 @@ def test_plain_finish_matches_jax_tail(mode, gi):
     tiles_x, tiles_y = -(-W // 128), -(-H // trows)
     rows_total = tiles_x * tiles_y * trows
     layout = ("strip", trows, tiles_x, tiles_y)
-    ft = rf.frame_tables(ts)
+    ft = frame_tables(ts)
     out = rf.render_fused_plain(
         kernel_tables(ts), ft, rf.camera_row(_frame()), W, H, trows, rows_total, 2,
         torch.device("cpu"), atlas_mode=mode, gi_seed=4 if gi else None,

@@ -252,24 +252,26 @@ def test_material_edit_shows_in_the_next_frame(scenes):
     """A live albedo edit (the live viewer's ``/material``): the port's
     frame after ``refresh_packed`` shows it, and agrees with the JAX frame
     after the same edit; the traversal's geometry tables survive the edit,
-    its descriptor rows too, while the material rows are the new ones."""
-    from clraytracer_tpu_torch.ops import render_fused as rf
+    its descriptor rows too, while the material and instance rows are the
+    new ones."""
     from clraytracer_tpu_torch.ops import trace as tr
 
     js, ts = scenes
     before = _frame("clraytracer_tpu_torch", ts, "wavefront")
-    kt0, ft0 = tr.kernel_tables(ts), rf.frame_tables(ts)
+    kt0, ft0 = tr.kernel_tables(ts), tr.frame_tables(ts)
     edited = _edit_albedo_port(ts, 1, (0.1, 0.2, 0.9))
     got = _frame("clraytracer_tpu_torch", edited, "wavefront")
     ref = _frame("clraytracer_tpu", _edit_albedo_jax(js, 1, (0.1, 0.2, 0.9)), "wavefront")
     assert np.abs(got - before).max() > 0.05
     assert _close_share(got, ref) >= 0.99
-    kt1, ft1 = tr.kernel_tables(edited), rf.frame_tables(edited)
+    kt1, ft1 = tr.kernel_tables(edited), tr.frame_tables(edited)
     for f in ("planes", "attrs", "hyper_box", "super_box", "cluster_box", "tri_gid", "ranges"):
         assert getattr(kt1, f).data_ptr() == getattr(kt0, f).data_ptr(), f
     assert ft1.tex.data_ptr() == ft0.tex.data_ptr()
     assert torch.equal(ft1.mat_rows, edited.packed.mat_rows)
     assert not torch.equal(ft1.mat_rows, ft0.mat_rows)
+    assert ft1.descs is ft0.descs
+    assert kt1.inst is not kt0.inst and torch.equal(kt1.inst, edited.packed.inst_rows)
     # the fused frame (K2.2's plain version) shows the edit too
     fused = _frame("clraytracer_tpu_torch", edited, "best")
     assert _close_share(fused, ref) >= 0.99

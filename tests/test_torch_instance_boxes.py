@@ -187,12 +187,16 @@ def test_world_test_passes_every_plain_hit(kind):
         assert ok.all() and (tn <= out[0][on]).all()
 
 
-def test_boxes_follow_an_edit_of_the_instance_rows():
+def test_boxes_follow_an_edit_of_the_instance_rows(monkeypatch):
     """After ``Engine.set_instance_transform`` and a tick, and after an
     ``instances.inverse_transform`` replaced by ``dataclasses.replace``
     and ``refresh_packed``: the tables' boxes are the plain version's of
-    the new rows, and the moved instance's box holds its mesh where it now
-    is, not where it was."""
+    the new rows, built once, by the tick or by ``refresh_packed`` and not
+    when the tables are read, and the moved instance's box holds its mesh
+    where it now is, not where it was."""
+    plain, calls = tr.instance_boxes_plain, []
+    monkeypatch.setattr(tr, "instance_boxes_plain",
+                        lambda *args: calls.append(1) or plain(*args))
     b, verts = _builder("rotated", 4)
     eng = Engine(b, RenderConfig(width=16, height=12), CameraConfig(position=(0.0, 0.0, 12.0)),
                  device="cpu")
@@ -202,9 +206,12 @@ def test_boxes_follow_an_edit_of_the_instance_rows():
     moved = _forward("rotated", 2)
     moved[3, :3] = (7.0, -3.0, 1.0)
     eng.set_instance_transform(2, moved)
+    assert len(calls) == 1
     eng.tick()
+    assert len(calls) == 2
     kt = tr.kernel_tables(eng.scene)
-    assert torch.equal(kt.inst_box, tr.instance_boxes_plain(kt.inst, kt.ranges_host, kt.hyper_box)[0])
+    assert len(calls) == 2
+    assert torch.equal(kt.inst_box, plain(kt.inst, kt.ranges_host, kt.hyper_box)[0])
     _assert_holds(kt.inst_box[2], _world(verts[0], moved))
     assert not (kt.inst_box[2, 0:3] <= before[2, 3:6]).all()
     assert torch.equal(kt.inst_box[[0, 1, 3]], before[[0, 1, 3]])
@@ -214,7 +221,9 @@ def test_boxes_follow_an_edit_of_the_instance_rows():
     inv[2] = torch.from_numpy(np.linalg.inv(back.astype(np.float64)).astype(np.float32))
     edited = refresh_packed(dataclasses.replace(
         scene, instances=dataclasses.replace(scene.instances, inverse_transform=inv)))
+    assert len(calls) == 3
     kt2 = tr.kernel_tables(edited)
+    assert len(calls) == 3
     assert kt2 is not kt
     _assert_holds(kt2.inst_box[2], _world(verts[0], back))
     assert torch.equal(kt2.inst_box[[0, 1, 3]], before[[0, 1, 3]])

@@ -329,7 +329,7 @@ def test_deferred_planes_layout(mode, gi, request, monkeypatch):
     planes; shaded lanes carry a pool index / material id >= 0, lanes that
     miss at a bounce -1, dead lanes 0 (mode 1) or -2 (mode 2), and every
     unshaded lane zero coefficients."""
-    from clraytracer_tpu_torch.ops.trace import kernel_tables
+    from clraytracer_tpu_torch.ops.trace import frame_tables, kernel_tables
 
     ts = _scenes("two_atlas", request)[1]
     if mode == 2:
@@ -341,7 +341,7 @@ def test_deferred_planes_layout(mode, gi, request, monkeypatch):
     trows = render_fused.tile_rows(W * H)
     rows_total = -(-H // trows) * trows
     out = render_fused.render_fused_plain(
-        kernel_tables(ts), render_fused.frame_tables(ts), cr, W, H, trows, rows_total, 3,
+        kernel_tables(ts), frame_tables(ts), cr, W, H, trows, rows_total, 3,
         torch.device("cpu"), atlas_mode=mode, gi_seed=0 if gi else None,
     )
     k = render_fused.deferred_planes(mode, gi)

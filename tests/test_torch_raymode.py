@@ -134,7 +134,7 @@ def test_ray_mode_on_tiled_rays_equals_camera_mode(shadows, gi_seed):
     d = ray_directions_tiled(frame.inverse_view, frame.inverse_projection, w, h, trows)
     d = d.reshape(3, -1)
     rays = torch.cat([frame.camera_position[:, None].expand_as(d), d]).contiguous()
-    args = (trace.kernel_tables(ts), render_fused.frame_tables(ts), render_fused.camera_row(frame),
+    args = (trace.kernel_tables(ts), trace.frame_tables(ts), render_fused.camera_row(frame),
             w, h, trows, rows_total, 2, torch.device("cpu"))
     opts = dict(atlas_mode=1, shadows=shadows, gi_seed=gi_seed)
     cam_out = render_fused.render_fused_plain(*args, **opts)
@@ -150,7 +150,7 @@ def test_ray_mode_takes_a_ragged_last_row_and_refuses_bad_rays():
     _js, ts = scenes("ground")
     o, d = seeded_rays(300, seed=2)
     rays = torch.from_numpy(np.concatenate([o, d]))
-    kt, ft = trace.kernel_tables(ts), render_fused.frame_tables(ts)
+    kt, ft = trace.kernel_tables(ts), trace.frame_tables(ts)
     cr = render_fused.ray_row(torch.tensor(SUN))
     geo = (128, 3, 3, 3, 2, torch.device("cpu"))
     got = render_fused.render_fused_plain(kt, ft, cr, *geo, rays=rays, shadows=True)

@@ -285,7 +285,7 @@ def test_chip_smoke_walk_bytes_count_what_the_rays_need():
     from clraytracer_tpu_torch.cli import build_scene
 
     scene = build_scene("two", device="cpu")
-    kt, ft = trace.kernel_tables(scene), render_fused.frame_tables(scene)
+    kt, ft = trace.kernel_tables(scene), trace.frame_tables(scene)
     n_clusters = kt.planes.shape[0] // 32
     assert cs.walk_bytes(kt, n_clusters, 32 * n_clusters) == cs.table_bytes(kt)
     assert cs.walk_bytes(kt, n_clusters, 32 * n_clusters, ft) == cs.table_bytes(kt, ft)

@@ -107,7 +107,7 @@ def test_chip_smoke_bound_splits_the_shadow_walk():
     beside it, and for other keys none. k22_registers names each
     instantiation's ptxas entry."""
     scene = build_scene("two", device="cpu")
-    kt, ft = tr.kernel_tables(scene), rf.frame_tables(scene)
+    kt, ft = tr.kernel_tables(scene), tr.frame_tables(scene)
     counts = [10**9, 2 * 10**9, 3 * 10**7, 10**6, 5, 6]
     shadow = [4 * 10**8, 10**9, 10**7, 0, 2, 1]
     args = (kt, ft, counts, 3, 40, 1920 * 1088, 2, 0, False)

@@ -1,8 +1,10 @@
 """The port's spans (``utils.timer.ScopeTimer``) on the CPU: an edit, a
 tick, a frame and a pick of a small ``Engine`` leave every span in the
 profiler's trace, nested as the layers call each other, and one range of
-each table build; with the profiler off no range is opened while
-``profiler_stats`` still gains each name; both range primitives emit it."""
+a table build, the tick's, which holds the frame's one box build; a
+scene's first frame builds its tables inside ``render.prepare``; with the
+profiler off no range is opened while ``profiler_stats`` still gains each
+name; both range primitives emit it."""
 
 import json
 
@@ -13,6 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
 from clraytracer_tpu_torch.engine import Engine
+from clraytracer_tpu_torch.ops import trace as tr
 from clraytracer_tpu_torch.scene import SceneBuilder
 from clraytracer_tpu_torch.scene.procedural import uv_sphere
 from clraytracer_tpu_torch.scene.textures import gradient_sky
@@ -21,20 +24,18 @@ from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: every span of an edit, tick, frame and pick on the CPU (``engine.wait``
 #: is the watchdog's synchronise on the card)
-SPANS = ("engine.inverse", "engine.tick", "engine.instances", "tables.shading", "engine.render",
-         "render.prepare", "tables.kernel", "tables.frame", "render.k22", "render.finish", "render.post", "render.untile",
+SPANS = ("engine.inverse", "engine.tick", "engine.instances", "tables.instances", "engine.render",
+         "render.prepare", "render.k22", "render.finish", "render.post", "render.untile",
          "engine.pick", "pick.trace", "pick.readback")
 #: the span each span opens inside
-PARENT = {"engine.instances": "engine.tick", "tables.shading": "engine.tick",
+PARENT = {"engine.instances": "engine.tick", "tables.instances": "engine.tick",
           "render.prepare": "engine.render",
-          "tables.kernel": "engine.render", "tables.frame": "engine.render",
           "render.k22": "engine.render", "render.finish": "engine.render",
           "render.post": "engine.render", "render.untile": "engine.render",
           "pick.trace": "engine.pick", "pick.readback": "engine.pick"}
 
 
-@pytest.fixture
-def engine():
+def _started() -> Engine:
     b = SceneBuilder()
     b.import_texture(gradient_sky(32, 16))
     mat = b.create_material(albedo=(0.8, 0.3, 0.2))
@@ -42,6 +43,12 @@ def engine():
     eng = Engine(b, RenderConfig(width=32, height=24), CameraConfig(position=(0.0, 0.0, 8.0)),
                  device="cpu")
     eng.start()
+    return eng
+
+
+@pytest.fixture
+def engine():
+    eng = _started()
     eng.render()  # the tables of the scene as built
     return eng
 
@@ -71,6 +78,12 @@ def _traced(fn, tmp_path):
     return _ranges(prof, tmp_path)
 
 
+def _inside(got, name: str, outer: str) -> list[bool]:
+    """Per range called ``name``: does a range called ``outer`` hold it?"""
+    spans = [(a, b) for n, a, b in got if n == outer]
+    return [any(oa <= a and b <= ob for oa, ob in spans) for n, a, b in got if n == name]
+
+
 def test_a_frame_leaves_every_span_nested(engine, tmp_path):
     got = _traced(lambda: _edit_tick_render_pick(engine), tmp_path)
     names = [n for n, _, _ in got]
@@ -78,11 +91,35 @@ def test_a_frame_leaves_every_span_nested(engine, tmp_path):
         assert names.count(span) >= 1, span
     assert "engine.wait" not in names
     for span, parent in PARENT.items():
-        outer = [(a, b) for n, a, b in got if n == parent]
-        for n, a, b in got:
-            if n == span:
-                assert any(oa <= a and b <= ob for oa, ob in outer), (span, parent)
-    assert sum(n.startswith("tables.") for n in names) == 3
+        assert all(_inside(got, span, parent)), (span, parent)
+    assert not any(_inside(got, "tables.instances", "engine.instances"))
+    assert [n for n in names if n.startswith("tables.")] == ["tables.instances"]
+
+
+def test_the_box_build_runs_in_the_tick(engine, tmp_path, monkeypatch):
+    """An edited frame builds its world boxes once, inside the tick's
+    ``tables.instances``, and not inside ``render.prepare``."""
+    plain = tr.instance_boxes_plain
+
+    def boxes(*args):
+        with torch.profiler.record_function("boxes"):
+            return plain(*args)
+
+    monkeypatch.setattr(tr, "instance_boxes_plain", boxes)
+    got = _traced(lambda: _edit_tick_render_pick(engine), tmp_path)
+    assert _inside(got, "boxes", "tables.instances") == [True]
+    assert _inside(got, "boxes", "render.prepare") == [False]
+
+
+def test_the_first_frame_builds_the_tables_inside_prepare(tmp_path):
+    """A scene's first frame builds its kernel and frame tables once each,
+    inside ``render.prepare``; its second builds none."""
+    eng = _started()
+    got = _traced(lambda: (eng.render(), eng.render()), tmp_path)
+    builds = [n for n, _, _ in sorted(got, key=lambda r: r[1]) if n.startswith("tables.")]
+    assert builds == ["tables.kernel", "tables.frame"]
+    for span in builds:
+        assert _inside(got, span, "render.prepare") == [True]
 
 
 def test_an_edit_inverts_the_edited_instance_alone(tmp_path):

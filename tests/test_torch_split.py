@@ -389,7 +389,7 @@ def test_chip_smoke_names_and_bounds_the_carry_instantiations():
         "default": 126, "carry_out": 127, "carry_out+shadows": 131, "rays+carry_in": 128,
         "rays+atlas1": 127}
     ts = cs.option_scene("ground", device="cpu")
-    kt, ft = tr.kernel_tables(ts), rf.frame_tables(ts)
+    kt, ft = tr.kernel_tables(ts), tr.frame_tables(ts)
     n, live, hits = 1920 * 1088, 90_000, 60_000
     counts = [0, 0, 0, 0, 0, 0]  # bytes alone
     base = cs.walk_bytes(kt, 3, 40, ft)

@@ -173,23 +173,43 @@ def test_trace_matches_brute_multi_hyper(multi_hyper):
 
 def test_tables_shared_by_scenes_sharing_clusters_and_packed(port_scenes):
     """A ``dataclasses.replace`` of the materials (one fit step) keeps the
-    traversal and frame tables: they are keyed on the scene's ``clusters``
-    and ``packed`` objects, not on the Scene."""
+    traversal and frame tables: they are kept with the scene's ``packed``
+    object, for its ``clusters`` object and instance meshes, not with the
+    Scene. A packed object made outside ``ops.trace`` (a bare
+    ``dataclasses.replace``) gets tables of its own at its first use, and
+    so does another ``clusters`` object or another instance-mesh list; an
+    edit through ``ops.trace`` (``refresh_packed``) hands its new packed
+    object the old geometry and descriptor tensors."""
     import dataclasses
 
-    from clraytracer_tpu_torch.ops import render_fused
+    from clraytracer_tpu_torch.ops.shade import refresh_packed
 
     scene = port_scenes["two_instance_scene"]
     mats = dataclasses.replace(
         scene.materials, albedo=scene.materials.albedo.clone()
     )
     other = dataclasses.replace(scene, materials=mats)
-    assert ttrace.kernel_tables(other) is ttrace.kernel_tables(scene)
-    assert render_fused.frame_tables(other) is render_fused.frame_tables(scene)
+    kt, ft = ttrace.kernel_tables(scene), ttrace.frame_tables(scene)
+    assert ttrace.kernel_tables(other) is kt
+    assert ttrace.frame_tables(other) is ft
     rebuilt = dataclasses.replace(
         scene, packed=dataclasses.replace(scene.packed)
     )
-    assert ttrace.kernel_tables(rebuilt) is not ttrace.kernel_tables(scene)
+    assert ttrace.kernel_tables(rebuilt) is not kt
+    assert ttrace.kernel_tables(rebuilt).planes is not kt.planes
+    assert ttrace.frame_tables(rebuilt) is not ft
+    edited = refresh_packed(other)
+    ke, fe = ttrace.kernel_tables(edited), ttrace.frame_tables(edited)
+    assert ke is not kt and fe is not ft
+    assert ke.planes is kt.planes and ke.ranges is kt.ranges and fe.tex is ft.tex
+    moved = dataclasses.replace(scene, clusters=dataclasses.replace(scene.clusters))
+    assert ttrace.kernel_tables(moved) is not kt
+    assert len(set(scene.clusters.mesh_ranges)) > 1
+    first = (scene.instances.mesh_index[0],) * scene.instances.count
+    meshes = dataclasses.replace(scene, instances=dataclasses.replace(
+        scene.instances, mesh_index=first))
+    assert first != scene.instances.mesh_index
+    assert ttrace.kernel_tables(meshes).ranges_host == (kt.ranges_host[0],) * len(first)
 
 
 @pytest.fixture(scope="module")

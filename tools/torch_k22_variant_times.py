@@ -32,10 +32,9 @@ cases of ``chip_smoke.py``'s cell (s) (sa, sc, sk0, sk, sfield: (a),
 (c), (k0), (k) and ``field``) time ``render_fused_camera`` with
 ``split_rebin`` off and on, in turns (unsplit, split, split, unsplit), by
 call ms and device ms, and the split's parts by device ms: the carry-out
-launch, the glue between the launches and the carry-in launch, in the
-tree's own design (the per-ray key sort, ``sort_keys``, in place; in
-trees before it the row re-bin, ``rebin_rows``, and the put-back
-gather), with the glue's launches by torch.profiler.
+launch, the glue between the launches (the per-ray key sort,
+``sort_keys``) and the carry-in launch, with the glue's launches by
+torch.profiler.
 
 ``--walk-stats`` adds a ``walk`` line per case: K2.2's frame and its
 bounce 0 alone (a launch of 1 bounce), each by call ms (``event_ms``) and
@@ -217,21 +216,12 @@ def split_line(tag, scene, frame, w, h, shadows) -> dict:
         line[f"{k}_{name}_ms"] = cs.event_ms(fn, 20, 3)[0]
         line[f"{k}_{name}_device_ms"] = cs.device_ms(fn)
     args = cs.option_args(scene, frame, w, h, bounces=1)
-    rows_total = args[6]
     carry_out = lambda: rf.render_cuda(*args, carry_out=True, shadows=shadows)
     first = carry_out()
-    if hasattr(rf, "sort_keys"):
-        keys, order = rf.sort_keys(first)
-        buf = first.clone()
-        glue = lambda: rf.sort_keys(first)
-        carry_in = lambda: rf.render_cuda(*args, carry=buf, keys=keys, order=order,
-                                          start_bounce=1)
-    else:  # the row re-bin of trees before the per-ray key
-        rays, carry, inv = rf.rebin_rows(first, rows_total)
-        second = rf.render_cuda(*args, rays=rays, carry=carry, start_bounce=1)
-        glue = lambda: (rf.rebin_rows(first, rows_total),
-                        second.reshape(9, rows_total, 128)[:, inv])
-        carry_in = lambda: rf.render_cuda(*args, rays=rays, carry=carry, start_bounce=1)
+    keys, order = rf.sort_keys(first)
+    buf = first.clone()
+    glue = lambda: rf.sort_keys(first)
+    carry_in = lambda: rf.render_cuda(*args, carry=buf, keys=keys, order=order, start_bounce=1)
     for name, fn in (("carry_out", carry_out), ("glue", glue), ("carry_in", carry_in)):
         line[f"{name}_device_ms"] = cs.device_ms(fn)
     prof = cs.device_profile(glue, 5, 1.0)
