@@ -152,7 +152,8 @@ afresh from the builder's state; a 16-row band of an animated frame's
 launch against its plain version; ticks on (c)'s 1,002,000 triangles with
 the traversal's geometry tables shown to be the same tensors; picking:
 4096 seeded screen points through ``raycast(tracer=trace_best)`` (one K2.1
-launch) and 64 single ``Engine.pick`` calls, counts from zero, the
+launch) and 64 single ``Engine.pick`` calls (one launch of the pick kernel
+each, no K2.1), counts from zero, the
 raycast against ``trace_brute`` (at most FRAME_MISMATCH_MAX rays
 differing), K2.1 on 1, 3 and 33 of those rays exact against its plain
 version, the pick's ms through K2.1 and through ``trace_bvh``; the bench
@@ -1982,6 +1983,7 @@ def reset_counts() -> None:
     rf.finish_cuda.launches = 0
     rf.finish_cuda.variant_launches = {}
     tr.trace_cuda.launches = 0
+    tr.pick_cuda.launches = 0
     tr.instance_boxes_cuda.launches = 0
     gr.gather_rows_cuda.launches = 0
     gr.scatter_rows_cuda.launches = 0
@@ -1992,7 +1994,8 @@ def read_counts() -> dict:
     from clraytracer_tpu_torch.ops import render_fused as rf
     from clraytracer_tpu_torch.ops import trace as tr
 
-    return {"K2.1": tr.trace_cuda.launches, "K2.2": rf.render_cuda.launches,
+    return {"K2.1": tr.trace_cuda.launches, "pick": tr.pick_cuda.launches,
+            "K2.2": rf.render_cuda.launches,
             "K2.3": gr.gather_rows_cuda.launches,
             "K2.4": gr.scatter_rows_cuda.launches}
 
@@ -3510,7 +3513,8 @@ def engine_ticks_large(dev, w: int, h: int) -> dict:
 def engine_picks(eng, dev) -> dict:
     """Picking on the cell's scene and camera: PICK_POINTS seeded screen
     points through ``raycast(tracer=trace_best)`` (one K2.1 launch) and
-    PICK_CALLS single ``Engine.pick`` calls, counts from zero; then the
+    PICK_CALLS single ``Engine.pick`` calls (the pick kernel), counts from
+    zero, each record bit-equal to the torch composition's; then the
     raycast against ``trace_brute``, K2.1 at 1, 3 and 33 of those rays
     against its plain version (exact), and single picks through
     ``trace_bvh`` (plain torch) timed."""
@@ -3535,12 +3539,17 @@ def engine_picks(eng, dev) -> dict:
     rec = raycast(scene, o, d, trace_best)
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
-    k21_ms = []
+    k21_ms, got = [], []
     for x, y in pts[:PICK_CALLS]:
         t0 = time.perf_counter()
-        eng.pick(float(x), float(y))
+        got.append(eng.pick(float(x), float(y)))
         k21_ms.append((time.perf_counter() - t0) * 1e3)
     launches = read_counts()
+    # each pick against the torch composition on its one ray
+    want = [raycast(scene, o[k:k + 1], d[k:k + 1], trace_best) for k in range(PICK_CALLS)]
+    pick_bit_equal = all(
+        np.asarray(f).tobytes() == t.cpu().numpy()[0].tobytes()
+        for g, w in zip(got, want) for f, t in zip(g, w))
     ref = raycast(scene, o, d, trace_brute)
     same = (rec.hit == ref.hit) & (rec.index == ref.index) & (rec.instance == ref.instance)
     bvh_ms = []
@@ -3561,7 +3570,7 @@ def engine_picks(eng, dev) -> dict:
     bvh_ms.sort()
     return {
         "points": PICK_POINTS, "hits": int(rec.hit.sum()), "raycast_ms": batch_ms,
-        "launches": launches, "calls": PICK_CALLS,
+        "launches": launches, "calls": PICK_CALLS, "pick_bit_equal_raycast": pick_bit_equal,
         "rays_differing_from_brute": int((~same).sum()),
         "pick_k21_ms": k21_ms[len(k21_ms) // 2], "pick_k21_ms_min": k21_ms[0],
         "pick_bvh_ms": bvh_ms[len(bvh_ms) // 2], "pick_bvh_ms_min": bvh_ms[0],
@@ -3767,7 +3776,8 @@ def phase_engine(dev, results) -> None:
         and launches["K2.2_variants"] == {"default": frames}
         and launches["instance_boxes"] == frames
         and large["geometry_tables_reused"] and large["new_inst_rows"] and large["finite"]
-        and picks["launches"]["K2.1"] == 1 + PICK_CALLS and picks["launches"]["K2.2"] == 0
+        and picks["launches"]["K2.1"] == 1 and picks["launches"]["pick"] == PICK_CALLS
+        and picks["launches"]["K2.2"] == 0 and picks["pick_bit_equal_raycast"]
         and picks["hits"] > 0 and picks["rays_differing_from_brute"] <= FRAME_MISMATCH_MAX
         and all(c["ok"] and c["rays_not_exact"] == 0 for c in picks["k21_few_rays"].values())
         and len(rows) == 2 and all(r["value"] > 0 for r in rows) and viewer["ok"]

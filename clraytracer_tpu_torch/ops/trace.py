@@ -10,6 +10,10 @@ version.
   tensors on the CPU.
 * ``trace`` is the JAX ``trace_pallas`` entry (trace_pallas.py:1126):
   planar ``[3, ...]`` rays in, a ``SceneHit`` out.
+* ``pick_cuda`` launches the same file's pick entry: one ray walked as
+  K2.1 walks it and its whole hit record, packed (``raycast.pick`` on the
+  card; its plain version is ``raycast.raycast`` then
+  ``raycast.pack_record``).
 
 The module owns the device tables the kernels read, ``KernelTables`` and
 ``FrameTables``. A scene's tables are kept with its ``packed`` object
@@ -502,6 +506,46 @@ def trace_cuda(
 
 
 trace_cuda.launches = 0
+
+#: words of the pick's record (csrc/trace.cu CLRT_PICK_WORDS): hit (1 or 0)
+#: | distance | triangle (i32 bits) | instance (i32 bits) | normal xyz | uv
+#: | colour rgb
+PICK_WORDS = 12
+
+
+def pick_cuda(scene: Scene, origin: np.ndarray, direction: np.ndarray) -> torch.Tensor:
+    """Launch the pick (csrc/trace.cu ``clrt_pick``, one warp) for one
+    world ray, passed by value, over the scene's tables on its CUDA device
+    → the [PICK_WORDS] f32 record on the card, bit-equal to
+    ``raycast.pack_record(raycast.raycast(scene, o, d, trace))``."""
+    from clraytracer_tpu_torch.runtime import kernels
+
+    dev = scene.device
+    if dev.type != "cuda":
+        raise ValueError("pick_cuda needs a scene on a CUDA device")
+    kept = _tables(scene)
+    kt = kept.kernel
+    attr, mat, texels = scene.packed.tri_attr, kept.frame.mat_rows, scene.atlas.texels
+    f32 = torch.float32
+    for t, dtype in ((attr, f32), (mat, f32), (texels, f32), (kt.tri_gid, torch.int64)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous() or not len(t):
+            raise ValueError("pick_cuda needs contiguous, non-empty tables on the scene's card")
+    params = kernels.PickParamsC(
+        (ctypes.c_float * 6)(*origin, *direction),
+        kt.tri_gid.data_ptr(), attr.data_ptr(), mat.data_ptr(), texels.data_ptr(),
+        kt.tri_gid.shape[0], attr.shape[0], mat.shape[0], texels.shape[0], texels.shape[1],
+    )
+    out = torch.empty(PICK_WORDS, dtype=torch.float32, device=dev)
+    code = kernels.build_all()["trace.cu"].clrt_pick(
+        ctypes.byref(kt.as_c()), ctypes.byref(params), out.data_ptr(),
+        kernels.stream_handle(dev),
+    )
+    kernels.check(code, "clrt_pick")
+    pick_cuda.launches += 1
+    return out
+
+
+pick_cuda.launches = 0
 
 
 def check_counters(counters: torch.Tensor | None, dev: torch.device) -> None:

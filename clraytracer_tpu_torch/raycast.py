@@ -6,10 +6,15 @@ CPURayTrace.hpp:5-18), which it drives from mouse clicks
 The same tracers and shading tables serve the frame and the pick. The
 default tracer is ``trace_bvh`` as in the JAX package, plain torch on any
 device; ``tracer=render.trace_best`` (what ``engine.Engine`` and the live
-viewer pass for ``"best"``) is one K2.1 launch of the picked rays on the
-card. ``trace_bvh`` keeps the reference's inside-box rule: from a camera
-inside an instance's boxes it misses (ops/trace_ref.py), as the JAX
-function does.
+viewer pass for ``"best"``) is K2.1 on the card. ``trace_bvh`` keeps the
+reference's inside-box rule: from a camera inside an instance's boxes it
+misses (ops/trace_ref.py), as the JAX function does.
+
+A pick comes back as one packed record (``pack_record``) in one copy. On
+the card, where the tracer resolves to K2.1 and the scene has its packed
+tables, the record is one launch of ``ops.trace.pick_cuda``: K2.1's walk
+and the record's shading in one thread, bit-equal to ``raycast`` and
+``pack_record``, which every other pick runs.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from clraytracer_tpu_torch.camera import Camera, screen_point_to_ray
 from clraytracer_tpu_torch.ops import gather, planar
+from clraytracer_tpu_torch.ops import trace
 from clraytracer_tpu_torch.ops.shade import (
     _OFF_SHIFT,
     _modulate_bytes,
@@ -28,7 +34,7 @@ from clraytracer_tpu_torch.ops.shade import (
     sample_pool_planar,
 )
 from clraytracer_tpu_torch.ops.trace_ref import trace_bvh
-from clraytracer_tpu_torch.render import Tracer
+from clraytracer_tpu_torch.render import Tracer, resolve_tracer
 from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Scene
 from clraytracer_tpu_torch.utils.timer import ScopeTimer
 
@@ -100,18 +106,55 @@ def raycast(
     )
 
 
+def pack_record(rec: HitRecord) -> torch.Tensor:
+    """One ray's record → [PICK_WORDS] f32 on its device, csrc/trace.cu's
+    layout (``ops.trace.PICK_WORDS``): the bits of every field kept."""
+    return torch.cat([
+        rec.hit.reshape(-1).to(torch.float32), rec.distance.reshape(-1),
+        rec.index.reshape(-1).view(torch.float32), rec.instance.reshape(-1).view(torch.float32),
+        rec.normal.reshape(-1), rec.uv.reshape(-1), rec.color.reshape(-1),
+    ])
+
+
+def unpack_record(words: np.ndarray) -> HitRecord:
+    """A [PICK_WORDS] f32 host record → ``pick``'s ``HitRecord`` of numpy
+    values: f32 normal [3], uv [2], colour [3] and distance, i32 index and
+    instance, bool hit."""
+    bits = words.view(np.int32)
+    return HitRecord(
+        normal=words[4:7],
+        uv=words[7:9],
+        distance=words[1],
+        color=words[9:12],
+        index=bits[2],
+        instance=bits[3],
+        hit=np.bool_(words[0] != 0.0),
+    )
+
+
+def _on_card(scene: Scene, tracer: Tracer) -> bool:
+    """Does this pick take ``ops.trace.pick_cuda``: a scene on the card with
+    packed tables whose tracer resolves to K2.1?"""
+    return (scene.packed is not None and scene.device.type == "cuda"
+            and resolve_tracer(tracer, scene) is trace.trace)
+
+
 def pick(
     scene: Scene, camera: Camera, x: float, y: float, tracer: Tracer = trace_bvh
 ) -> HitRecord:
     """Mouse picking: unproject a screen point (Camera::ScreenPointToRaySSE,
     Math/Camera.hpp:121) and raycast it, the reference's LMB flow
     (Engine.cpp:112-126). Returns one ray's HitRecord as host numpy
-    values."""
+    values, through one packed record and one copy."""
     with ScopeTimer("pick.trace", log=False):
         o, d = screen_point_to_ray(camera, x, y)
-        dev = scene.device
-        rec = raycast(
-            scene, torch.from_numpy(o)[None].to(dev), torch.from_numpy(d)[None].to(dev), tracer
-        )
+        if _on_card(scene, tracer):
+            record = trace.pick_cuda(scene, o, d)
+        else:
+            dev = scene.device
+            record = pack_record(raycast(
+                scene, torch.from_numpy(o)[None].to(dev), torch.from_numpy(d)[None].to(dev),
+                tracer,
+            ))
     with ScopeTimer("pick.readback", log=False):
-        return HitRecord(*(np.asarray(t.cpu())[0] for t in rec))
+        return unpack_record(record.cpu().numpy())

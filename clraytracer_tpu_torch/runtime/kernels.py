@@ -56,6 +56,23 @@ class SceneTablesC(ctypes.Structure):
     ]
 
 
+class PickParamsC(ctypes.Structure):
+    """csrc/trace.cu ``PickParams``, field for field in its order."""
+
+    _fields_ = [
+        ("ray", ctypes.c_float * 6),
+        ("tri_gid", ctypes.c_void_p),
+        ("tri_attr", ctypes.c_void_p),
+        ("mat_rows", ctypes.c_void_p),
+        ("texels", ctypes.c_void_p),
+        ("n_slots", ctypes.c_int),
+        ("n_tri", ctypes.c_int),
+        ("n_mat", ctypes.c_int),
+        ("n_texels", ctypes.c_int),
+        ("tex_cols", ctypes.c_int),
+    ]
+
+
 class RenderParamsC(ctypes.Structure):
     """csrc/render.cu ``RenderParams``, field for field in its order."""
 
@@ -171,6 +188,9 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     fn = libs["trace.cu"].clrt_trace
     fn.restype = ci
     fn.argtypes = [ctypes.POINTER(SceneTablesC), vp, vp, ci, vp, vp, vp]
+    fn = libs["trace.cu"].clrt_pick
+    fn.restype = ci
+    fn.argtypes = [ctypes.POINTER(SceneTablesC), ctypes.POINTER(PickParamsC), vp, vp]
     fn = libs["render.cu"].clrt_render
     fn.restype = ci
     fn.argtypes = [

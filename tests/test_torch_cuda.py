@@ -67,12 +67,14 @@ def _frame_args(scene):
 def test_wrappers_refuse_cpu_tensors():
     scene = build_scene("two", device="cpu")
     kt = tr.kernel_tables(scene)
-    before = (tr.trace_cuda.launches, rf.render_cuda.launches)
+    before = (tr.trace_cuda.launches, rf.render_cuda.launches, tr.pick_cuda.launches)
     with pytest.raises(ValueError):
         tr.trace_cuda(kt, _camera_rays("cpu"))
     with pytest.raises(ValueError):
         rf.render_cuda(*_frame_args(scene))
-    assert (tr.trace_cuda.launches, rf.render_cuda.launches) == before
+    with pytest.raises(ValueError):
+        tr.pick_cuda(scene, *_camera_rays("cpu")[:, 0].reshape(2, 3).numpy())
+    assert (tr.trace_cuda.launches, rf.render_cuda.launches, tr.pick_cuda.launches) == before
 
 
 def _assert_trace_exact(got, ref, live=None, min_hits=100):
@@ -1050,9 +1052,8 @@ def test_png_decoder_without_pil(tmp_path, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 3, 33])
 def test_trace_kernel_few_rays_on_card(n):
-    """A pick's launch: K2.1 on 1, 3 and 33 rays (one warp partly empty,
-    two warps), exact against trace_plain; the lanes past n stay in the
-    warp's walk."""
+    """K2.1 on 1, 3 and 33 rays (one warp partly empty, two warps), exact
+    against trace_plain; the lanes past n stay in the warp's walk."""
     dev = _card()
     kt = tr.kernel_tables(build_scene("sphere", device=dev))
     rays = _camera_rays(dev)
@@ -1068,10 +1069,45 @@ def test_trace_kernel_few_rays_on_card(n):
     assert int((got[0].abs() < tr.BIG).sum()) == (n + 1) // 2
 
 
+def _torch_pick(scene, cam, x, y):
+    """The pick as the torch composition gives it on the scene's device:
+    ``raycast`` through K2.1, each field copied to the host on its own."""
+    import numpy as np
+
+    from clraytracer_tpu_torch.camera import screen_point_to_ray
+    from clraytracer_tpu_torch.raycast import HitRecord, raycast
+
+    o, d = screen_point_to_ray(cam, x, y)
+    dev = scene.device
+    rec = raycast(scene, torch.from_numpy(o)[None].to(dev), torch.from_numpy(d)[None].to(dev),
+                  trender.trace_best)
+    return HitRecord(*(np.asarray(t.cpu())[0] for t in rec))
+
+
+def _one_pick_launch(pick):
+    """``pick()``, which must launch the pick kernel once and K2.1 never."""
+    before = (tr.pick_cuda.launches, tr.trace_cuda.launches)
+    got = pick()
+    assert (tr.pick_cuda.launches, tr.trace_cuda.launches) == (before[0] + 1, before[1])
+    return got
+
+
+def _assert_same_record(got, want):
+    """The same type, dtype, shape and bytes in every field."""
+    import numpy as np
+
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert type(a) is type(b) and a.dtype == b.dtype and np.shape(a) == np.shape(b), f
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), (f, a, b)
+
+
 @pytest.mark.cuda
 def test_pick_through_k21_on_card_matches_cpu():
-    """``pick`` with ``tracer=trace_best`` on the card: one K2.1 launch, the
-    CPU's record (K2.1's plain version) within 1e-5."""
+    """``pick`` with ``tracer=trace_best`` on the card: one launch of the
+    pick kernel and no K2.1 launch, the record bit-equal to the torch
+    composition on the card (hits, a miss, a screen corner), and the CPU's
+    record (K2.1's plain version) within 1e-5."""
     import numpy as np
 
     from clraytracer_tpu_torch.raycast import pick
@@ -1079,15 +1115,62 @@ def test_pick_through_k21_on_card_matches_cpu():
     dev = _card()
     cam = Camera.create(CAMERA, W, H)
     gpu, cpu = build_scene("two", device=dev), build_scene("two", device="cpu")
-    for x, y in ((55.0, 50.0), (110.0, 62.0), (2.0, 2.0)):
-        before = tr.trace_cuda.launches
-        got = pick(gpu, cam, x, y, trender.trace_best)
-        assert tr.trace_cuda.launches == before + 1
+    hits = 0
+    for x, y in ((55.0, 50.0), (110.0, 62.0), (80.0, 60.0), (2.0, 2.0), (0.0, 0.0)):
+        got = _one_pick_launch(lambda: pick(gpu, cam, x, y, trender.trace_best))
+        _assert_same_record(got, _torch_pick(gpu, cam, x, y))
+        hits += bool(got.hit)
         ref = pick(cpu, cam, x, y, trender.trace_best)
         for f in ("hit", "index", "instance"):
             assert getattr(got, f) == getattr(ref, f), f
         for f in ("distance", "normal", "uv", "color"):
             np.testing.assert_allclose(getattr(got, f), getattr(ref, f), rtol=0, atol=1e-5)
+    assert 2 <= hits <= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["museum160k", "instances401"])
+def test_engine_pick_kernel_bit_equal_to_torch_composition_on_card(config):
+    """The benchmark's configurations (rtbench/configs/) through
+    ``Engine.pick`` at 1920x1080: at four poses of the walk's path, a 9 x 7
+    grid of screen points and the four corners, each pick one launch of
+    the pick kernel and no K2.1 launch, its record bit-equal to the torch
+    composition's. The museum's picks reach an imported map (a texture
+    record wider than one texel); the 401-instance pool's (13 chunk boxes)
+    reach figures past instance 32."""
+    import json
+
+    import numpy as np
+
+    from rtbench import port
+    from rtbench.cells import HERE
+    from rtbench.poses import path
+    from rtbench.scenes import instances, museum
+
+    dev = _card()
+    cfg = json.loads((HERE / "configs" / f"{config}.json").read_text())
+    spec = (museum if config == "museum160k" else instances).build(cfg, 2**31 + 21)
+    eng = port.engine(spec, cfg, dev, None)
+    w, h = float(cfg["width"]), float(cfg["height"])
+    xy = [(w * (i + 0.5) / 9, h * (j + 0.5) / 7) for i in range(9) for j in range(7)]
+    xy += [(0.0, 0.0), (w - 1, 0.0), (0.0, h - 1), (w - 1, h - 1)]
+    got = []
+    for pose in path(cfg["path"], 240)[::60]:
+        port.set_pose(eng, pose)
+        for x, y in xy:
+            rec = _one_pick_launch(lambda: eng.pick(x, y))
+            _assert_same_record(rec, _torch_pick(eng.scene, eng.camera, x, y))
+            got.append(rec)
+    pk = eng.scene.packed
+    hit = [r for r in got if r.hit]
+    assert len(hit) >= len(got) // 2
+    if config == "museum160k":
+        mat = (pk.inst_rows[[int(r.instance) for r in hit], 16]
+               + pk.tri_attr[[int(r.index) for r in hit], 15]).long()
+        assert int((pk.mat_rows[mat, 8] * pk.mat_rows[mat, 9] > 1).sum()) >= len(hit) // 2
+    else:
+        assert tr.kernel_tables(eng.scene).n_chunks == 13
+        assert sum(int(r.instance) > 32 for r in hit) >= 10
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ seeded screen points. ``index``, ``instance`` and ``hit`` exact;
 ``distance``, ``normal``, ``uv`` and ``color`` within 1e-5. Then the
 port's ``raycast(tracer=trace_best)`` (K2.1's plain version here) against
 its ``trace_bvh`` result: the same hits on all but at most 1 of 64 rays
-(a seam tie)."""
+(a seam tie). Last, ``pick``'s one packed record and its unpacking on the
+host against ``raycast``'s fields, bit for bit."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,8 @@ from clraytracer_tpu.config import CameraConfig as JCameraConfig
 from clraytracer_tpu_torch import raycast as tray
 from clraytracer_tpu_torch.camera import Camera as TCamera
 from clraytracer_tpu_torch.config import CameraConfig as TCameraConfig
-from clraytracer_tpu_torch.render import trace_best
+from clraytracer_tpu_torch.camera import screen_point_to_ray
+from clraytracer_tpu_torch.render import TRACERS, trace_best
 from clraytracer_tpu_torch.scene.bridge import scene_from_numpy
 from test_torch_scene import flatten
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -126,3 +128,29 @@ def test_raycast_through_k21_agrees_with_bvh(scenes):
     for f in ("distance", "normal", "uv", "color"):
         np.testing.assert_allclose(getattr(got, f)[same].numpy(), getattr(ref, f)[same].numpy(),
                                    rtol=0, atol=ATOL, err_msg=f)
+
+
+@pytest.mark.parametrize("tracer", ["bvh", "best"])
+def test_pick_record_packs_and_unpacks_to_raycast_fields(scenes, tracer):
+    """``pick`` reads one packed record back (``pack_record``,
+    ``unpack_record``): through the plain path it gives what ``raycast``'s
+    fields copied one by one give, in type, dtype, shape and every bit
+    (index, instance and hit exact), on hits and misses."""
+    _, ts = scenes
+    cam = TCamera.create(TCameraConfig(**CAMERA), 64, 48)
+    pts = [(32.0, 24.0), (1.0, 1.0)] + [tuple(p) for p in
+                                        np.random.default_rng(2).uniform(0, 1, (6, 2)) * (64, 48)]
+    hits = 0
+    for x, y in pts:
+        o, d = screen_point_to_ray(cam, float(x), float(y))
+        rec = tray.raycast(ts, torch.from_numpy(o)[None], torch.from_numpy(d)[None],
+                           TRACERS[tracer])
+        want = tray.HitRecord(*(np.asarray(t)[0] for t in rec))
+        for got in (tray.pick(ts, cam, float(x), float(y), TRACERS[tracer]),
+                    tray.unpack_record(tray.pack_record(rec).numpy())):
+            for f in want._fields:
+                a, b = getattr(got, f), getattr(want, f)
+                assert type(a) is type(b) and a.dtype == b.dtype and a.shape == b.shape, f
+                assert a.tobytes() == b.tobytes(), f
+        hits += bool(want.hit)
+    assert 1 <= hits < len(pts)
