@@ -2059,3 +2059,60 @@ def test_engine_frame_and_picks_at_the_full_pool_on_card():
     assert sum(bool(p.hit) for p in picks) >= 3
     assert not [xy for p, xy in zip(picks, xy)
                 if check.pick_disagrees(p, ref.pick(pose, cfg, *xy))]
+
+
+@pytest.mark.cuda
+def test_engine_shadowed_museum_frames_and_picks_on_card():
+    """The ``museum160k-shadows`` configuration
+    (rtbench/configs/museum160k-shadows.json) through ``Engine`` at
+    1920x1080 under the 80 ms watchdog: four frames of the walk's loop (the
+    figure turned a degree a tick, a new pose), each one launch of K2.2's
+    ``atlas1+shadows`` instantiation and none of ``atlas1``; the last
+    frame's seeded pixels and four picks against the benchmark's plain
+    reference with the sun shadow ray under the cell's limits."""
+    import json
+    import math
+
+    import numpy as np
+
+    from rtbench import check, port
+    from rtbench.cells import HERE
+    from rtbench.poses import path
+    from rtbench.reference.frame import sample_pixels
+    from rtbench.reference.shadows import Scene as RefScene
+    from rtbench.scenes import museum
+    from rtbench.scenes.spec import rotation_y
+
+    dev = _card()
+    cfg = json.loads((HERE / "configs" / "museum160k-shadows.json").read_text())
+    seed = 2**31 + 22
+    spec = museum.build(cfg, seed)
+    k = int(cfg["animate"]["instance"])
+    eng = port.engine(spec, cfg, dev, 80.0)
+    poses = path(cfg["path"], 240)
+    for i in range(4):
+        m = (rotation_y(math.radians(i)) @ spec.instances[k].transform).astype(np.float32)
+        eng.set_instance_transform(k, m)
+        eng.tick()
+        port.set_pose(eng, poses[40 * i])
+        before = dict(rf.render_cuda.variant_launches)
+        img = eng.render()  # past the warm-up, over 80 ms raises
+        after = rf.render_cuda.variant_launches
+        assert after.get("atlas1+shadows", 0) == before.get("atlas1+shadows", 0) + 1
+        assert after.get("atlas1", 0) == before.get("atlas1", 0)
+    pose = poses[120]
+    w, h = int(cfg["width"]), int(cfg["height"])
+    xy = [(960.0, 540.0), (300.0, 800.0), (1500.0, 700.0), (1000.0, 300.0)]
+    picks = [eng.pick(x, y) for x, y in xy]
+    px, py = sample_pixels(seed, 8192, w, h, dev)
+    got = img[py.long(), px.long()].float().cpu()
+    del eng, img
+    torch.cuda.empty_cache()
+    ref = RefScene(spec, dev)
+    ref.set_transform(k, m)
+    limits = check.limits(HERE, "museum160k-shadows-walk")
+    off = check.pixels_off(got, ref.frame_pixels(pose, cfg, px, py).float().cpu())
+    assert off <= limits["pixels_off"], off
+    assert sum(bool(p.hit) for p in picks) == 4
+    assert not [xy for p, xy in zip(picks, xy)
+                if check.pick_disagrees(p, ref.pick(pose, cfg, *xy))]
