@@ -2307,7 +2307,9 @@ def phase_entry(dev, results) -> None:
     frame_launches = read_counts()
     variants = dict(rf.render_cuda.variant_launches)
     call_host_ms = host_ms(call, FRAMES)
-    # ---- the K2.2 launch of one frame against its plain version
+    # ---- the K2.2 launch of one frame against its plain version: the
+    # frame's pieces (``render_fused_camera``), whose image the frame
+    # plan's equals bit for bit
     rec = []
     real = rf.render_cuda
 
@@ -2316,27 +2318,29 @@ def phase_entry(dev, results) -> None:
         rec.append((args, kw, out))
         return out
 
+    w, h = ent.ENTRY_WH
     # the wrapper counts on the module's ``render_cuda``, the recorder
     # while it stands in
     recorder.launches, recorder.variant_launches = 0, {}
     rf.render_cuda = recorder
     try:
-        img = call()
+        pieces, _ = rf.render_fused_camera(scene, frame, w, h, 2, post=True)
         torch.cuda.synchronize()
     finally:
         rf.render_cuda = real
+    img = call()
     (args, kw, out), = rec
     check = compare_options(out, rf.render_fused_plain(*args, dev, **kw), 0, False)
     del out, rec
-    w, h = ent.ENTRY_WH
     body = {"entry": {
         "frame": f"{w}x{h}", "frame_ms": ms, "frame_ms_min": times[0], "frame_ms_max": times[-1],
         "host_issue_ms": call_host_ms, "frames": FRAMES + WARMUP, "launches": frame_launches,
         "variants": variants, "k22_vs_plain": check,
+        "planned_equals_pieces": bool(torch.equal(img, pieces)),
         "finite": bool(torch.isfinite(img).all()) and tuple(img.shape) == (h, w, 3),
     }}
     c = body["entry"]
-    c["ok"] = (check["ok"] and c["finite"]
+    c["ok"] = (check["ok"] and c["finite"] and c["planned_equals_pieces"]
                and frame_launches == {"K2.1": 0, "K2.2": FRAMES + WARMUP, "K2.3": 0, "K2.4": 0})
     ok = c["ok"]
     # ---- the dry runs: 1 rank (NCCL, in process, counted), 2 gloo ranks

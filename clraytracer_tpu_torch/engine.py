@@ -14,9 +14,13 @@ reference's Engine.cpp/Engine.hpp).
 * **Instance edits**: ``set_instance_transform`` inverts the edited
   instance's transform into the builder's kept table (SetMeshMatrix,
   Renderer.cpp:288-298) and marks the instance table dirty; the next
-  ``tick`` uploads the instance arrays (the dirty-range upload,
+  ``tick`` uploads the kept instance rows once (the dirty-range upload,
   Renderer.cpp:312-320) and replaces the instance rows and world boxes
   alone (``ops.trace.with_instances``); the other tables stay.
+* **Frames**: ``render`` hands ``render_frame`` a ``render.CameraFrame``
+  (the camera, the sun and the projection's inverse, kept for the camera's
+  configuration and size); on the card its frame plan
+  (``render_fused.render_plan``) takes the kernel's camera row from it.
 * **Profiler stats** go to ``utils.timer.profiler_stats``
   (Engine_UpdateProfilerStats, Engine.cpp:36-51): the spans ``engine.start``,
   ``engine.tick`` (``engine.instances`` then ``tables.instances`` inside it),
@@ -43,7 +47,7 @@ from clraytracer_tpu_torch.config import CameraConfig, RenderConfig
 from clraytracer_tpu_torch.device import resolve_device
 from clraytracer_tpu_torch.ops.trace import with_instances
 from clraytracer_tpu_torch.raycast import HitRecord, pick
-from clraytracer_tpu_torch.render import TRACERS, frame_inputs_from_camera, render_frame
+from clraytracer_tpu_torch.render import TRACERS, CameraFrame, render_frame
 from clraytracer_tpu_torch.scene.builder import SceneBuilder
 from clraytracer_tpu_torch.scene.types import Scene
 from clraytracer_tpu_torch.utils.timer import ScopeTimer, profiler_stats
@@ -92,6 +96,10 @@ class Engine:
         self._end_of_frame: list[Callable[[], None]] = []
         self._on_exit: list[Callable[[], None]] = []
         self._instances_dirty = False
+        #: (camera config, width, height, its projection's inverse [16] f32)
+        self._projection = None
+        #: the watchdog's two CUDA events, reused by every frame
+        self._events = None
 
     # -- events (Engine.cpp:13-28) -------------------------------------------
 
@@ -118,14 +126,24 @@ class Engine:
         self.camera = self.camera.updated(**kwargs)
 
     def tick(self, dt: float = 1.0 / 60.0) -> None:
-        """Per-frame update: upload the edited instance table and replace
-        the rows and boxes that track it (``ops.trace.with_instances``)."""
+        """Per-frame update: upload the edited instance rows and replace
+        the rows and boxes that track them (``ops.trace.with_instances``)."""
         with ScopeTimer("engine.tick", log=False):
             if self._instances_dirty and self.scene is not None:
                 with ScopeTimer("engine.instances", log=False):
-                    instances = self.builder.instance_arrays(device=self.device)
-                self.scene = with_instances(self.scene, instances)
+                    rows = self.builder.instance_rows(device=self.device)
+                self.scene = with_instances(self.scene, rows, self.builder.mesh_index)
                 self._instances_dirty = False
+
+    def _frame(self) -> CameraFrame:
+        """The frame's inputs: the camera as it stands, the projection's
+        inverse kept while its configuration and size stay."""
+        cam, kept = self.camera, self._projection
+        if kept is None or not (kept[0] is cam.config and kept[1] == cam.width
+                                and kept[2] == cam.height):
+            kept = self._projection = (cam.config, cam.width, cam.height,
+                                       cam.inverse_projection.reshape(16))
+        return CameraFrame(cam, self.sun_angle, kept[3])
 
     def render(self) -> torch.Tensor:
         """The current frame, [H, W, 3] on the engine's device
@@ -144,12 +162,14 @@ class Engine:
         tracer = TRACERS[self.tracer]
         cuda = self.device.type == "cuda"
         with ScopeTimer("engine.render", log=False):
-            frame = frame_inputs_from_camera(self.camera, self.sun_angle)
+            frame = self._frame()
             if budget is None:
                 img = render_frame(self.scene, frame, self.config, self.device, tracer)
             elif cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
+                if self._events is None:
+                    self._events = (torch.cuda.Event(enable_timing=True),
+                                    torch.cuda.Event(enable_timing=True))
+                start, end = self._events
                 start.record()
                 img = render_frame(self.scene, frame, self.config, self.device, tracer)
                 end.record()

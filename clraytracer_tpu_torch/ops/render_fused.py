@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -51,6 +52,7 @@ from clraytracer_tpu_torch.ops.trace import (
     KernelTables,
     check_counters,
     frame_tables,
+    kept_tables,
     kernel_tables,
     trace_plain,
 )
@@ -175,6 +177,12 @@ def _sun(sun_angle) -> tuple[float, float]:
     """(sin, cos) of the sun angle in f32, computed on the host."""
     angle = torch.as_tensor(sun_angle, dtype=torch.float32).cpu()
     return tuple(torch.stack([torch.sin(angle), torch.cos(angle)]).tolist())
+
+
+@functools.lru_cache(maxsize=16)
+def sun_row(sun_angle: float) -> tuple[float, float]:
+    """``_sun`` of a host angle, kept per angle."""
+    return _sun(sun_angle)
 
 
 def ray_row(sun_angle) -> CameraRow:
@@ -543,6 +551,40 @@ def render_cuda(
     ``counters`` can be read apart."""
     from clraytracer_tpu_torch.runtime import kernels
 
+    params, shape, name = _render_params(
+        kt, ft, cr, width, height, trows, rows_total, bounces, counters,
+        atlas_mode=atlas_mode, shadows=shadows, gi_seed=gi_seed,
+        shadow_counters=shadow_counters, rays=rays, carry_out=carry_out, carry=carry,
+        start_bounce=start_bounce, keys=keys, order=order,
+    )
+    dev = kt.planes.device
+    # a carry-in launch writes into the carry, its rays its planes 9..14
+    out = carry if shape is None else torch.empty(shape, dtype=torch.float32, device=dev)
+    lib = kernels.build_all()["render.cu"]
+    tables = kt.as_c()
+    code = lib.clrt_render(
+        ctypes.byref(tables), ctypes.byref(params), out.data_ptr(),
+        kernels.ptr(counters), kernels.ptr(shadow_counters), kernels.stream_handle(dev),
+    )
+    kernels.check(code, "clrt_render")
+    render_cuda.launches += 1
+    render_cuda.variant_launches[name] = render_cuda.variant_launches.get(name, 0) + 1
+    return out if carry is None else out[:9]
+
+
+def _render_params(
+    kt: KernelTables, ft: FrameTables, cr: CameraRow, width: int, height: int, trows: int,
+    rows_total: int, bounces: int, counters: torch.Tensor | None, *, atlas_mode: int,
+    shadows: bool, gi_seed: int | None, shadow_counters: torch.Tensor | None,
+    rays: torch.Tensor | None, carry_out: bool, carry: torch.Tensor | None,
+    start_bounce: int, keys: torch.Tensor | None, order: torch.Tensor | None,
+) -> tuple:
+    """``render_cuda``'s checks and launch parameters → (its
+    ``RenderParamsC``, the shape of the planes it writes, None for a
+    carry-in launch, which writes into the carry, and its instantiation's
+    ``variant`` name)."""
+    from clraytracer_tpu_torch.runtime import kernels
+
     dev = kt.planes.device
     if shadow_counters is not None and not shadows:
         raise ValueError("shadow_counters count the shadow walk: pass shadows=True")
@@ -567,16 +609,12 @@ def render_cuda(
         if shadow_counters is not None:
             raise ValueError("a carry-in launch walks no shadow ray")
         shadows = False
-        out = carry  # in place; its rays are its planes 9..14
+        shape = None
         rays_ptr = carry[9].data_ptr()
     else:
-        out = torch.empty(
-            (9 + deferred_planes(atlas_mode, gi) * bounces
-             + (CARRY_PLANES - 9 if carry_out else 0), n),
-            dtype=torch.float32, device=dev,
-        )
+        shape = (9 + deferred_planes(atlas_mode, gi) * bounces
+                 + (CARRY_PLANES - 9 if carry_out else 0), n)
         rays_ptr = kernels.ptr(rays)
-    lib = kernels.build_all()["render.cu"]
     # the kernel indexes the constants by its own bounce: start at the
     # global bounce's
     atm = _atm_tensor(start_bounce + bounces, str(dev))[start_bounce:]
@@ -590,17 +628,9 @@ def render_cuda(
         kernels.ptr(carry), start_bounce, int(carry_out), kernels.ptr(keys),
         kernels.ptr(order),
     )
-    tables = kt.as_c()
-    code = lib.clrt_render(
-        ctypes.byref(tables), ctypes.byref(params), out.data_ptr(),
-        kernels.ptr(counters), kernels.ptr(shadow_counters), kernels.stream_handle(dev),
-    )
-    kernels.check(code, "clrt_render")
-    render_cuda.launches += 1
     name = variant(atlas_mode, shadows, gi, rays is not None or carry is not None,
                    "in" if carry is not None else "out" if carry_out else None)
-    render_cuda.variant_launches[name] = render_cuda.variant_launches.get(name, 0) + 1
-    return out if carry is None else out[:9]
+    return params, shape, name
 
 
 render_cuda.launches = 0
@@ -720,11 +750,34 @@ def finish_cuda(
         raise ValueError("finish_cuda needs the scene on a CUDA device")
     if out.dtype != torch.float32 or not out.is_contiguous() or out.device != dev:
         raise ValueError("out must be a contiguous f32 tensor on the tables' device")
+    params, shape, name, _pool = _finish_params(scene, ft, tuple(out.shape), atlas_mode, gi,
+                                                image)
+    params.planes = out.data_ptr()
+    res = torch.empty(shape, dtype=torch.float32, device=dev)
+    lib = kernels.build_all()["render.cu"]
+    code = lib.clrt_finish(ctypes.byref(params), res.data_ptr(), kernels.stream_handle(dev))
+    kernels.check(code, "clrt_finish")
+    finish_cuda.launches += 1
+    finish_cuda.variant_launches[name] = finish_cuda.variant_launches.get(name, 0) + 1
+    return res
+
+
+def _finish_params(scene: Scene, ft: FrameTables, planes: tuple, atlas_mode: int, gi: bool,
+                   image: tuple | None) -> tuple:
+    """``finish_cuda``'s checks and launch parameters for K2.2's planes of
+    shape ``planes`` on the card → (its ``FinishParamsC``, whose planes
+    pointer the launch fills in, the shape of what it writes, its
+    instantiation's ``finish_variant`` name, and the f32 texel pool it
+    points into, or None)."""
+    from clraytracer_tpu_torch.runtime import kernels
+
     if atlas_mode not in (0, 1, 2):
         raise ValueError(f"atlas_mode must be 0, 1 or 2, not {atlas_mode}")
     k = deferred_planes(atlas_mode, gi)
-    n = out[0].numel()
-    if out.shape[0] < 9 or (k and (out.shape[0] - 9) % k) or n == 0:
+    n = 1
+    for d in planes[1:]:
+        n *= d
+    if planes[0] < 9 or (k and (planes[0] - 9) % k) or n == 0:
         raise ValueError(f"out must hold 9 + {k} * bounces planes of rays")
     pk = scene.packed
     pool_u32, pool = pk.texels_u32, None
@@ -740,28 +793,22 @@ def finish_cuda(
         sky_desc = ft.tex[row].data_ptr()
     if image is None:
         dims = (0, 0, 0, 0)
-        res = torch.empty((3,) + tuple(out.shape[1:]), dtype=torch.float32, device=dev)
+        shape = (3,) + tuple(planes[1:])
     else:
         width, height, (_kind, trows, tiles_x, tiles_y) = image
         if n != tiles_y * tiles_x * trows * 128 or width > tiles_x * 128 or (
                 height > tiles_y * trows):
             raise ValueError("the image's strip layout must cover the planes' rays")
         dims = (trows, tiles_x, width, height)
-        res = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+        shape = (height, width, 3)
     params = kernels.FinishParamsC(
-        out.data_ptr(), n, (out.shape[0] - 9) // k if k else 0, atlas_mode, int(gi),
+        None, n, (planes[0] - 9) // k if k else 0, atlas_mode, int(gi),
         int(image is not None), int(pk.skybox_w), int(pk.skybox_h), int(pk.skybox_off),
         sky_desc, kernels.ptr(pool_u32), kernels.ptr(pool),
         0 if table is None else table.shape[0], 0 if pool is None else pool.shape[1],
         ft.mat_rows.data_ptr(), ft.mat_rows.shape[0], *dims,
     )
-    lib = kernels.build_all()["render.cu"]
-    code = lib.clrt_finish(ctypes.byref(params), res.data_ptr(), kernels.stream_handle(dev))
-    kernels.check(code, "clrt_finish")
-    finish_cuda.launches += 1
-    name = finish_variant(atlas_mode, gi, image is not None)
-    finish_cuda.variant_launches[name] = finish_cuda.variant_launches.get(name, 0) + 1
-    return res
+    return params, shape, finish_variant(atlas_mode, gi, image is not None), pool
 
 
 finish_cuda.launches = 0
@@ -895,6 +942,156 @@ def render_fused_camera(
         image = (width, height, ("strip", trows, tiles_x, tiles_y)) if post else None
         img = _finish(scene, ft, out, mode, gi_seed is not None, image)
     return img, (trows, tiles_x, tiles_y)
+
+
+class FramePlan:
+    """A whole camera-mode K2.2 frame and its finish on the card, over one
+    scene's tables and one set of frame options, with all that depends on
+    nothing else made once (``render_plan``): the two launches' parameter
+    blocks (``_render_params``, ``_finish_params``: the tables' pointers,
+    the strip geometry, the flags, the atmospheric constants), the
+    traversal tables' block, the kernels' entries and their variant names.
+    A frame (a call) writes its camera row and sun into the kept
+    parameters, then allocates fresh planes and a fresh image and makes
+    the launches ``render_cuda`` and ``finish_cuda`` make, counted as
+    theirs, under the plan's lock: the blocks are shared until the launch
+    copies them. The tables of an instance edit give the kept traversal
+    block their instance pointers and counts, and nothing else."""
+
+    def __init__(self, scene: Scene, kept, width: int, height: int, bounces: int,
+                 shadows: bool, gi: bool, post: bool) -> None:
+        from clraytracer_tpu_torch.runtime import kernels
+
+        kt, ft, pk = kept.kernel, kept.frame, scene.packed
+        mode = atlas_mode_of(scene)
+        trows = tile_rows(width * height)
+        tiles_x = -(-width // 128)
+        tiles_y = -(-height // trows)
+        rows_total = tiles_y * tiles_x * trows
+        self.layout = (trows, tiles_x, tiles_y)
+        self.gi_seed = 0 if gi else None
+        self.params, shape, self.k22 = _render_params(
+            kt, ft, CameraRow(cam=(0.0,) * 36, sun=(0.0, 0.0)), width, height, trows,
+            rows_total, bounces, None, atlas_mode=mode, shadows=shadows, gi_seed=self.gi_seed,
+            shadow_counters=None, rays=None, carry_out=False, carry=None, start_bounce=0,
+            keys=None, order=None,
+        )
+        self.planes = (shape[0], rows_total, 128)
+        image = (width, height, ("strip",) + self.layout) if post else None
+        self.fparams, self.shape, self.finish, pool = _finish_params(
+            scene, ft, self.planes, mode, gi, image)
+        self.tables = kt.as_c()
+        self.kernel = kt
+        self.device = kt.planes.device
+        lib = kernels.build_all()["render.cu"]
+        self._render, self._finish = lib.clrt_render, lib.clrt_finish
+        self._check, self._stream = kernels.check, kernels.stream_handle
+        self._lock = threading.Lock()
+        self._refs = (ctypes.byref(self.tables), ctypes.byref(self.params),
+                      ctypes.byref(self.fparams))
+        # what the parameters point into, and the scene's state they were
+        # read from besides the kept tables
+        self._held = (_atm_tensor(bounces, str(self.device)), ft, pool)
+        self._state = (scene.atlas, scene.materials, scene.procedural_tex, scene.skybox_tex,
+                       pk.texels_u32, pk.skybox_w, pk.skybox_h, pk.skybox_off, MAX_FUSED_MATERIALS)
+
+    def holds(self, scene: Scene) -> bool:
+        """Was the plan made from this scene's textures, materials and sky
+        (and the atlas modes' material bound as it stands)?"""
+        a, pk = self._state, scene.packed
+        return (scene.atlas is a[0] and scene.materials is a[1] and scene.procedural_tex is a[2]
+                and scene.skybox_tex == a[3] and pk.texels_u32 is a[4] and pk.skybox_w == a[5]
+                and pk.skybox_h == a[6] and pk.skybox_off == a[7]
+                and MAX_FUSED_MATERIALS == a[8])
+
+    def __call__(self, kt: KernelTables, cr: CameraRow, gi_seed: int | None) -> torch.Tensor:
+        """The frame over the tables ``kt`` with the camera row ``cr``: K2.2
+        into fresh planes, then the finish into a fresh image."""
+        dev = self.device
+        stream = self._stream(dev)
+        tables, params, fparams = self._refs
+        with self._lock:
+            with ScopeTimer("render.k22", log=False):
+                self._write(kt, cr, gi_seed)
+                out = torch.empty(self.planes, dtype=torch.float32, device=dev)
+                self._check(self._render(tables, params, out.data_ptr(), None, None, stream),
+                            "clrt_render")
+                render_cuda.launches += 1
+                counts = render_cuda.variant_launches
+                counts[self.k22] = counts.get(self.k22, 0) + 1
+            with ScopeTimer("render.finish", log=False):
+                img = torch.empty(self.shape, dtype=torch.float32, device=dev)
+                self.fparams.planes = out.data_ptr()
+                self._check(self._finish(fparams, img.data_ptr(), stream), "clrt_finish")
+                finish_cuda.launches += 1
+                counts = finish_cuda.variant_launches
+                counts[self.finish] = counts.get(self.finish, 0) + 1
+        return img
+
+    def _write(self, kt: KernelTables, cr: CameraRow, gi_seed: int | None) -> None:
+        """The frame's camera row, sun and GI seed, and the instance part of
+        ``kt`` where the tables changed, into the kept blocks."""
+        if kt is not self.kernel:
+            t = self.tables
+            if (kt.inst_box.data_ptr() | kt.chunk_box.data_ptr()) % 16:
+                raise ValueError("box and plane tables must be 16-byte aligned")
+            t.inst, t.ranges, t.n_inst = kt.inst.data_ptr(), kt.ranges.data_ptr(), kt.n_inst
+            t.inst_box, t.chunk_box = kt.inst_box.data_ptr(), kt.chunk_box.data_ptr()
+            t.n_chunks = kt.n_chunks
+            self.kernel = kt
+        p = self.params
+        p.cam[:] = cr.cam
+        p.sun_sin, p.sun_cos = cr.sun
+        if gi_seed != self.gi_seed:
+            p.gi_base = rng.gi_seed_rows(gi_seed, 1)[0]
+            self.gi_seed = gi_seed
+
+
+def plan_key(width: int, height: int, bounces: int, shadows: bool = False,
+             gi_seed: int | None = None, post: bool = False) -> tuple:
+    """The frame options a ``FramePlan`` is made for (the GI seed is a
+    parameter it writes, so a new seed needs no new plan)."""
+    return (width, height, bounces, bool(shadows), gi_seed is not None, bool(post))
+
+
+def render_plan(
+    scene: Scene,
+    frame,  # render.FrameInputs or render.CameraFrame
+    width: int,
+    height: int,
+    bounces: int,
+    enable_shadows: bool = False,
+    gi_seed: int | None = None,
+    post: bool = False,
+) -> tuple[torch.Tensor, tuple[int, int, int]] | None:
+    """A whole camera-mode frame on the card through the ``FramePlan`` kept
+    with the scene's tables for these options, made at its first use →
+    what ``render_fused_camera`` returns for the same arguments, bit for
+    bit; None, having done nothing, where the frame is not K2.2's on the
+    card (tables on the CPU, a scene the fused kernel does not cover).
+    ``frame.kernel_row()`` gives the camera row. Counters:
+    ``render_plan.builds`` (plans made) and ``render_plan.frames`` (frames
+    served by a plan already kept)."""
+    key = plan_key(width, height, bounces, enable_shadows, gi_seed, post)
+    kept = kept_tables(scene, build=False)
+    plan = None if kept is None else kept.plans.get(key)
+    if plan is None or not plan.holds(scene):
+        if scene.device.type != "cuda" or not fused_path_available(scene, True, True):
+            return None
+        plan = None
+    with ScopeTimer("render.prepare", log=False):
+        if plan is None:
+            kept = kept_tables(scene)
+            plan = kept.plans[key] = FramePlan(scene, kept, *key)
+            render_plan.builds += 1
+        else:
+            render_plan.frames += 1
+        cr = frame.kernel_row()
+    return plan(kept.kernel, cr, gi_seed), plan.layout
+
+
+render_plan.builds = 0
+render_plan.frames = 0
 
 
 def render_fused(

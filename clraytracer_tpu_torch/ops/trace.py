@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from clraytracer_tpu_torch.ops.clusters import CLUSTER_SIZE
-from clraytracer_tpu_torch.ops.shade import _OFF_MASK, _OFF_SHIFT, _inst_rows
+from clraytracer_tpu_torch.ops.shade import _OFF_MASK, _OFF_SHIFT
 from clraytracer_tpu_torch.scene import procedural_tex as ptex
 from clraytracer_tpu_torch.scene.types import MISS_DISTANCE, Clusters, Instances, Scene
 from clraytracer_tpu_torch.utils.timer import ScopeTimer
@@ -128,12 +128,15 @@ class FrameTables:
 
 @dataclasses.dataclass(frozen=True)
 class _Kept:
-    """A ``packed`` object's tables, for the ``clusters`` and meshes named."""
+    """A ``packed`` object's tables, for the ``clusters`` and meshes named,
+    and the frame plans made over them (``render_fused.render_plan``), which
+    an instance edit hands on with the frame tables."""
 
     clusters: Clusters
     mesh_index: tuple[int, ...]
     kernel: KernelTables
     frame: FrameTables
+    plans: dict
 
 
 def _per_slot(*tables: torch.Tensor) -> torch.Tensor:
@@ -150,20 +153,25 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_tables(scene: Scene) -> KernelTables:
-    """The scene's traversal tables (``_tables``)."""
-    return _tables(scene).kernel
+    """The scene's traversal tables (``kept_tables``)."""
+    return kept_tables(scene).kernel
 
 
 def frame_tables(scene: Scene) -> FrameTables:
-    """The scene's fused-frame tables (``_tables``)."""
-    return _tables(scene).frame
+    """The scene's fused-frame tables (``kept_tables``)."""
+    return kept_tables(scene).frame
 
 
-def _tables(scene: Scene) -> _Kept:
-    """The tables kept with ``scene.packed``, built at the scene's first use."""
+def kept_tables(scene: Scene, build: bool = True) -> _Kept | None:
+    """The tables kept with ``scene.packed`` for its instance meshes, with
+    the frame plans made over them; built at the scene's first use, or
+    None there without ``build``."""
     kept = _kept(scene)
-    if kept is not None and kept.mesh_index == scene.instances.mesh_index:
+    if kept is not None and (kept.mesh_index is scene.instances.mesh_index
+                             or kept.mesh_index == scene.instances.mesh_index):
         return kept
+    if not build:
+        return None
     cl, pk = scene.clusters, scene.packed
     if cl is None or pk is None or cl.hyper_aabb is None:
         raise NotImplementedError(
@@ -200,9 +208,11 @@ def _kept(scene: Scene) -> _Kept | None:
     return kept if kept is not None and kept.clusters is scene.clusters else None
 
 
-def _keep(scene: Scene, kernel: KernelTables, frame: FrameTables) -> _Kept:
+def _keep(scene: Scene, kernel: KernelTables, frame: FrameTables,
+          plans: dict | None = None) -> _Kept:
     """Keep the tables with ``scene.packed``: the one write into a scene object."""
-    kept = _Kept(scene.clusters, scene.instances.mesh_index, kernel, frame)
+    kept = _Kept(scene.clusters, scene.instances.mesh_index, kernel, frame,
+                 {} if plans is None else plans)
     scene.packed.__dict__["_tables"] = kept
     return kept
 
@@ -230,27 +240,42 @@ def carry(old: Scene, new: Scene) -> Scene:
     """``new`` (``old`` with a new ``packed`` object, maybe new instances)
     with tables made from ``old``'s, if it has them: new instance rows and
     world boxes, new ranges and material rows where those changed; the
-    other tables are the same tensors."""
+    other tables are the same tensors. The frame plans go with the frame
+    tables: new material rows start none."""
     kept = _kept(old)
     if kept is None:
         return new
     kt, ft, pk = kept.kernel, kept.frame, new.packed
-    if new.instances.mesh_index != kept.mesh_index:
-        kt = dataclasses.replace(kt, **_ranges(new.clusters, new.instances.mesh_index))
+    mesh_index = new.instances.mesh_index
+    if mesh_index is not kept.mesh_index and mesh_index != kept.mesh_index:
+        kt = dataclasses.replace(kt, **_ranges(new.clusters, mesh_index))
+    plans = kept.plans
     if pk.mat_rows is not old.packed.mat_rows:
         ft = dataclasses.replace(ft, mat_rows=pk.mat_rows.float().contiguous())
-    _keep(new, _with_rows(kt, pk.inst_rows), ft)
+        plans = None
+    _keep(new, _with_rows(kt, pk.inst_rows), ft, plans)
     return new
 
 
-def with_instances(scene: Scene, instances: Instances) -> Scene:
-    """``scene`` with the edited instance table (``Engine.tick``): new
-    instance rows (``build_shading_tables``' expression) in its packed
-    object and tables, with their world boxes (``carry``), and no other."""
+def with_instances(scene: Scene, inst_rows: torch.Tensor,
+                   mesh_index: tuple[int, ...]) -> Scene:
+    """``scene`` with the edited instance rows (``Engine.tick``):
+    ``inst_rows`` [I, 17] f32 (inverse transform | material start,
+    ``SceneBuilder.instance_rows``) of the instances of ``mesh_index``
+    become its packed object's and tables' instance rows, with their world
+    boxes (``carry``), and no other table. The instance table's inverse
+    transforms are a view of them; its material starts, which only a new
+    instance changes, stay the same tensor for the same ``mesh_index``."""
     with ScopeTimer("tables.instances", log=False):
-        new = dataclasses.replace(scene, instances=instances)
-        packed = dataclasses.replace(scene.packed, inst_rows=_inst_rows(new))
-        return carry(scene, dataclasses.replace(new, packed=packed))
+        old = scene.instances
+        if mesh_index is old.mesh_index:
+            material_start = old.material_start
+        else:
+            material_start = inst_rows[:, 16].to(torch.int32)
+        instances = Instances(inverse_transform=inst_rows[:, :16].reshape(-1, 4, 4),
+                              material_start=material_start, mesh_index=mesh_index)
+        packed = dataclasses.replace(scene.packed, inst_rows=inst_rows)
+        return carry(scene, dataclasses.replace(scene, instances=instances, packed=packed))
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +548,7 @@ def pick_cuda(scene: Scene, origin: np.ndarray, direction: np.ndarray) -> torch.
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError("pick_cuda needs a scene on a CUDA device")
-    kept = _tables(scene)
+    kept = kept_tables(scene)
     kt = kept.kernel
     attr, mat, texels = scene.packed.tri_attr, kept.frame.mat_rows, scene.atlas.texels
     f32 = torch.float32

@@ -95,6 +95,10 @@ class FrameInputs(NamedTuple):
     camera_position: torch.Tensor  # [3]
     sun_angle: torch.Tensor  # []
 
+    def kernel_row(self) -> rf.CameraRow:
+        """The fused kernel's camera row of a whole frame."""
+        return rf.camera_row(self)
+
 
 def frame_inputs_from_camera(camera: Camera, sun_angle: float) -> FrameInputs:
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
@@ -104,6 +108,34 @@ def frame_inputs_from_camera(camera: Camera, sun_angle: float) -> FrameInputs:
         camera_position=f32(camera.position),
         sun_angle=f32(sun_angle),
     )
+
+
+class CameraFrame(NamedTuple):
+    """Per-frame inputs left as the camera's host state (``Engine.render``'s
+    frame): ``render_frame`` takes the fused kernel's camera row straight
+    from it where its frame plan serves the frame, and its
+    ``FrameInputs`` elsewhere."""
+
+    camera: Camera
+    sun_angle: float
+    #: [16] f32: ``camera.inverse_projection``, kept by the caller for the
+    #: camera's configuration and size
+    inverse_projection: np.ndarray
+
+    def inputs(self) -> FrameInputs:
+        return frame_inputs_from_camera(self.camera, self.sun_angle)
+
+    def kernel_row(self) -> rf.CameraRow:
+        """``camera_row(self.inputs())``, bit for bit, from the kept
+        projection inverse and the camera's own view inverse."""
+        cam = self.camera
+        row = np.concatenate([self.inverse_projection, cam.inverse_view.reshape(16),
+                              np.asarray(cam.position, np.float32).reshape(3), _ROW0])
+        return rf.CameraRow(cam=tuple(row.tolist()), sun=rf.sun_row(self.sun_angle))
+
+
+#: cam[35] of a whole frame's camera row (``render_fused.camera_row``'s row0)
+_ROW0 = np.zeros(1, np.float32)
 
 
 def _trace_tiled(
@@ -221,8 +253,29 @@ def render_frame(
 ) -> torch.Tensor:
     """Full frame: trace + post chain → [H, W, 3] on the scene's device
     (render.py:503 of the JAX package, its three branches). ``device``
-    (None = the CUDA card) must be where the scene lies."""
+    (None = the CUDA card) must be where the scene lies. ``frame``:
+    ``FrameInputs``, or a ``CameraFrame``.
+
+    A whole camera-mode K2.2 frame on the card (one sample, no FXAA, no
+    refraction, K2.1's tracer, a scene the fused kernel covers) goes
+    through the scene's kept frame plan (``render_fused.render_plan``):
+    the same launches as ``render_fused_camera``'s, bit for bit, from
+    parameters made once. Every other frame runs as below."""
     dev = resolve_device(device)
+    w, h = config.width, config.height
+    if (dev.type == "cuda" and config.samples == 1
+            and not (config.enable_post and config.enable_fxaa)
+            and not config.enable_refraction and config.reference_parity_shading
+            and config.integer_colors and (tracer is trace_best or tracer is trace)):
+        got = rf.render_plan(scene, frame, w, h, config.bounces, config.enable_shadows,
+                             config.gi_seed if config.enable_gi else None, config.enable_post)
+        if got is not None:
+            img, (trows, tiles_x, tiles_y) = got
+            if config.enable_post:
+                return img
+            return rf.untile(img, ("strip", trows, tiles_x, tiles_y), h, w).permute(1, 2, 0)
+    if isinstance(frame, CameraFrame):
+        frame = frame.inputs()
     if scene.device.type != dev.type:
         raise ValueError(f"scene is on {scene.device}, frame asked for {dev}")
     opts = dict(
@@ -235,7 +288,6 @@ def render_frame(
         refraction_ior=config.refraction_ior,
         enable_gi=config.enable_gi,
     )
-    w, h = config.width, config.height
     if config.samples > 1:
         # N sub-pixel-jittered frames averaged before post, each with its
         # own GI stream

@@ -99,6 +99,46 @@ def pad8(mn: np.ndarray, mx: np.ndarray) -> np.ndarray:
     return np.concatenate([flat, empty]).reshape(-1, 128)
 
 
+class _RowUpload:
+    """The tick's upload of the instance rows: kept pinned blocks, used in
+    turn, each written again only once the copy that read it has run (its
+    event), and cut anew when the instance count changes."""
+
+    BLOCKS = 3
+
+    def __init__(self) -> None:
+        self._count = -1  # the instance count the blocks hold
+        self._blocks: list[torch.Tensor] = []  # pinned [I, 17] f32
+        self._host: list[np.ndarray] = []  # their numpy views
+        self._events: list = []
+        self._stream = None  # the torch stream the copies were queued on
+        self._next = 0
+
+    def __call__(self, rows: np.ndarray, dev: torch.device) -> torch.Tensor:
+        from clraytracer_tpu_torch.runtime.kernels import stream_handle
+
+        if rows.shape[0] != self._count:
+            self._cut(rows.shape[0])
+        k = self._next
+        self._next = (k + 1) % self.BLOCKS
+        self._events[k].synchronize()  # the copy that last read block k has run
+        np.copyto(self._host[k], rows)
+        out = self._blocks[k].to(dev, non_blocking=True)
+        if self._stream is None or self._stream.cuda_stream != stream_handle(out.device):
+            self._stream = torch.cuda.current_stream(out.device)
+        self._events[k].record(self._stream)
+        return out
+
+    def _cut(self, n: int) -> None:
+        for event in self._events:
+            event.synchronize()
+        self._blocks = [torch.empty((n, 17), dtype=torch.float32, pin_memory=True)
+                        for _ in range(self.BLOCKS)]
+        self._host = [b.numpy() for b in self._blocks]
+        self._events = [torch.cuda.Event() for _ in range(self.BLOCKS)]
+        self._count = n
+
+
 class SceneBuilder:
     """Accumulates meshes, textures, materials and instances; ``build()``
     produces an immutable Scene."""
@@ -110,9 +150,13 @@ class SceneBuilder:
         self._mesh_material_start: list[int] = []
         self._materials: list[_MatRec] = []
         self._instances: list[_InstanceRec] = []
-        #: [I, 4, 4] f32 inverse of each instance's transform, kept between
-        #: ticks: an edit inverts only the instance it changes
-        self._inverse = np.zeros((0, 4, 4), np.float32)
+        #: [I, 17] f32 instance rows kept between ticks (the kernels' layout:
+        #: inverse transform | material start): an edit inverts only the
+        #: instance it changes and writes its row
+        self._rows = np.zeros((0, 17), np.float32)
+        #: each instance's mesh, one tuple until the next ``add_instance``
+        self.mesh_index: tuple[int, ...] = ()
+        self._upload = _RowUpload()
         self._procedurals: dict[int, ptex.ProceduralTexture] = {
             WHITE_TEXTURE: ptex.constant((255, 255, 255)),
             BLACK_TEXTURE: ptex.constant((0, 0, 0)),
@@ -243,23 +287,35 @@ class SceneBuilder:
         m = np.eye(4, dtype=np.float32) if transform is None else np.asarray(
             transform, np.float32
         )
-        inv = _inverse(m)
+        row = np.append(_inverse(m).reshape(16), np.float32(material))
         self._instances.append(_InstanceRec(mesh=mesh, material_start=material))
-        self._inverse = np.concatenate([self._inverse, inv[None]])
+        self._rows = np.concatenate([self._rows, row[None]])
+        self.mesh_index = self.mesh_index + (int(mesh),)
         return len(self._instances) - 1
 
     def set_instance_transform(self, handle: int, transform: np.ndarray) -> None:
         """SetMeshMatrix equivalent (Renderer.cpp:288-298): the instance's
-        inverse is computed here, once; the next ``instance_arrays`` carries
-        it."""
-        self._inverse[handle] = _inverse(np.asarray(transform, np.float32))
+        inverse is computed here, once, into the instance's kept row; the
+        next ``instance_rows`` or ``instance_arrays`` carries it."""
+        self._rows[handle, :16] = _inverse(np.asarray(transform, np.float32)).reshape(16)
 
     def _instance_host(self) -> tuple[np.ndarray, np.ndarray]:
         """The instances' inverse transforms [I, 4, 4] (a copy of the kept
-        table, which later edits overwrite) and material starts [I], on the
+        rows, which later edits overwrite) and material starts [I], on the
         host."""
         mat_start = np.array([r.material_start for r in self._instances], np.int32)
-        return self._inverse.copy(), mat_start
+        return self._rows[:, :16].reshape(-1, 4, 4).copy(), mat_start
+
+    def instance_rows(self, device: str | torch.device | None = None) -> torch.Tensor:
+        """The kept instance rows [I, 17] f32 (inverse transform | material
+        start, ``PackedTables.inst_rows``' layout) on ``device`` (None = the
+        CUDA card), as a new tensor: the tick's one upload. A copy to the
+        card leaves from a kept pinned block without waiting for the frames
+        queued before it."""
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            return self._upload(self._rows, dev)
+        return torch.from_numpy(self._rows.copy())
 
     def instance_arrays(self, device: str | torch.device | None = None) -> Instances:
         """The instance table on ``device`` (None = the CUDA card): the
@@ -278,7 +334,7 @@ class SceneBuilder:
         return Instances(
             inverse_transform=up(inv),
             material_start=up(mat_start),
-            mesh_index=tuple(int(r.mesh) for r in self._instances),
+            mesh_index=self.mesh_index,
         )
 
     def build(
@@ -372,7 +428,7 @@ class SceneBuilder:
         instances = Instances(
             inverse_transform=_t(inv),
             material_start=_t(mat_start),
-            mesh_index=tuple(int(r.mesh) for r in self._instances),
+            mesh_index=self.mesh_index,
         )
         h_tri_attr = np.concatenate(
             [np.asarray(a, np.float32) for a in (*h_n, *h_uv)]
@@ -380,8 +436,7 @@ class SceneBuilder:
             axis=1,
         )
         packed = self._packed_tables(
-            h_tri_attr, inv, mat_start, albedo, specular, width, height,
-            offset, skybox,
+            h_tri_attr, albedo, specular, width, height, offset, skybox,
         )
         if texels_u8.shape[0] > FLAT_TEXEL_MIN:
             w32 = (
@@ -438,8 +493,6 @@ class SceneBuilder:
     def _packed_tables(
         self,
         h_tri_attr: np.ndarray,
-        inv: np.ndarray,
-        mat_start: np.ndarray,
         albedo: np.ndarray,
         specular: np.ndarray,
         tex_width: np.ndarray,
@@ -448,13 +501,7 @@ class SceneBuilder:
         skybox: int,
     ) -> PackedTables:
         """The gather-friendly tables (``PackedTables``), built on the host."""
-        if self._instances:
-            inst_rows = np.concatenate(
-                [inv.reshape(-1, 16), mat_start.astype(np.float32)[:, None]],
-                axis=1,
-            )
-        else:
-            inst_rows = np.zeros((1, 17), np.float32)
+        inst_rows = self._rows.copy() if self._instances else np.zeros((1, 17), np.float32)
 
         texrec = lambda ti: np.stack(
             [

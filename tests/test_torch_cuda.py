@@ -1371,7 +1371,9 @@ def test_as_device_scene_lands_on_card():
 def test_entry_frame_matches_plain_on_card():
     """``entry()``'s frame: one K2.2 launch (the default instantiation),
     which holds against ``render_fused_plain`` on the same inputs by the
-    plane rule; a finite 192x256 frame on the card."""
+    plane rule; a finite 192x256 frame on the card. The frame goes through
+    its frame plan: the launch is recorded from the frame's pieces
+    (``render_fused_camera``), whose image the plan's equals bit for bit."""
     from chip_smoke import compare_options
 
     from clraytracer_tpu_torch import entry
@@ -1390,10 +1392,14 @@ def test_entry_frame_matches_plain_on_card():
     recorder.launches, recorder.variant_launches = 0, {}
     rf.render_cuda = recorder
     try:
-        img = fn(scene, frame)
+        pieces, _ = rf.render_fused_camera(scene, frame, 256, 192, 2, post=True)
         torch.cuda.synchronize()
     finally:
         rf.render_cuda = real
+    frames = rf.render_plan.frames + rf.render_plan.builds
+    img = fn(scene, frame)
+    assert rf.render_plan.frames + rf.render_plan.builds == frames + 1
+    assert torch.equal(img, pieces)
     assert img.shape == (192, 256, 3) and img.device == dev
     assert torch.isfinite(img).all()
     (args, kw, out), = rec
@@ -2116,3 +2122,152 @@ def test_engine_shadowed_museum_frames_and_picks_on_card():
     assert sum(bool(p.hit) for p in picks) == 4
     assert not [xy for p, xy in zip(picks, xy)
                 if check.pick_disagrees(p, ref.pick(pose, cfg, *xy))]
+
+
+# ---------------------------------------------------------------------------
+# the kept frame plan (ops/render_fused.render_plan): render_frame's whole
+# camera-mode frames on the card from launch parameters made once
+# ---------------------------------------------------------------------------
+
+
+def _plan_counts() -> tuple[int, int]:
+    return rf.render_plan.builds, rf.render_plan.frames
+
+
+def _pieces(scene, frame, cfg: RenderConfig) -> torch.Tensor:
+    """``render_frame``'s fused frame with the plan bypassed: its pieces,
+    ``render_fused_camera`` (tables, camera row, K2.2, the finish)."""
+    img, layout = rf.render_fused_camera(
+        scene, frame, cfg.width, cfg.height, cfg.bounces, enable_shadows=cfg.enable_shadows,
+        gi_seed=cfg.gi_seed if cfg.enable_gi else None, post=cfg.enable_post)
+    if cfg.enable_post:
+        return img
+    return rf.untile(img, ("strip",) + layout, cfg.height, cfg.width).permute(1, 2, 0)
+
+
+#: (option scene, atlas mode, shadows, GI seed, post)
+PLAN_CASES = [
+    ("sphere", 0, False, None, True), ("atlas", 1, False, None, True),
+    ("atlas65", 2, False, None, True), ("ground", 0, True, None, True),
+    ("atlas", 1, True, 5, True), ("sphere", 0, False, 3, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,mode,shadows,gi_seed,post", PLAN_CASES)
+def test_frame_plan_bit_equal_to_the_pieces_on_card(spec, mode, shadows, gi_seed, post):
+    """``render_frame`` through the kept plan, in atlas modes 0/1/2, with
+    shadows, with GI (a new seed needs no new plan) and without post: the
+    first frame makes the plan, the next ones are served by it, one K2.2
+    launch of the case's instantiation a frame, each image bit-equal to
+    the pieces' (``render_fused_camera``)."""
+    import dataclasses
+
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    scene = option_scene(spec, device=dev)
+    frame = option_frame(spec, W, H)
+    assert rf.atlas_mode_of(scene) == mode
+    cfg = RenderConfig(width=W, height=H, enable_shadows=shadows, enable_post=post,
+                       enable_gi=gi_seed is not None, gi_seed=gi_seed or 0)
+    name = rf.variant(mode, shadows, gi_seed is not None)
+    for k in range(3):
+        if k == 2 and gi_seed is not None:
+            cfg = dataclasses.replace(cfg, gi_seed=gi_seed + 1)
+        counts, before = _plan_counts(), dict(rf.render_cuda.variant_launches)
+        img = trender.render_frame(scene, frame, cfg)
+        after = _plan_counts()
+        assert (after[0] - counts[0], after[1] - counts[1]) == ((1, 0) if k == 0 else (0, 1))
+        assert rf.render_cuda.variant_launches[name] == before.get(name, 0) + 1
+        assert _plan_counts() == after
+        assert torch.equal(img, _pieces(scene, frame, cfg)), k
+    assert img.shape == (H, W, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["museum160k", "museum160k-shadows"])
+def test_engine_walk_through_the_frame_plan_on_card(config):
+    """The benchmark's museum (atlas mode 1) and shadowed museum through
+    ``Engine`` at 1920x1080 under the 80 ms watchdog, 20 frames of the
+    walk's loop (an instance turned a degree a tick, a new pose a frame):
+    one plan made and 19 frames served by it, one K2.2 launch a frame, each
+    frame kept by reference and still bit-equal, after the loop, to the
+    pieces' image of its own scene and camera (a fresh image every frame).
+    Then a new plan, bit-equal to the pieces, after a material edit
+    (``refresh_packed``), a change of bounces and a change of size."""
+    import dataclasses
+    import json
+    import math
+
+    import numpy as np
+
+    from clraytracer_tpu_torch.ops.shade import refresh_packed
+    from rtbench import port
+    from rtbench.cells import HERE
+    from rtbench.poses import path
+    from rtbench.scenes import museum
+    from rtbench.scenes.spec import rotation_y
+
+    dev = _card()
+    cfg = json.loads((HERE / "configs" / f"{config}.json").read_text())
+    spec = museum.build(cfg, 2**31 + 23)
+    k = int(cfg["animate"]["instance"])
+    eng = port.engine(spec, cfg, dev, 80.0)
+    poses = path(cfg["path"], 240)
+    frames, pieces = [], []
+    counts, launches = _plan_counts(), rf.render_cuda.launches
+    for i in range(20):
+        eng.set_instance_transform(
+            k, (rotation_y(math.radians(i)) @ spec.instances[k].transform).astype(np.float32))
+        eng.tick()
+        port.set_pose(eng, poses[12 * i])
+        frames.append(eng.render())
+        frame = trender.frame_inputs_from_camera(eng.camera, eng.sun_angle)
+        pieces.append(_pieces(eng.scene, frame, eng.config))
+    after = _plan_counts()
+    assert (after[0] - counts[0], after[1] - counts[1]) == (1, 19)
+    assert rf.render_cuda.launches - launches == 40  # the frames' and the pieces'
+    assert all(torch.equal(a, b) for a, b in zip(frames, pieces))
+    assert len({f.data_ptr() for f in frames}) == 20
+    assert not torch.equal(frames[0], frames[1])
+
+    def edited(step: str):
+        counts = _plan_counts()
+        img = eng.render()
+        frame = trender.frame_inputs_from_camera(eng.camera, eng.sun_angle)
+        assert torch.equal(img, _pieces(eng.scene, frame, eng.config)), step
+        after = _plan_counts()
+        assert (after[0] - counts[0], after[1] - counts[1]) == (1, 0), step
+        return img
+
+    mats = eng.scene.materials
+    eng.scene = refresh_packed(dataclasses.replace(
+        eng.scene, materials=dataclasses.replace(mats, albedo=mats.albedo * 0.5)))
+    assert not torch.equal(edited("material edit"), frames[-1])
+    eng.config = dataclasses.replace(eng.config, bounces=1)
+    edited("bounces")
+    eng.config = dataclasses.replace(eng.config, width=1280, height=720)
+    eng.camera = dataclasses.replace(eng.camera, width=1280, height=720)
+    assert edited("size").shape == (720, 1280, 3)
+
+
+@pytest.mark.cuda
+def test_other_frames_take_todays_path_on_card():
+    """Row windows, the split, more samples and FXAA do not take the frame
+    plan: ``render_plan`` makes and serves nothing while they launch K2.2."""
+    from chip_smoke import option_frame, option_scene
+
+    dev = _card()
+    scene = option_scene("sphere", device=dev)
+    frame = option_frame("sphere", W, H)
+    trender.render_frame(scene, frame, RenderConfig(width=W, height=H))  # a plan kept
+    counts, launches = _plan_counts(), rf.render_cuda.launches
+    rf.render_fused_camera(scene, frame, W, H, 2, row0=40, local_height=48)
+    rf.render_fused_camera(scene, frame, W, H, 2, split_rebin=True)
+    for cfg in (RenderConfig(width=W, height=H, samples=2),
+                RenderConfig(width=W, height=H, enable_fxaa=True)):
+        assert trender.render_frame(scene, frame, cfg).shape == (H, W, 3)
+    torch.cuda.synchronize()
+    assert _plan_counts() == counts
+    assert rf.render_cuda.launches - launches == 1 + 2 + 2 + 1

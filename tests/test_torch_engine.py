@@ -239,3 +239,102 @@ def test_engine_refuses_what_it_cannot_run():
         pytest.skip("a card is present: device=None is the card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(_recipe(SceneBuilder, uv_sphere, gradient_sky))
+
+
+@pytest.mark.parametrize("n", [3, 40])
+def test_builder_rows_equal_a_fresh_builds(n):
+    """The builder's kept instance rows (``instance_rows``, the tick's one
+    upload) after transform edits and an ``add_instance`` equal bit for
+    bit the instance rows of a scene built afresh from the same builder
+    (``shade._inst_rows`` of its leaves, and its packed rows); the tick
+    hands them to the packed object, the kernel tables and, as a view, the
+    instance table, whose material starts stay the same tensor until a new
+    instance comes."""
+    b = _pool_builder(n) if n > 3 else _recipe(SceneBuilder, uv_sphere, gradient_sky)
+    while len(b.mesh_index) < n:
+        b.add_instance(0, tm.translation(1.0 * len(b.mesh_index), 0.0, 0.0))
+    eng = Engine(b, RenderConfig(width=W, height=H), CameraConfig(position=(0.0, 0.0, 8.0)),
+                 tracer="best", device="cpu")
+    eng.start()
+    for step, k in enumerate((1, n - 1, 1)):
+        eng.set_instance_transform(k, tm.rotation_y(0.2 * step) @ tm.translation(0.1, step, 0.0))
+        starts = eng.scene.instances.material_start
+        eng.tick()
+        pk, inst = eng.scene.packed, eng.scene.instances
+        assert tr.kernel_tables(eng.scene).inst is pk.inst_rows
+        assert inst.inverse_transform.data_ptr() == pk.inst_rows.data_ptr()
+        assert inst.material_start is starts and inst.mesh_index is b.mesh_index
+        fresh = b.build(device="cpu")
+        for rows in (b.instance_rows(device="cpu"), pk.inst_rows):
+            assert rows.numpy().tobytes() == shade._inst_rows(fresh).numpy().tobytes()
+            assert rows.numpy().tobytes() == fresh.packed.inst_rows.numpy().tobytes()
+    b.add_instance(0, tm.translation(0.0, -2.0, 1.0))
+    eng._instances_dirty = True
+    eng.tick()
+    fresh = b.build(device="cpu")
+    assert eng.scene.instances.mesh_index == fresh.instances.mesh_index
+    assert torch.equal(eng.scene.instances.material_start, fresh.instances.material_start)
+    assert eng.scene.packed.inst_rows.numpy().tobytes() == shade._inst_rows(fresh).numpy().tobytes()
+    assert torch.equal(tr.kernel_tables(eng.scene).ranges, tr.kernel_tables(fresh).ranges)
+
+
+@pytest.mark.parametrize("size", [(1920, 1080), (1249, 720)])
+def test_kept_projection_camera_row_bit_equal(size):
+    """``Engine``'s frame (a ``render.CameraFrame``: the projection's
+    inverse kept for the camera's configuration and size) gives the fused
+    kernel's camera row bit-equal to ``camera_row(frame_inputs_from_camera
+    (camera, sun))`` at each of the museum walk's 240 poses; the kept
+    inverse is one array over the walk."""
+    import json
+
+    from clraytracer_tpu_torch.ops import render_fused as rf
+    from clraytracer_tpu_torch.render import frame_inputs_from_camera
+    from rtbench import port
+    from rtbench.cells import HERE
+    from rtbench.poses import path
+
+    cfg = json.loads((HERE / "configs" / "museum160k.json").read_text())
+    w, h = size
+    eng = Engine(_recipe(SceneBuilder, uv_sphere, gradient_sky),
+                 RenderConfig(width=w, height=h, sun_angle=float(cfg["sun_angle"])),
+                 device="cpu")
+    kept = eng._frame().inverse_projection
+    for pose in path(cfg["path"], 240):
+        port.set_pose(eng, pose)
+        frame = eng._frame()
+        assert frame.inverse_projection is kept
+        got = frame.kernel_row()
+        want = rf.camera_row(frame_inputs_from_camera(eng.camera, eng.sun_angle))
+        assert np.array(got.cam, np.float64).tobytes() == np.array(want.cam, np.float64).tobytes()
+        assert got.sun == want.sun
+
+
+def test_frame_plans_kept_across_instance_edits_alone():
+    """The frame plans (``render_fused.render_plan``) are kept with the
+    frame tables: an instance edit hands the same plans on, a material edit
+    (``refresh_packed``) starts none; the options make the key, a new GI
+    seed does not."""
+    from clraytracer_tpu_torch.ops import render_fused as rf
+
+    eng = _port_engine("best")
+    eng.start()
+    eng.render()
+    plans = tr.kept_tables(eng.scene).plans
+    eng.set_instance_transform(0, tm.translation(0.2, 0.1, 0.0))
+    eng.tick()
+    assert tr.kept_tables(eng.scene).plans is plans
+    assert tr.kept_tables(eng.scene, build=False).plans is plans
+    mats = eng.scene.materials
+    eng.scene = shade.refresh_packed(dataclasses.replace(
+        eng.scene, materials=dataclasses.replace(mats, albedo=mats.albedo * 0.5)))
+    assert tr.kept_tables(eng.scene).plans is not plans
+    key = rf.plan_key(W, H, 2, post=True)
+    assert rf.plan_key(W, H, 2, gi_seed=3) == rf.plan_key(W, H, 2, gi_seed=4)
+    others = [rf.plan_key(W + 8, H, 2, post=True), rf.plan_key(W, H + 8, 2, post=True),
+              rf.plan_key(W, H, 1, post=True), rf.plan_key(W, H, 2, True, post=True),
+              rf.plan_key(W, H, 2, gi_seed=0, post=True), rf.plan_key(W, H, 2)]
+    assert key not in others and len(set(others)) == len(others)
+    # the CPU runs the plain versions: no plan is made there
+    counts = (rf.render_plan.builds, rf.render_plan.frames)
+    assert rf.render_plan(eng.scene, None, W, H, 2) is None
+    assert (rf.render_plan.builds, rf.render_plan.frames) == counts
